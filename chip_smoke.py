@@ -1,0 +1,521 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``kvzip_tpu_torch``) on one card.
+
+    python3 chip_smoke.py
+
+1. Card: prints ``nvidia-smi``'s name and power limit; fails without CUDA.
+2. Build: builds the CUDA kernels K1-K4 from ``kvzip_tpu_torch/csrc``.
+3. Kernel parity: each kernel against its plain PyTorch version (computed
+   in float32 from the same bf16 inputs) at every shape the main path gives
+   it, through ``kvzip_tpu_torch.ops.parity`` (tolerances relative to the
+   reference's own size), which must also reject a reference with one
+   split of the work left out; with the kernel's, the plain version's and,
+   where one PyTorch call computes the same function, that call's time
+   (CUDA events), beside the least time the card could take for the work.
+4. Main path at the full width of qwen2.5-7b (28 layers, random bf16
+   weights from a seed) and a 16384-token context, through the engine's
+   entry points: prefill, scoring, a greedy answer on the dense cache,
+   an all-rows-kept pool held against it (``allkept_attention`` per layer
+   on the real KV, ``allkept_check`` on the logits), prune(0.3, "pair"),
+   three queries on the pool, and the full-pool baseline. The launch counters are zeroed just before and read just
+   after; every kernel must have run.
+5. Prints the kernels line, then as the last line
+   ``{"ok": true, "device": {...}}``.
+
+Any failure raises, and the script exits non-zero without the last line.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+MODEL = "qwen2.5-7b"
+CTX = 16384
+NEW_TOKENS = 32
+SEED = 0
+# H100 SXM data-sheet peaks (dense bf16 tensor cores, HBM3)
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+
+
+def log(**kw):
+    print(json.dumps(kw), flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of fn() over iters calls (CUDA events)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(flops: float, nbytes: float):
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
+
+
+# ---------------------------------------------------------------- kernels
+def kernel_parity(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int):
+    """K1-K4 against their plain versions at every shape the main path gives
+    them, through ``ops.parity``. At one shape each the same gate must also
+    reject a reference with a piece of the work left out (one 64-key tile,
+    or K2's last 16 queries), which shows it would catch a lost split.
+    Times are taken at the first shape of each kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from kvzip_tpu_torch.ops import (OUT_RTOL, SCORE_RTOL, flash, parity, pool_decode,
+                                     ragged_decode, score_kernel)
+    from kvzip_tpu_torch.pool import POOL_ALIGN, plan_offsets
+
+    L, H, Hkv, D = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = H // Hkv
+    scale = D ** -0.5
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def sdpa(q, k, v, mask=None):
+        # (T, H, D) queries against (Hkv, S, D) keys, GQA inside the call
+        return F.scaled_dot_product_attention(
+            q.transpose(0, 1)[None], k[None], v[None], attn_mask=mask,
+            enable_gqa=True)
+
+    cycle = iter(range(10 ** 9))
+
+    def next_layer():
+        """Cycle through the layers so each launch reads its rows from
+        device memory, as a decode step does, not from the 50 MB L2."""
+        return next(cycle) % L
+
+    checks = {}
+
+    def hold(name, shape, got, want, rtol, perturbed=None):
+        r = dict(parity(got, want, rtol), shape=shape)
+        if perturbed is not None:
+            p = parity(got, perturbed, rtol)
+            r.update(rejects_perturbed=not p["ok"], perturbed_rel_rms_err=p["rel_rms_err"])
+        checks.setdefault(name, []).append(r)
+
+    out = []
+    prefill_len = sink + ctx_tokens
+
+    # K1 at the prefill's largest chunk (4096 queries after 12288 rows) and
+    # at a scoring window (2304 queries after the whole prefill)
+    k, v = rn(Hkv, capacity, D), rn(Hkv, capacity, D)
+    kf, vf = k.float(), v.float()
+    for T, base in ((4096, 12288), (2304, prefill_len)):
+        q = rn(T, H, D)
+        lens = torch.full((Hkv,), base, dtype=torch.int32, device=dev)
+        got = flash.flash_attend(q, k, v, lens, scale=scale)
+        want = flash.flash_attend_plain(q.float(), kf, vf, lens, scale=scale)
+        drop = None
+        if T == 4096:
+            drop = flash.flash_attend_plain(q.float(), kf, vf, lens - 64, scale=scale)
+        hold("flash_attend", f"q ({T},{H},{D}) base {base} C {capacity}", got, want,
+             OUT_RTOL, drop)
+        if T != 4096:
+            continue
+        S = base + T
+        ke, ve = k[:, :S].contiguous(), v[:, :S].contiguous()
+        mask = torch.arange(S, device=dev)[None] < base + torch.arange(T, device=dev)[:, None] + 1
+        pairs = H * (T * base + T * (T + 1) // 2)
+        b = bound(4 * D * pairs, 2 * (2 * T * H * D) + 2 * 2 * Hkv * S * D)
+        out.append(dict(
+            name="flash_attend", route="cuda", source="kvzip_tpu_torch/csrc/flash.cu",
+            replaces="kvzip_tpu/ops/flash.py:173",
+            ms=time_ms(lambda: flash.flash_attend(q, k, v, lens, scale=scale), 10),
+            plain_ms=time_ms(lambda: flash.flash_attend_plain(q, k, v, lens, scale=scale), 2, 1),
+            bound_ms=b[0], bound_by=b[1],
+            library_ms=time_ms(lambda: sdpa(q, ke, ve, mask), 10)))
+        del ke, ve, mask
+    del q, k, v, kf, vf
+
+    # K2 at a scoring chunk: 2304 padded repeat queries, a 2048-wide window
+    T, s_ctx, ctx_len = 2304, 2048, 2000
+    q_valid = ctx_len + 60
+    K = sink + s_ctx + T
+    q, keys = rn(T, H, D), rn(Hkv, K, D)
+    kw = dict(sink=sink, s_ctx=s_ctx, scale=scale, model_dtype=torch.bfloat16)
+    got = score_kernel.fused_scores(q, keys, ctx_len, q_valid, **kw)
+    want, drop = (score_kernel.fused_scores_plain(q.float(), keys.float(), ctx_len, n, **kw)
+                  for n in (q_valid, q_valid - 16))
+    hold("fused_scores", f"q ({T},{H},{D}) keys ({Hkv},{K},{D})", got, want, SCORE_RTOL,
+         drop)
+    b = bound(2 * D * K * H * q_valid, 2 * (T * H * D + Hkv * K * D) + 4 * Hkv * s_ctx)
+    out.append(dict(
+        name="fused_scores", route="cuda", source="kvzip_tpu_torch/csrc/score.cu",
+        replaces="kvzip_tpu/ops/score_kernel.py:124",
+        ms=time_ms(lambda: score_kernel.fused_scores(q, keys, ctx_len, q_valid, **kw), 10),
+        plain_ms=time_ms(lambda: score_kernel.fused_scores_plain(
+            q, keys, ctx_len, q_valid, **kw), 2, 1),
+        bound_ms=b[0], bound_by=b[1], library_ms=None))
+    del q, keys
+
+    # K4 at decode steps on the dense cache (T = 1, and T = 4 for a query's
+    # last pieces): all 28 layers' stacks, cycled layer by layer in timing
+    # so every launch reads its rows from device memory
+    kc, vc = rn(L, Hkv, capacity, D), rn(L, Hkv, capacity, D)
+    kf, vf = kc[0].float(), vc[0].float()
+    lens = torch.full((Hkv,), prefill_len, dtype=torch.int32, device=dev)
+    for T in (1, 4):
+        q = rn(T, H, D)
+        got = ragged_decode.ragged_decode_attend(q, kc[0], vc[0], lens, scale=scale)
+        want = ragged_decode.ragged_decode_attend_plain(q.float(), kf, vf, lens, scale=scale)
+        drop = None
+        if T == 1:
+            drop = ragged_decode.ragged_decode_attend_plain(q.float(), kf, vf, lens - 64,
+                                                            scale=scale)
+        hold("ragged_decode_attend", f"q ({T},{H},{D}) live {prefill_len} C {capacity}",
+             got, want, OUT_RTOL, drop)
+        if T != 1:
+            continue
+        S = prefill_len + T  # one query sees every live row: no mask needed
+
+        def k4():
+            l = next_layer()
+            return ragged_decode.ragged_decode_attend(q, kc[l], vc[l], lens, scale=scale)
+
+        def k4_library():
+            l = next_layer()
+            return sdpa(q, kc[l, :, :S], vc[l, :, :S])
+
+        b = bound(4 * D * H * T * S, 2 * 2 * Hkv * S * D + 2 * 2 * T * H * D)
+        out.append(dict(
+            name="ragged_decode_attend", route="cuda",
+            source="kvzip_tpu_torch/csrc/ragged_decode.cu",
+            replaces="kvzip_tpu/ops/ragged_decode.py:125",
+            ms=time_ms(k4, 56),
+            plain_ms=time_ms(lambda: ragged_decode.ragged_decode_attend_plain(
+                q, kc[0], vc[0], lens, scale=scale), 5, 1),
+            bound_ms=b[0], bound_by=b[1],
+            library_ms=time_ms(k4_library, 56)))
+    del kc, vc, kf, vf
+
+    # K3 at decode steps on a pruned pool (~30% of each head's rows kept,
+    # a partly filled tail): T = 1, and T = 4 and 16 for a query's pieces
+    rows_h = torch.randint(int(0.2 * prefill_len), int(0.4 * prefill_len), (L, Hkv),
+                           generator=torch.Generator().manual_seed(SEED))
+    per_layer = rows_h.sum(1).numpy()
+    off, alloc, max_rows = plan_offsets(per_layer, POOL_ALIGN)
+    rh = torch.full((alloc,), -1, dtype=torch.int32)
+    for l in range(L):
+        rh[int(off[l]):int(off[l]) + int(per_layer[l])] = torch.repeat_interleave(
+            torch.arange(Hkv, dtype=torch.int32), rows_h[l])
+    rh_drop = rh.clone()
+    rh_drop[int(off[0]):int(off[0]) + 64] = -1
+    kp, vp = rn(alloc, D), rn(alloc, D)
+    kt, vt = rn(L, Hkv, tail_cap, D), rn(L, Hkv, tail_cap, D)
+    pool_f = (kp.float(), vp.float())
+    tail_f = (kt.float(), vt.float())
+    geo = (torch.from_numpy(off).to(dev), torch.from_numpy(per_layer.astype("int32")).to(dev))
+    meta, meta_drop = (rh.to(dev),) + geo, (rh_drop.to(dev),) + geo
+    tail_len = 40
+    live = float(per_layer.mean())
+    for T in (1, 4, 16):
+        q = rn(T, H, D)
+        for l in (0, L // 2, L - 1):
+            got = pool_decode.pool_decode_attend(q, kp, vp, *meta, kt, vt, tail_len, l,
+                                                 scale=scale, max_rows=max_rows)
+            want = pool_decode.pool_decode_attend_plain(
+                q.float(), *pool_f, *meta, *tail_f, tail_len, l, scale=scale)
+            drop = None
+            if T == 1 and l == 0:
+                drop = pool_decode.pool_decode_attend_plain(
+                    q.float(), *pool_f, *meta_drop, *tail_f, tail_len, l, scale=scale)
+            hold("pool_decode_attend",
+                 f"q ({T},{H},{D}) layer {l} live rows {int(per_layer[l])} tail {tail_len}",
+                 got, want, OUT_RTOL, drop)
+        if T != 1:
+            continue
+        keys3 = live + Hkv * (tail_len + T)
+        b = bound(4 * D * G * T * keys3, 2 * 2 * keys3 * D + 4 * live + 2 * 2 * T * H * D)
+        out.append(dict(
+            name="pool_decode_attend", route="cuda",
+            source="kvzip_tpu_torch/csrc/pool_decode.cu",
+            replaces="kvzip_tpu/ops/pool_decode.py:424",
+            ms=time_ms(lambda: pool_decode.pool_decode_attend(
+                q, kp, vp, *meta, kt, vt, tail_len, next_layer(), scale=scale,
+                max_rows=max_rows), 56),
+            plain_ms=time_ms(lambda: pool_decode.pool_decode_attend_plain(
+                q, kp, vp, *meta, kt, vt, tail_len, 0, scale=scale), 5, 1),
+            bound_ms=b[0], bound_by=b[1], library_ms=None))
+    del kp, vp, kt, vt, pool_f, tail_f
+
+    log(phase="kernel_parity_checks", checks=checks)
+    for r in out:
+        rows = checks[r["name"]]
+        bad = [c["shape"] for c in rows if not c["ok"]]
+        if bad:
+            raise AssertionError(f"{r['name']} disagrees with its plain version at {bad}")
+        if not all(c.get("rejects_perturbed", True) for c in rows):
+            raise AssertionError(f"{r['name']}: the gate passes a perturbed reference")
+        worst = max(rows, key=lambda c: c["worst_to_tol"])
+        r.update(max_abs_err=max(c["max_abs_err"] for c in rows),
+                 rms_want=worst["rms_want"], worst_to_tol=worst["worst_to_tol"])
+    return out
+
+
+def allkept_attention(cache, pool, num_heads: int):
+    """Attention on the all-rows-kept pool against the dense cache, layer by
+    layer on the same q and the same T new rows (written at each head's
+    length in a copy of the dense layer, and at the start of a copy of the
+    pool's tail). The pool holds the dense cache's rows, so K3 on it and K4
+    (T = 1) or K1 (T = 16) on the dense cache each pass ``ops.parity``
+    against the dense float32 reference. Its launches are not counted."""
+    import torch
+
+    from kvzip_tpu_torch.ops import (LAUNCHES, OUT_RTOL, flash, parity, pool_decode,
+                                     ragged_decode)
+
+    saved = dict(LAUNCHES)
+    L, Hkv, C, D = cache.k.shape
+    scale = D ** -0.5
+    gen = torch.Generator(device=cache.k.device).manual_seed(SEED + 1)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=cache.k.device).to(cache.k.dtype)
+
+    kt, vt = pool.k_tail.clone(), pool.v_tail.clone()
+    worst = dict(pool_vs_dense=0.0, dense_kernel_vs_dense=0.0)
+    max_k3_minus_dense_kernel = 0.0
+    for T in (1, 16):
+        for l in range(L):
+            q, kn, vn = rn(T, num_heads, D), rn(Hkv, T, D), rn(Hkv, T, D)
+            lens = cache.lengths[l]
+            kd, vd = cache.k[l].clone(), cache.v[l].clone()
+            for h, n in enumerate(lens.tolist()):
+                kd[h, n:n + T], vd[h, n:n + T] = kn[h], vn[h]
+            kt[l, :, :T], vt[l, :, :T] = kn, vn
+            want = ragged_decode.ragged_decode_attend_plain(q.float(), kd.float(), vd.float(),
+                                                            lens, scale=scale)
+            got3 = pool_decode.pool_decode_attend(
+                q, pool.k_pool, pool.v_pool, pool.row_head, pool.layer_off,
+                pool.layer_rows, kt, vt, 0, l, scale=scale, max_rows=pool.max_rows)
+            dense_kernel = ragged_decode.ragged_decode_attend if T <= 8 else flash.flash_attend
+            got_d = dense_kernel(q, kd, vd, lens, scale=scale)
+            for key, got in (("pool_vs_dense", got3), ("dense_kernel_vs_dense", got_d)):
+                r = parity(got, want, OUT_RTOL)
+                if not r["ok"]:
+                    raise AssertionError(f"all-kept attention, T={T} layer {l}, {key}: {r}")
+                worst[key] = max(worst[key], r["worst_to_tol"])
+            max_k3_minus_dense_kernel = max(
+                max_k3_minus_dense_kernel, (got3.float() - got_d.float()).abs().max().item())
+    LAUNCHES.update(saved)
+    stats = dict(worst_to_tol=worst, max_k3_minus_dense_kernel=max_k3_minus_dense_kernel)
+    log(phase="allkept_attention", layers=L, T=[1, 16], **stats)
+    return stats
+
+
+def teacher_forced(eng, state, seq, step: bool):
+    """Logits of every position of seq on state's cache (restored after):
+    in the engine's chunks, or one token per forward."""
+    import numpy as np
+
+    if not step:
+        return eng.forward_ids(seq, state, return_logits=True)
+    state.snapshot()
+    out = [eng.forward_ids(seq[i:i + 1], state, update_cache=True, return_logits=True)
+           for i in range(len(seq))]
+    state.restore_snapshot()
+    return np.concatenate(out)
+
+
+def allkept_check(eng, dense, full, query, dense_ans):
+    """An all-rows-kept pool holds the same KV as the dense cache, so its
+    answer must be the dense answer. Both run in bf16 through different
+    kernels (K3 against K1/K4), so logits agree only to bf16 rounding; the
+    noise floor is measured as the difference between two equivalent
+    schedules on the dense cache (chunked against token by token).
+
+    Holds: (1) teacher-forced logits of the pool agree with the dense ones
+    within twice that floor; (2) their argmax agrees wherever the dense
+    top-2 gap exceeds the pool/dense difference; (3) the free-running greedy
+    answers are equal token for token up to the first such near-tie."""
+    import numpy as np
+
+    full_ans = eng.generate_ids(query, full)
+    seq = np.concatenate([query, dense_ans])
+    l_dense = teacher_forced(eng, dense, seq, step=False)
+    l_steps = teacher_forced(eng, dense, seq, step=True)
+    l_full = teacher_forced(eng, full, seq, step=False)
+    for a in (l_dense, l_steps, l_full):
+        if not np.isfinite(a).all():
+            raise AssertionError("non-finite logits")
+    floor = float(np.abs(l_dense - l_steps).max())
+    diff = float(np.abs(l_dense - l_full).max())
+    top2 = np.sort(l_dense, axis=-1)[:, -2:]
+    gap = top2[:, 1] - top2[:, 0]
+    agree = l_dense.argmax(-1) == l_full.argmax(-1)
+    # answer token i is predicted at position len(query) - 1 + i
+    ans_gap = gap[len(query) - 1:len(query) - 1 + len(dense_ans)]
+    near = np.nonzero(ans_gap <= diff)[0]
+    first_near = int(near[0]) if len(near) else len(dense_ans)
+    mism = np.nonzero(full_ans[:len(dense_ans)] != dense_ans[:len(full_ans)])[0]
+    first_mism = int(mism[0]) if len(mism) else None
+    stats = dict(
+        noise_floor=floor, max_logit_diff=diff, logit_absmax=float(np.abs(l_dense).max()),
+        argmax_agree=f"{int(agree.sum())}/{len(agree)}",
+        greedy_equal=bool(np.array_equal(full_ans, dense_ans)),
+        first_greedy_mismatch=first_mism, first_near_tie=first_near)
+    log(phase="allkept_check", **stats)
+    if diff > 2 * floor:
+        raise AssertionError(f"all-kept pool logits differ by {diff} > 2 x {floor}")
+    if not (agree | (gap <= diff)).all():
+        raise AssertionError("all-kept pool argmax differs at a clear margin")
+    if first_mism is not None and first_mism < first_near:
+        raise AssertionError(
+            f"all-kept answer {full_ans.tolist()} departs from the dense answer "
+            f"{dense_ans.tolist()} at {first_mism}, before any near-tie")
+    return stats
+
+
+# -------------------------------------------------------------- main path
+def main_path(eng, ctx_ids, queries):
+    import numpy as np
+    import torch
+
+    from kvzip_tpu_torch.pool import build_pool_stepped
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    cfg = eng.config
+    rep = {}
+    st, rep["prefill_s"] = timed(lambda: eng.prefill(ctx_ids, do_score=False))
+    _, rep["scoring_s"] = timed(lambda: eng.scoring(st, st.ctx_ids))
+    score = st.score
+    if score.shape != (cfg.num_layers, cfg.num_kv_heads, len(ctx_ids)) \
+            or not torch.isfinite(score).all() or not (score >= 0).all():
+        raise AssertionError(f"bad scores: {tuple(score.shape)}")
+    rep["kv_bytes_dense"] = int(st.cache.used_bytes())
+
+    dense_ans, rep["dense_generate_s"] = timed(lambda: eng.generate_ids(queries[0], st))
+
+    keep_all = torch.ones((cfg.num_layers, cfg.num_kv_heads, st.ctx_len), dtype=torch.bool,
+                          device=eng.device)
+    full = dataclasses.replace(
+        st, cache=build_pool_stepped(st.cache, keep_all, st.sink, eng.decode_budget),
+        pruned=True)
+    full.snapshot()
+    rep["allkept_attention"] = allkept_attention(st.cache, full.cache, cfg.num_heads)
+    rep["allkept"] = allkept_check(eng, st, full, queries[0], dense_ans)
+    del full
+
+    (thres, ratio), rep["prune_s"] = timed(lambda: eng.prune(st, 0.3, "pair"))
+    rep["kept_ratio"] = ratio
+    rep["kv_bytes_pruned"] = int(st.cache.used_bytes())
+
+    def decode_ms_per_token(state):
+        """(t(32 new tokens) - t(2 new tokens)) / 30 per query, averaged,
+        after one warm-up call on the state."""
+        per_tok, answers = [], []
+        eng.generate_ids(queries[0], state, max_new_tokens=2)  # warm-up
+        for qids in queries:
+            ans, t_long = timed(lambda: eng.generate_ids(qids, state))
+            ans2, t_short = timed(lambda: eng.generate_ids(qids, state, max_new_tokens=2))
+            if len(ans) <= len(ans2):
+                raise AssertionError("answer stopped before the timed window")
+            per_tok.append((t_long - t_short) / (len(ans) - len(ans2)) * 1e3)
+            answers.append(ans)
+        return float(np.mean(per_tok)), answers
+
+    rep["evicted_ms_per_token"], answers = decode_ms_per_token(st)
+    if st.cache.tail_len != 0:
+        raise AssertionError("the O(1) restore left rows in the tail")
+    base = eng.synthetic_full_pool_state(st, eng.decode_budget)
+    rep["full_ms_per_token"], _ = decode_ms_per_token(base)
+    rep["answer_tokens"] = [a.tolist() for a in answers]
+    return rep
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(HERE, "kvzip_tpu_torch")):
+        sys.exit("chip_smoke.py runs from a checkout of the repository "
+                 "(kvzip_tpu_torch/ not found)")
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("no CUDA device: the smoke run needs one card")
+    sys.path.insert(0, HERE)
+    from kvzip_tpu_torch import _build
+    from kvzip_tpu_torch.config import resolve_config
+    from kvzip_tpu_torch.engine import Engine
+    from kvzip_tpu_torch.ops import LAUNCHES, reset_launches
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card_line()
+    print(card, flush=True)
+
+    t0 = time.perf_counter()
+    build_logs = _build.build_all()
+    log(phase="build", seconds=time.perf_counter() - t0,
+        ptxas=[ln.strip() for lg in build_logs.values() for ln in lg.splitlines()
+               if "registers" in ln])
+
+    cfg = resolve_config(MODEL)
+    t0 = time.perf_counter()
+    eng = Engine(MODEL, config=cfg, dtype=torch.bfloat16, device="cuda",
+                 max_new_tokens=NEW_TOKENS, seed=SEED)
+    torch.cuda.synchronize()
+    log(phase="init", seconds=time.perf_counter() - t0)
+    rng = np.random.default_rng(SEED)
+    ctx_ids = rng.integers(0, cfg.vocab_size, CTX).astype(np.int32)
+    queries = [rng.integers(0, cfg.vocab_size, 24).astype(np.int32) for _ in range(3)]
+    sink = len(eng.sys_prompt_ids)
+    capacity = -(-(sink + CTX + max(eng.score_q_pad, eng.decode_budget))
+                 // eng.capacity_granularity) * eng.capacity_granularity
+
+    t0 = time.perf_counter()
+    kernels = kernel_parity(cfg, CTX, sink, capacity, eng.decode_budget)
+    log(phase="kernel_parity", seconds=time.perf_counter() - t0)
+
+    reset_launches()
+    rep = main_path(eng, ctx_ids, queries)
+    launches = dict(LAUNCHES)
+    log(phase="main_path", model=MODEL, layers=cfg.num_layers, ctx=CTX, **rep,
+        launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    for r in kernels:
+        r["launches"] = launches[r["name"]]
+    missing = [n for n, c in launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: {missing}")
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "rms_want",
+            "worst_to_tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,381 @@
+"""KVzip engine of the port: prefill -> reconstruction scoring -> prune ->
+decode over the pool.
+
+Port of the ``Engine``/``KVState`` main path of ``kvzip_tpu/engine.py``
+(evict path, bf16 or float32 weights and KV). PyTorch runs eagerly: the
+chunk loop, the layer loop and the decode loop are Python loops, caches are
+updated in place, and the ``update_cache=False`` semantics are O(1) counter
+restores as in the reference.
+
+Device rule: on a CUDA device every attention op launches its kernel
+(K1-K4); on the CPU the same calls run the plain PyTorch versions. Both
+devices build the pool at prune time.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from kvzip_tpu_torch import prune as prune_lib
+from kvzip_tpu_torch import template as template_lib
+from kvzip_tpu_torch.cache import KVCache, init_cache, restore, snapshot
+from kvzip_tpu_torch.config import ModelConfig, resolve_config
+from kvzip_tpu_torch.models.params import init_params
+from kvzip_tpu_torch.models.transformer import check_supported, forward
+from kvzip_tpu_torch.pool import (PoolKV, build_pool_stepped, refold_pool,
+                                  synthetic_full_pool)
+from kvzip_tpu_torch.tokenizer import load_tokenizer
+
+# exact decomposition of any token count into a few chunk sizes
+CHUNK_LADDER = (16384, 4096, 1024, 256, 64, 16, 4, 1)
+POOL_LADDER = (64, 16, 4, 1)
+
+
+def ladder_split(n: int, ladder: Sequence[int] = CHUNK_LADDER) -> List[int]:
+    out: List[int] = []
+    for size in ladder:
+        while n >= size:
+            out.append(size)
+            n -= size
+    return out
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+@dataclasses.dataclass
+class KVState:
+    """One context's cache and its bookkeeping."""
+
+    cache: Union[KVCache, PoolKV]
+    kv_type: str
+    sink: int                      # system-prompt rows, never evicted
+    ctx_len: int
+    prefill_len: int
+    score: Optional[torch.Tensor] = None  # (L, Hkv, ctx_len)
+    prefill_ids: Optional[np.ndarray] = None
+    ctx_ids: Optional[np.ndarray] = None
+    pruned: bool = False
+    refolds: int = 0               # tail folds into the pool so far
+    _snap: Optional[dict] = None
+
+    def snapshot(self):
+        self._snap = snapshot(self.cache)
+
+    def restore_snapshot(self):
+        restore(self.cache, self._snap)
+
+
+class Engine:
+    """KVzip engine (reference ``kvzip_tpu.engine.Engine``, evict path)."""
+
+    def __init__(self, model_name: str, kv_type: str = "evict", *,
+                 config: Optional[ModelConfig] = None, params=None,
+                 tokenizer=None, dtype=torch.bfloat16, device="cuda",
+                 max_new_tokens: int = 512, decode_budget: int = 768,
+                 capacity_granularity: int = 512,
+                 score_chunk_size: int = 2000, seed: int = 0):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run the plain versions")
+        if self.device.type == "cuda" and dtype != torch.bfloat16:
+            raise TypeError("the CUDA kernels take bfloat16 weights and KV")
+        if kv_type != "evict":
+            raise NotImplementedError("the port covers kv_type='evict' only")
+        self.config = config or resolve_config(model_name)
+        check_supported(self.config)
+        self.name = (model_name.rstrip("/").split("/")[-1]
+                     if "/" in model_name else model_name)
+        self.kv_type = kv_type
+        self.dtype = dtype
+        self.max_new_tokens = max_new_tokens
+        self.decode_budget = max(decode_budget, max_new_tokens + 128)
+        self.capacity_granularity = capacity_granularity
+        self.score_chunk_size = score_chunk_size
+        self.score_width = _round_up(score_chunk_size, 128)
+        self.score_q_pad = self.score_width + 256
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = init_params(self.config, gen, self.device, dtype)
+        self.params = params
+        self.tokenizer = tokenizer or load_tokenizer(
+            model_name, vocab_size=self.config.vocab_size)
+        eos = template_lib.eos_ids(model_name, self.tokenizer)
+        if not eos:
+            raise ValueError(
+                f"no eos ids for {model_name!r}: the tokenizer declares "
+                "none and the template table has no entry for this family")
+        self.eos_ids = tuple(eos)
+        self.set_chat_template()
+
+    # ------------------------------------------------------------------ text
+    def encode(self, text: str) -> np.ndarray:
+        ids = self.tokenizer.encode(text, add_special_tokens=False)
+        return np.asarray(ids, np.int32).reshape(-1)
+
+    def decode(self, ids) -> str:
+        return self.tokenizer.decode(np.asarray(ids).reshape(-1),
+                                     skip_special_tokens=True)
+
+    def set_chat_template(self, task: str = "qa"):
+        prefix, postfix = template_lib.template(self.name, task)
+        self.sys_prompt_ids = self.encode(prefix)
+        self.postfix_ids = self.encode(postfix)
+
+    def apply_template(self, query: str) -> np.ndarray:
+        return np.concatenate([self.encode(f"\n\n{query.strip()}"),
+                               self.postfix_ids])
+
+    # --------------------------------------------------------------- forward
+    def _ids(self, ids: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+
+    def _forward_chunks(self, ids: np.ndarray, state: KVState,
+                        collect: str = "none") -> Optional[torch.Tensor]:
+        """Run ids through the model on the chunk ladder; maybe return
+        logits ("last" or "all")."""
+        ladder = POOL_LADDER if isinstance(state.cache, PoolKV) else CHUNK_LADDER
+        parts = []
+        pos = 0
+        for size in ladder_split(len(ids), ladder):
+            chunk = ids[pos:pos + size]
+            pos += size
+            want = collect if collect == "all" else (
+                "last" if pos == len(ids) and collect == "last" else "none")
+            res = forward(self.params, self.config, self._ids(chunk),
+                          state.cache, collect_logits=want, sink=state.sink)
+            if res.logits is not None:
+                parts.append(res.logits)
+        if collect == "all":
+            return torch.cat(parts, dim=0)
+        return parts[-1] if collect == "last" else None
+
+    # --------------------------------------------------------------- prefill
+    def prefill(self, ctx: Union[str, np.ndarray],
+                prefill_chunk_size: int = 16000, load_score: bool = False,
+                do_score: bool = True,
+                head_score_dirs: Sequence[str] = ("./head_score",)) -> KVState:
+        """Chunked prefill and (optionally) KV importance scoring."""
+        ctx_ids = self.encode(ctx) if isinstance(ctx, str) else np.asarray(ctx)
+        prefill_ids = np.concatenate([self.sys_prompt_ids, ctx_ids])
+        sink = int(len(self.sys_prompt_ids))
+        prefill_len = int(len(prefill_ids))
+        extra = max(self.score_q_pad, self.decode_budget)
+        capacity = _round_up(prefill_len + extra, self.capacity_granularity)
+        state = KVState(
+            cache=init_cache(self.config, capacity, self.dtype, self.device),
+            kv_type=self.kv_type, sink=sink, ctx_len=int(len(ctx_ids)),
+            prefill_len=prefill_len, prefill_ids=prefill_ids, ctx_ids=ctx_ids)
+        pos = 0
+        while pos < prefill_len:
+            n = min(prefill_chunk_size, prefill_len - pos)
+            if n < prefill_chunk_size and n % 256:
+                # pad the final partial chunk to a multiple of 256 (the
+                # reference's shape discipline); rolling the counters back
+                # makes the pad rows dead, and causal masking keeps them out
+                # of every real token's attention during the chunk
+                p = _round_up(n, 256)
+                buf = np.zeros((p,), np.int32)
+                buf[:n] = prefill_ids[pos:pos + n]
+                self._forward_chunks(buf, state)
+                state.cache.lengths -= p - n
+                state.cache.seen -= p - n
+            else:
+                self._forward_chunks(prefill_ids[pos:pos + n], state)
+            pos += n
+        state.snapshot()
+        if do_score:
+            self.scoring(state, ctx_ids, load_score=load_score,
+                         head_score_dirs=head_score_dirs)
+        return state
+
+    # --------------------------------------------------------------- scoring
+    def self_task(self, ctx_ids: np.ndarray, chunk_size: int = 2000,
+                  prev_postfix_size: int = 8
+                  ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """(chunk, repeat-prompt | prev-tail | postfix | chunk) pairs."""
+        chunks = [ctx_ids[i:i + chunk_size]
+                  for i in range(0, len(ctx_ids), chunk_size)]
+        out = []
+        for i, a_ids in enumerate(chunks):
+            if i == 0:
+                q_ids = self.encode("\n\nRepeat the previous context exactly.")
+            else:
+                q_ids = self.encode(
+                    "\n\nRepeat the part of the previous context exactly, "
+                    "starting with ")
+                q_ids = np.concatenate([q_ids, chunks[i - 1][-prev_postfix_size:]])
+            out.append((a_ids, np.concatenate([q_ids, self.postfix_ids, a_ids])))
+        return out
+
+    def scoring(self, state: KVState, ctx_ids: np.ndarray,
+                load_score: bool = False,
+                head_score_dirs: Sequence[str] = ("./head_score",)):
+        """KV importance scoring by context reconstruction; the scores land
+        in ``state.score`` as (L, Hkv, ctx_len)."""
+        cfg = self.config
+        if load_score:
+            state.score = prune_lib.load_head_score(
+                self.name, state.ctx_len, head_score_dirs).to(self.device)
+            return
+        # one window of slack: chunks advance by score_chunk_size but each
+        # write is score_width wide
+        score = torch.zeros(
+            (cfg.num_layers, cfg.num_kv_heads,
+             _round_up(max(state.ctx_len, 1), self.score_width) + self.score_width),
+            dtype=torch.float32, device=self.device)
+        start = state.sink
+        for a_ids, rep_ids in self.self_task(ctx_ids, self.score_chunk_size):
+            n_q = len(rep_ids)
+            if n_q > self.score_q_pad:
+                raise ValueError(
+                    f"repeat pass needs {n_q} tokens > score_q_pad "
+                    f"{self.score_q_pad}; raise score_chunk_size padding")
+            rep_padded = np.zeros((self.score_q_pad,), np.int32)
+            rep_padded[:n_q] = rep_ids
+            res = forward(self.params, cfg, self._ids(rep_padded), state.cache,
+                          scoring=True, score_start=start, score_len=len(a_ids),
+                          score_qlen=n_q, score_width=self.score_width,
+                          sink=state.sink)
+            o = start - state.sink
+            score[:, :, o:o + len(a_ids)] = res.chunk_scores[:, :, :len(a_ids)].float()
+            start += len(a_ids)
+            state.restore_snapshot()
+        if start - state.sink != state.ctx_len:
+            raise RuntimeError("scoring windows do not cover the context")
+        state.score = score[:, :, :state.ctx_len]
+
+    # ----------------------------------------------------------------- prune
+    def prune(self, state: KVState, ratio: float, level: str = "pair"
+              ) -> Tuple[float, float]:
+        """Evict to the pool layout; returns (threshold, true_ratio).
+
+        One-shot, as in the reference: the dense cache is compacted."""
+        if isinstance(state.cache, PoolKV) or state.pruned:
+            raise RuntimeError(
+                "evict-path prune is one-shot (the cache was physically "
+                "compacted)")
+        if state.score is None:
+            raise RuntimeError("run scoring() first")
+        keep, thres, true_ratio = prune_lib.prune_mask(
+            state.score, ratio, level, method="histogram")
+        state.score = None
+        dense = state.cache
+        state.cache = build_pool_stepped(dense, keep, state.sink,
+                                         self.decode_budget)
+        del dense
+        state.pruned = True
+        state.snapshot()
+        return thres, true_ratio
+
+    def synthetic_full_pool_state(self, state: KVState, tail_cap: int) -> KVState:
+        """A full-occupancy pool with the geometry of an all-rows-kept build:
+        the full-cache decode baseline, which runs through the same kernel
+        (K3) as the evicted cache."""
+        cfg = self.config
+        cache = synthetic_full_pool(
+            cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
+            state.ctx_len + state.sink, tail_cap, self.dtype, self.device)
+        st = dataclasses.replace(state, cache=cache, pruned=True)
+        st.snapshot()
+        return st
+
+    # -------------------------------------------------------------- generate
+    def _check_capacity(self, state: KVState, need: int):
+        """Fail loudly instead of writing past the cache."""
+        cache = state.cache
+        if isinstance(cache, PoolKV):
+            cap, cur = cache.k_tail.shape[2], cache.tail_len
+            if cur + need > cap:
+                raise ValueError(
+                    f"query+generation needs {need} tail rows but only "
+                    f"{cap - cur} remain (decode_budget={cap}); raise "
+                    f"decode_budget or lower max_new_tokens")
+        else:
+            cur = int(cache.lengths.max())
+            if cur + need > cache.capacity:
+                raise ValueError(
+                    f"query+generation needs {need} rows beyond {cur} but "
+                    f"capacity is {cache.capacity}; raise decode_budget")
+
+    def _maybe_refold(self, state: KVState, need: int) -> bool:
+        """Fold the committed tail into the pool when the next turn would
+        overflow it; returns whether it did."""
+        cache = state.cache
+        if not isinstance(cache, PoolKV) or \
+                cache.tail_len + need <= cache.k_tail.shape[2]:
+            return False
+        state.cache = refold_pool(cache)
+        state.refolds += 1
+        state.snapshot()
+        return True
+
+    def generate(self, query: Union[str, np.ndarray], state: KVState,
+                 update_cache: bool = False,
+                 max_new_tokens: Optional[int] = None) -> str:
+        """Greedy generation against the (compressed) cache. By default the
+        context cache is restored afterwards; ``update_cache=True`` keeps
+        the query and answer KV for multi-turn."""
+        return self.decode(self.generate_ids(query, state, update_cache,
+                                             max_new_tokens))
+
+    def generate_ids(self, query: Union[str, np.ndarray], state: KVState,
+                     update_cache: bool = False,
+                     max_new_tokens: Optional[int] = None) -> np.ndarray:
+        """:meth:`generate`, returning the answer's token ids (eos
+        excluded)."""
+        query_ids = (self.encode(query) if isinstance(query, str)
+                     else np.asarray(query))
+        max_new = max_new_tokens or self.max_new_tokens
+        need = len(query_ids) + max_new
+        # the tail only holds committed rows between generates, so folding
+        # is always sound, whatever update_cache is
+        self._maybe_refold(state, need)
+        self._check_capacity(state, need)
+        state.snapshot()
+
+        logits = self._forward_chunks(query_ids.astype(np.int32), state, "last")
+        tokens = [int(torch.argmax(logits[-1]))]
+        done = tokens[-1] in self.eos_ids
+        while not done and len(tokens) < max_new:
+            res = forward(self.params, self.config, self._ids(tokens[-1:]),
+                          state.cache, collect_logits="last", sink=state.sink)
+            tokens.append(int(torch.argmax(res.logits[-1])))
+            done = tokens[-1] in self.eos_ids
+        if done:
+            tokens = tokens[:-1]
+
+        if not update_cache:
+            state.restore_snapshot()
+        else:
+            state.prefill_ids = np.concatenate(
+                [state.prefill_ids, query_ids, tokens]).astype(np.int32)
+            state.snapshot()
+        return np.asarray(tokens, np.int32)
+
+    # --------------------------------------------------------------- __call__
+    def forward_ids(self, input_ids: np.ndarray, state: KVState,
+                    update_cache: bool = False,
+                    return_logits: bool = False) -> Optional[np.ndarray]:
+        """Plain forward; the cache is restored afterwards unless
+        ``update_cache``."""
+        if not update_cache:
+            state.snapshot()
+        logits = self._forward_chunks(np.asarray(input_ids, np.int32), state,
+                                      "all" if return_logits else "none")
+        if not update_cache:
+            state.restore_snapshot()
+        return logits.float().cpu().numpy() if return_logits else None
+
+    def prob(self, input_ids: np.ndarray, state: KVState) -> np.ndarray:
+        """Next-token probabilities for every position; restores the cache."""
+        state.snapshot()
+        logits = self._forward_chunks(np.asarray(input_ids, np.int32), state, "all")
+        state.restore_snapshot()
+        return torch.softmax(logits.float(), dim=-1).cpu().numpy()

@@ -1,0 +1,77 @@
+"""Attention ops of the port: each kernel wrapper beside its plain version.
+
+A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
+tensors it launches its hand-written kernel (``csrc/``) or raises. Every
+kernel launch adds one to ``LAUNCHES[<wrapper name>]``, so a run can show
+which kernels its path went through.
+"""
+
+from __future__ import annotations
+
+import torch
+
+LAUNCHES = {"flash_attend": 0, "fused_scores": 0, "ragged_decode_attend": 0,
+            "pool_decode_attend": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True if the call goes to the kernel, False for the plain version.
+    Mixed devices raise."""
+    devs = {t.device.type for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on mixed devices: {sorted(devs)}")
+    return devs == {"cuda"}
+
+
+HEAD_DIM = 128  # the head_dim the kernels are built for (csrc/attn_common.cuh)
+
+
+def check_kernel_args(what: str, bf16: dict, int32: dict = None) -> None:
+    """Validate a kernel call: bf16 / int32 tensors, contiguous, with the
+    head_dim the kernels are built for."""
+    for name, t in bf16.items():
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{what}: {name} must be bfloat16, got {t.dtype}")
+        if t.shape[-1] != HEAD_DIM:
+            raise ValueError(f"{what}: {name} head_dim {t.shape[-1]} != {HEAD_DIM}")
+    for name, t in (int32 or {}).items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{what}: {name} must be int32, got {t.dtype}")
+    for name, t in {**bf16, **(int32 or {})}.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# Holding a kernel's output against its plain version computed in float32
+# from the same bf16 inputs (chip_smoke.py, tests/test_torch_kernels.py).
+# An attention kernel rounds twice, p to bf16 for the p.v product and the
+# output to bf16, each by at most 2^-8 of the value. K2 rounds each logit to
+# bf16 before the softmax, and one bf16 ulp of a logit in [4, 8) moves its
+# probability by 3.2%.
+OUT_RTOL = 2.0 ** -7
+SCORE_RTOL = 2.0 ** -4
+ATOL_SHARE = 0.02       # of RMS(want): accumulation order, bf16 p's error tail
+RMS_SHARE = 2.0 ** -7   # RMS(got - want) <= RMS_SHARE * RMS(want)
+
+
+def parity(got: torch.Tensor, want: torch.Tensor, rtol: float) -> dict:
+    """Elementwise ``|got - want| <= rtol |want| + ATOL_SHARE RMS(want)``
+    (``worst_to_tol`` is the largest ratio of the two sides) and an error
+    RMS at most ``RMS_SHARE`` of the reference's, which catches an error
+    spread thin over every element (a wrong normaliser, a dropped split)."""
+    w = want.float()
+    err = (got.float() - w).abs()
+    rms = w.square().mean().sqrt().item()
+    worst = (err / (rtol * w.abs() + ATOL_SHARE * rms + 1e-30)).max().item()
+    rel_rms = err.square().mean().sqrt().item() / max(rms, 1e-30)
+    return dict(max_abs_err=err.max().item(), rms_want=rms, worst_to_tol=worst,
+                rel_rms_err=rel_rms, ok=worst <= 1.0 and rel_rms <= RMS_SHARE)
