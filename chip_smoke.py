@@ -4,28 +4,41 @@
     python3 chip_smoke.py
 
 1. Card: prints ``nvidia-smi``'s name and power limit; fails without CUDA.
-2. Build: builds the CUDA kernels K1-K4 from ``kvzip_tpu_torch/csrc``.
+2. Build: builds the CUDA kernels K1-K8 from ``kvzip_tpu_torch/csrc``.
 3. Kernel parity: each kernel against its plain PyTorch version (computed
-   in float32 from the same bf16 inputs) at every shape the main path gives
+   in float32 from the same inputs) at every shape its main path gives
    it, through ``kvzip_tpu_torch.ops.parity`` (tolerances relative to the
    reference's own size), which must also reject a reference with one
    split of the work left out; with the kernel's, the plain version's and,
-   where one PyTorch call computes the same function, that call's time
-   (CUDA events), beside the least time the card could take for the work.
-4. Main path at the full width of qwen2.5-7b (28 layers, random bf16
+   where one PyTorch call computes the same function, that call's time,
+   beside the least time the card could take for the work. A kernel's and
+   the library call's ``ms`` is device time: CUDA events around the replay
+   of a CUDA graph of many calls (``graph_ms``); the event time of the
+   same calls made back to back from Python, host gaps included, is logged
+   as ``host_ms``. Plain versions are timed back to back.
+4. bf16 main path at the full width of qwen2.5-7b (28 layers, random bf16
    weights from a seed) and a 16384-token context, through the engine's
    entry points: prefill, scoring, a greedy answer on the dense cache,
    an all-rows-kept pool held against it (``allkept_attention`` per layer
    on the real KV, ``allkept_check`` on the logits), prune(0.3, "pair"),
-   three queries on the pool, and the full-pool baseline. The launch counters are zeroed just before and read just
-   after; every kernel must have run.
-5. Prints the kernels line, then as the last line
+   three queries on the pool, and the full-pool baseline. The launch
+   counters are zeroed just before and read just after; K1-K4 must have
+   run.
+5. Quantized main path (the reference's flagship: int4 KV, W4A8 weights,
+   int8 embedding and lm_head) at the same width and context, after the
+   bf16 engine is freed: prefill, read-only int4 scoring, a dense int4
+   answer, an all-rows-kept int4 pool held against K5 on the dense int4
+   cache (``allkept_attention_int4``), prune(0.3, "pair"), three queries
+   on the int4 pool and the full int4 pool baseline. Counters zeroed
+   before and read after; K2 and K5-K8 must have run.
+6. Prints the kernels line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the last line.
 """
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -37,8 +50,11 @@ MODEL = "qwen2.5-7b"
 CTX = 16384
 NEW_TOKENS = 32
 SEED = 0
-# H100 SXM data-sheet peaks (dense bf16 tensor cores, HBM3)
+# the reference's flagship configuration (its bench.py)
+QUANT = dict(kv_quant="int4", weight_quant="w4a8", embed_quant="int8")
+# H100 SXM data-sheet peaks (dense bf16 and int8 tensor cores, HBM3)
 PEAK_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 
@@ -53,7 +69,8 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of fn() over iters calls (CUDA events)."""
+    """Mean time of fn() over iters back-to-back calls (CUDA events): the
+    device's time, or the host's where the host cannot keep up."""
     import torch
 
     for _ in range(warmup):
@@ -68,12 +85,72 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+def graph_ms(fn, iters: int) -> float:
+    """Mean device time of fn() over iters calls captured in one CUDA graph
+    and replayed: the host's launch gaps between calls are left out."""
+    import torch
+
+    fn()  # builds the kernel library and warms up outside the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del g
+    return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, iters: int) -> dict:
+    """A kernel's device time (``graph_ms``, the kernels line's ``ms``) and
+    the event time of back-to-back Python calls (``host_ms``, which also
+    counts the wrapper's host work whenever that exceeds the kernel's)."""
+    return dict(ms=graph_ms(fn, iters), host_ms=time_ms(fn, iters))
+
+
+def bound(flops: float, nbytes: float, peak_ops: float = PEAK_FLOPS):
+    t_ops, t_bytes = flops / peak_ops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
 
 
 # ---------------------------------------------------------------- kernels
+def hold_parity(checks, name, shape, got, want, rtol, perturbed=None):
+    """Record ``ops.parity`` of got against want (and, where given, whether
+    the same gate rejects a perturbed reference) under checks[name]."""
+    from kvzip_tpu_torch.ops import parity
+
+    r = dict(parity(got, want, rtol), shape=shape)
+    if perturbed is not None:
+        p = parity(got, perturbed, rtol)
+        r.update(rejects_perturbed=not p["ok"], perturbed_rel_rms_err=p["rel_rms_err"])
+    checks.setdefault(name, []).append(r)
+
+
+def verify_parity(out, checks):
+    """Fail on any disagreement or on a passed perturbation; fold each
+    kernel's worst check into its entry of the kernels line."""
+    log(phase="kernel_parity_checks", checks=checks)
+    for r in out:
+        rows = checks[r["name"]]
+        bad = [c["shape"] for c in rows if not c["ok"]]
+        if bad:
+            raise AssertionError(f"{r['name']} disagrees with its plain version at {bad}")
+        if not all(c.get("rejects_perturbed", True) for c in rows):
+            raise AssertionError(f"{r['name']}: the gate passes a perturbed reference")
+        if not any("rejects_perturbed" in c for c in rows):
+            raise AssertionError(f"{r['name']}: no perturbed reference was held")
+        worst = max(rows, key=lambda c: c["worst_to_tol"])
+        r.update(max_abs_err=max(c["max_abs_err"] for c in rows),
+                 rms_want=worst["rms_want"], worst_to_tol=worst["worst_to_tol"])
+    return out
+
+
 def kernel_parity(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int):
     """K1-K4 against their plain versions at every shape the main path gives
     them, through ``ops.parity``. At one shape each the same gate must also
@@ -83,7 +160,7 @@ def kernel_parity(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int)
     import torch
     import torch.nn.functional as F
 
-    from kvzip_tpu_torch.ops import (OUT_RTOL, SCORE_RTOL, flash, parity, pool_decode,
+    from kvzip_tpu_torch.ops import (OUT_RTOL, SCORE_RTOL, flash, pool_decode,
                                      ragged_decode, score_kernel)
     from kvzip_tpu_torch.pool import POOL_ALIGN, plan_offsets
 
@@ -111,12 +188,8 @@ def kernel_parity(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int)
 
     checks = {}
 
-    def hold(name, shape, got, want, rtol, perturbed=None):
-        r = dict(parity(got, want, rtol), shape=shape)
-        if perturbed is not None:
-            p = parity(got, perturbed, rtol)
-            r.update(rejects_perturbed=not p["ok"], perturbed_rel_rms_err=p["rel_rms_err"])
-        checks.setdefault(name, []).append(r)
+    def hold(*args, **kw):
+        hold_parity(checks, *args, **kw)
 
     out = []
     prefill_len = sink + ctx_tokens
@@ -145,10 +218,10 @@ def kernel_parity(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int)
         out.append(dict(
             name="flash_attend", route="cuda", source="kvzip_tpu_torch/csrc/flash.cu",
             replaces="kvzip_tpu/ops/flash.py:173",
-            ms=time_ms(lambda: flash.flash_attend(q, k, v, lens, scale=scale), 10),
+            **kernel_ms(lambda: flash.flash_attend(q, k, v, lens, scale=scale), 10),
             plain_ms=time_ms(lambda: flash.flash_attend_plain(q, k, v, lens, scale=scale), 2, 1),
             bound_ms=b[0], bound_by=b[1],
-            library_ms=time_ms(lambda: sdpa(q, ke, ve, mask), 10)))
+            library_ms=graph_ms(lambda: sdpa(q, ke, ve, mask), 10)))
         del ke, ve, mask
     del q, k, v, kf, vf
 
@@ -167,7 +240,8 @@ def kernel_parity(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int)
     out.append(dict(
         name="fused_scores", route="cuda", source="kvzip_tpu_torch/csrc/score.cu",
         replaces="kvzip_tpu/ops/score_kernel.py:124",
-        ms=time_ms(lambda: score_kernel.fused_scores(q, keys, ctx_len, q_valid, **kw), 10),
+        **kernel_ms(lambda: score_kernel.fused_scores(q, keys, ctx_len, q_valid, **kw),
+                     10),
         plain_ms=time_ms(lambda: score_kernel.fused_scores_plain(
             q, keys, ctx_len, q_valid, **kw), 2, 1),
         bound_ms=b[0], bound_by=b[1], library_ms=None))
@@ -206,11 +280,11 @@ def kernel_parity(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int)
             name="ragged_decode_attend", route="cuda",
             source="kvzip_tpu_torch/csrc/ragged_decode.cu",
             replaces="kvzip_tpu/ops/ragged_decode.py:125",
-            ms=time_ms(k4, 56),
+            **kernel_ms(k4, 56),
             plain_ms=time_ms(lambda: ragged_decode.ragged_decode_attend_plain(
                 q, kc[0], vc[0], lens, scale=scale), 5, 1),
             bound_ms=b[0], bound_by=b[1],
-            library_ms=time_ms(k4_library, 56)))
+            library_ms=graph_ms(k4_library, 56)))
     del kc, vc, kf, vf
 
     # K3 at decode steps on a pruned pool (~30% of each head's rows kept,
@@ -255,7 +329,7 @@ def kernel_parity(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int)
             name="pool_decode_attend", route="cuda",
             source="kvzip_tpu_torch/csrc/pool_decode.cu",
             replaces="kvzip_tpu/ops/pool_decode.py:424",
-            ms=time_ms(lambda: pool_decode.pool_decode_attend(
+            **kernel_ms(lambda: pool_decode.pool_decode_attend(
                 q, kp, vp, *meta, kt, vt, tail_len, next_layer(), scale=scale,
                 max_rows=max_rows), 56),
             plain_ms=time_ms(lambda: pool_decode.pool_decode_attend_plain(
@@ -263,18 +337,208 @@ def kernel_parity(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int)
             bound_ms=b[0], bound_by=b[1], library_ms=None))
     del kp, vp, kt, vt, pool_f, tail_f
 
-    log(phase="kernel_parity_checks", checks=checks)
-    for r in out:
-        rows = checks[r["name"]]
-        bad = [c["shape"] for c in rows if not c["ok"]]
-        if bad:
-            raise AssertionError(f"{r['name']} disagrees with its plain version at {bad}")
-        if not all(c.get("rejects_perturbed", True) for c in rows):
-            raise AssertionError(f"{r['name']}: the gate passes a perturbed reference")
-        worst = max(rows, key=lambda c: c["worst_to_tol"])
-        r.update(max_abs_err=max(c["max_abs_err"] for c in rows),
-                 rms_want=worst["rms_want"], worst_to_tol=worst["worst_to_tol"])
-    return out
+    return verify_parity(out, checks)
+
+
+def kernel_parity_int4(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int):
+    """K5-K8 against their plain versions at the shapes the quantized main
+    path gives them, through ``ops.parity``: K5 at a 4096-query prefill
+    chunk after 12,288 int4 rows and at T = 1 and 4 on the dense int4
+    cache; K6 at a 2304-query scoring chunk after the whole prefill; K7 at
+    T = 1/4/16 on a ~30% int4 pool, layers 0/14/27, tail 40; K8 at T = 1,
+    16 and 256 for each of the four W4A8 linears. At one shape each the
+    gate must reject a reference with one 64-key tile (K5-K7) or one
+    128-row input group (K8) left out. Times: ``kernel_ms``; the decode-shape
+    kernels cycle over the 28 layers' stacks, so each launch reads its
+    rows or weights from device memory."""
+    import torch
+
+    from kvzip_tpu_torch.ops import OUT_RTOL, flash_int4, pool_decode, w4a8_v2
+    from kvzip_tpu_torch.ops.quant import quantize_int4
+    from kvzip_tpu_torch.pool import POOL_ALIGN, plan_offsets
+
+    L, H, Hkv, D = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G, Dp = H // Hkv, D // 2
+    scale = D ** -0.5
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    cycle = iter(range(10 ** 9))
+
+    def next_layer():
+        return next(cycle) % L
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def quant(*shape):
+        """Random N(0, 1) rows (..., D) quantized as the int4 caches hold
+        them: packed (..., D//2) uint8, bf16 scale and zero (...)."""
+        p, s_, z = quantize_int4(rn(*shape, D), pack="split")
+        return p, s_[..., 0], z[..., 0]
+
+    checks, out = {}, []
+
+    def hold(*args, **kw):
+        hold_parity(checks, *args, **kw)
+
+    prefill_len = sink + ctx_tokens
+    row_bytes = Dp + 4          # packed row + bf16 scale and zero
+
+    # K5: dense int4 cache of every layer (decode cycles over them)
+    layers = [(*quant(Hkv, capacity), *quant(Hkv, capacity)) for _ in range(L)]
+    kv0 = layers[0]
+    for T, base in ((4096, 12288), (1, prefill_len), (4, prefill_len)):
+        q = rn(T, H, D)
+        lens = torch.full((Hkv,), base, dtype=torch.int32, device=dev)
+        got = flash_int4.flash_attend_int4(q, *kv0, lens, scale=scale)
+        want = flash_int4.flash_attend_int4_plain(q.float(), *kv0, lens, scale=scale)
+        drop = None
+        if T == 4096:
+            drop = flash_int4.flash_attend_int4_plain(q.float(), *kv0, lens - 64,
+                                                      scale=scale)
+        hold("flash_attend_int4", f"q ({T},{H},{D}) base {base} C {capacity}", got, want,
+             OUT_RTOL, drop)
+        if T == 4096:
+            pairs = H * (T * base + T * (T + 1) // 2)
+            b = bound(4 * D * pairs,
+                      2 * 2 * T * H * D + 2 * Hkv * (base + T) * row_bytes)
+            out.append(dict(
+                name="flash_attend_int4", route="cuda",
+                source="kvzip_tpu_torch/csrc/flash_int4.cu",
+                replaces="kvzip_tpu/ops/flash_int4.py:354",
+                **kernel_ms(lambda: flash_int4.flash_attend_int4(q, *kv0, lens, scale=scale),
+                            10),
+                plain_ms=time_ms(lambda: flash_int4.flash_attend_int4_plain(
+                    q, *kv0, lens, scale=scale), 2, 1),
+                bound_ms=b[0], bound_by=b[1], library_ms=None))
+        elif T == 1:
+            S = base + T
+            dec_b = bound(4 * D * H * T * S, 2 * Hkv * S * row_bytes + 2 * 2 * T * H * D)
+            dec_ms = graph_ms(lambda: flash_int4.flash_attend_int4(
+                q, *layers[next_layer()], lens, scale=scale), 56)
+            out[-1].update(decode_ms=dec_ms, decode_bound_ms=dec_b[0])
+
+    # K6: a scoring chunk of 2304 padded queries after the whole prefill
+    T = 2304
+    q = rn(T, H, D)
+    extra = (*quant(T, Hkv), *quant(T, Hkv))
+    lens = torch.full((Hkv,), prefill_len, dtype=torch.int32, device=dev)
+    got = flash_int4.flash_attend_int4_extra(q, *kv0, lens, *extra, scale=scale)
+    want, drop = (flash_int4.flash_attend_int4_extra_plain(q.float(), *kv0, n, *extra,
+                                                           scale=scale)
+                  for n in (lens, lens - 64))
+    hold("flash_attend_int4_extra", f"q ({T},{H},{D}) base {prefill_len}", got, want,
+         OUT_RTOL, drop)
+    pairs = H * (T * prefill_len + T * (T + 1) // 2)
+    b = bound(4 * D * pairs, 2 * 2 * T * H * D + 2 * Hkv * (prefill_len + T) * row_bytes)
+    out.append(dict(
+        name="flash_attend_int4_extra", route="cuda",
+        source="kvzip_tpu_torch/csrc/flash_int4.cu",
+        replaces="kvzip_tpu/ops/flash_int4.py:460",
+        **kernel_ms(lambda: flash_int4.flash_attend_int4_extra(q, *kv0, lens, *extra,
+                                                               scale=scale), 10),
+        plain_ms=time_ms(lambda: flash_int4.flash_attend_int4_extra_plain(
+            q, *kv0, lens, *extra, scale=scale), 2, 1),
+        bound_ms=b[0], bound_by=b[1], library_ms=None))
+    del layers, kv0, extra
+
+    # K7: a pruned int4 pool (~30% of each head's rows), partly filled tail
+    rows_h = torch.randint(int(0.2 * prefill_len), int(0.4 * prefill_len), (L, Hkv),
+                           generator=torch.Generator().manual_seed(SEED + 2))
+    per_layer = rows_h.sum(1).numpy()
+    off, alloc, max_rows = plan_offsets(per_layer, POOL_ALIGN)
+    rh = torch.full((alloc,), -1, dtype=torch.int32)
+    for l in range(L):
+        rh[int(off[l]):int(off[l]) + int(per_layer[l])] = torch.repeat_interleave(
+            torch.arange(Hkv, dtype=torch.int32), rows_h[l])
+    rh_drop = rh.clone()
+    rh_drop[int(off[0]):int(off[0]) + 64] = -1
+    kq, ks, kz = quant(alloc)
+    vq, vs, vz = quant(alloc)
+    pool = (kq, ks.float(), kz.float(), vq, vs.float(), vz.float())
+    kt, vt = rn(L, Hkv, tail_cap, D), rn(L, Hkv, tail_cap, D)
+    geo = (torch.from_numpy(off).to(dev), torch.from_numpy(per_layer.astype("int32")).to(dev))
+    meta, meta_drop = (rh.to(dev),) + geo, (rh_drop.to(dev),) + geo
+    tail_len = 40
+    live = float(per_layer.mean())
+    for T in (1, 4, 16):
+        q = rn(T, H, D)
+        for l in (0, L // 2, L - 1):
+            got = pool_decode.pool_decode_attend_int4(q, *pool, *meta, kt, vt, tail_len, l,
+                                                      scale=scale, max_rows=max_rows)
+            want = pool_decode.pool_decode_attend_int4_plain(
+                q.float(), *pool, *meta, kt.float(), vt.float(), tail_len, l, scale=scale)
+            drop = None
+            if T == 1 and l == 0:
+                drop = pool_decode.pool_decode_attend_int4_plain(
+                    q.float(), *pool, *meta_drop, kt.float(), vt.float(), tail_len, l,
+                    scale=scale)
+            hold("pool_decode_attend_int4",
+                 f"q ({T},{H},{D}) layer {l} live rows {int(per_layer[l])} tail {tail_len}",
+                 got, want, OUT_RTOL, drop)
+        if T != 1:
+            continue
+        keys = live + Hkv * (tail_len + T)
+        b = bound(4 * D * G * T * keys,
+                  2 * live * (Dp + 8) + 4 * live + 2 * 2 * Hkv * (tail_len + T) * D
+                  + 2 * 2 * T * H * D)
+        out.append(dict(
+            name="pool_decode_attend_int4", route="cuda",
+            source="kvzip_tpu_torch/csrc/pool_decode_int4.cu",
+            replaces="kvzip_tpu/ops/pool_decode.py:340",
+            **kernel_ms(lambda: pool_decode.pool_decode_attend_int4(
+                q, *pool, *meta, kt, vt, tail_len, next_layer(), scale=scale,
+                max_rows=max_rows), 56),
+            plain_ms=time_ms(lambda: pool_decode.pool_decode_attend_int4_plain(
+                q, *pool, *meta, kt, vt, tail_len, 0, scale=scale), 5, 1),
+            bound_ms=b[0], bound_by=b[1], library_ms=None))
+    del pool, kq, vq, kt, vt
+
+    # K8: the four W4A8 linears of qwen2.5-7b as 28-layer v2 stacks with
+    # random bytes and scales (the kernel's work does not depend on them)
+    D_m, I = cfg.hidden_size, cfg.intermediate_size
+    linears = dict(wqkv=(D_m, (H + 2 * Hkv) * D), wo=(H * D, D_m), w_gateup=(D_m, 2 * I),
+                   w_down=(I, D_m))
+    timed = {}
+    for name, (IN, OUT) in linears.items():
+        half, Gp8 = OUT // 2, -(-IN // 128 // 8) * 8
+        w = dict(q4=torch.randint(0, 256, (L, IN, half), dtype=torch.uint8, device=dev,
+                                  generator=gen),
+                 s2=(torch.rand(L, 2, Gp8, half, device=dev, generator=gen) * 0.002
+                     ).to(torch.bfloat16),
+                 z2=(-0.03 + 0.002 * torch.randn(L, 2, Gp8, half, device=dev,
+                                                 generator=gen)).to(torch.bfloat16))
+        for T in (1, 16, 256):
+            x = rn(T, IN)
+            got = w4a8_v2.w4a8_matmul_stacked_v2(x, w["q4"], w["s2"], w["z2"], 0)
+            w0 = {k: v[0] for k, v in w.items()}
+            want = w4a8_v2.w4a8_jnp_v2(x.float(), w0)
+            drop = None
+            if T == 1:
+                xd = x.float().clone()
+                xd[:, :128] = 0
+                drop = w4a8_v2.w4a8_jnp_v2(xd, w0)
+            hold("w4a8_matmul_stacked_v2", f"{name} {IN}->{OUT} T {T}", got, want,
+                 OUT_RTOL, drop)
+            nbytes = IN * half + 2 * 2 * 2 * Gp8 * half + 2 * T * IN + 2 * T * OUT
+            b = bound(2 * T * IN * OUT, nbytes, PEAK_INT8_OPS)
+            timed[(name, T)] = dict(
+                **kernel_ms(lambda: w4a8_v2.w4a8_matmul_stacked_v2(
+                    x, w["q4"], w["s2"], w["z2"], next_layer()), 56 if T == 1 else 10),
+                bound_ms=b[0], bound_by=b[1])
+            if T == 1:
+                timed[(name, T)]["plain_ms"] = time_ms(lambda: w4a8_v2.w4a8_jnp_v2(x, w0),
+                                                       2, 1)
+        del w
+    # the kernels line carries one decode step's four linears at T = 1, summed
+    step = [timed[(n, 1)] for n in linears]
+    out.append(dict(
+        name="w4a8_matmul_stacked_v2", route="cuda", source="kvzip_tpu_torch/csrc/w4a8.cu",
+        replaces="kvzip_tpu/ops/w4a8_v2.py:257",
+        **{k: sum(t[k] for t in step) for k in ("ms", "host_ms", "plain_ms", "bound_ms")},
+        bound_by="bytes" if all(t["bound_by"] == "bytes" for t in step) else "operations",
+        library_ms=None, per_shape={f"{n} T {t}": v for (n, t), v in timed.items()}))
+    return verify_parity(out, checks)
 
 
 def allkept_attention(cache, pool, num_heads: int):
@@ -392,18 +656,99 @@ def allkept_check(eng, dense, full, query, dense_ans):
 
 
 # -------------------------------------------------------------- main path
-def main_path(eng, ctx_ids, queries):
-    import numpy as np
+def timed(fn):
+    """fn()'s result and its host-clock seconds between two synchronizes."""
     import torch
 
-    from kvzip_tpu_torch.pool import build_pool_stepped
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = fn()
-        torch.cuda.synchronize()
-        return r, time.perf_counter() - t0
+
+def decode_ms_per_token(eng, state, queries):
+    """(t(32 new tokens) - t(2 new tokens)) / 30 per query, averaged,
+    after one warm-up call on the state."""
+    import numpy as np
+
+    per_tok, answers = [], []
+    eng.generate_ids(queries[0], state, max_new_tokens=2)  # warm-up
+    for qids in queries:
+        ans, t_long = timed(lambda: eng.generate_ids(qids, state))
+        ans2, t_short = timed(lambda: eng.generate_ids(qids, state, max_new_tokens=2))
+        if len(ans) <= len(ans2):
+            raise AssertionError("answer stopped before the timed window")
+        per_tok.append((t_long - t_short) / (len(ans) - len(ans2)) * 1e3)
+        answers.append(ans)
+    return float(np.mean(per_tok)), answers
+
+
+def allkept_attention_int4(cache, pool, num_heads: int):
+    """K7 on the all-rows-kept int4 pool against K5 on the dense int4 cache,
+    layer by layer on the same q and the same T new rows: quantized and
+    written at each head's length in a copy of the dense layer, and
+    dequantized to bf16 at the start of a copy of the pool's tail. Both
+    pass ``ops.parity`` against the float32 plain version on the dense
+    rows. Its launches are not counted."""
+    import torch
+
+    from kvzip_tpu_torch.ops import LAUNCHES, OUT_RTOL, flash_int4, parity, pool_decode
+    from kvzip_tpu_torch.ops.quant import dequantize_int4, quantize_int4
+
+    saved = dict(LAUNCHES)
+    L, Hkv, C, _ = cache.k_q.shape
+    D = pool.k_tail.shape[-1]
+    scale = D ** -0.5
+    dev = cache.k_q.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    kt, vt = pool.k_tail.clone(), pool.v_tail.clone()
+    pool_arrays = (pool.k_pool_q, pool.k_pool_s, pool.k_pool_z, pool.v_pool_q,
+                   pool.v_pool_s, pool.v_pool_z, pool.row_head, pool.layer_off,
+                   pool.layer_rows)
+    worst = dict(pool_vs_dense=0.0, dense_kernel_vs_dense=0.0)
+    max_k7_minus_k5 = 0.0
+    for T in (1, 16):
+        for l in range(L):
+            q = rn(T, num_heads, D)
+            lens = cache.lengths[l]
+            dense = [a[l].clone() for a in (cache.k_q, cache.k_s, cache.k_z,
+                                            cache.v_q, cache.v_s, cache.v_z)]
+            for i, tail in ((0, kt), (3, vt)):
+                p, s_, z = quantize_int4(rn(Hkv, T, D), pack="split")
+                for h, n in enumerate(lens.tolist()):
+                    dense[i][h, n:n + T] = p[h]
+                    dense[i + 1][h, n:n + T] = s_[h, :, 0]
+                    dense[i + 2][h, n:n + T] = z[h, :, 0]
+                tail[l, :, :T] = dequantize_int4(p, s_, z, tail.dtype, pack="split")
+            want = flash_int4.flash_attend_int4_plain(q.float(), *dense, lens, scale=scale)
+            got7 = pool_decode.pool_decode_attend_int4(
+                q, *pool_arrays, kt, vt, 0, l, scale=scale, max_rows=pool.max_rows)
+            got5 = flash_int4.flash_attend_int4(q, *dense, lens, scale=scale)
+            for key, got in (("pool_vs_dense", got7), ("dense_kernel_vs_dense", got5)):
+                r = parity(got, want, OUT_RTOL)
+                if not r["ok"]:
+                    raise AssertionError(f"all-kept int4 attention, T={T} layer {l}, {key}: {r}")
+                worst[key] = max(worst[key], r["worst_to_tol"])
+            max_k7_minus_k5 = max(max_k7_minus_k5,
+                                  (got7.float() - got5.float()).abs().max().item())
+    LAUNCHES.update(saved)
+    stats = dict(worst_to_tol=worst, max_k7_minus_k5=max_k7_minus_k5)
+    log(phase="allkept_attention_int4", layers=L, T=[1, 16], **stats)
+    return stats
+
+
+# -------------------------------------------------------------- main paths
+def main_path(eng, ctx_ids, queries, quant: bool = False):
+    """The engine's main path at the smoke configuration; ``quant`` takes
+    the int4 / W4A8 engine's branches (dense int4 cache, int4 pool)."""
+    import torch
+
+    from kvzip_tpu_torch.pool import build_pool_int4_stepped, build_pool_stepped
 
     cfg = eng.config
     rep = {}
@@ -419,37 +764,28 @@ def main_path(eng, ctx_ids, queries):
 
     keep_all = torch.ones((cfg.num_layers, cfg.num_kv_heads, st.ctx_len), dtype=torch.bool,
                           device=eng.device)
+    build = build_pool_int4_stepped if quant else build_pool_stepped
     full = dataclasses.replace(
-        st, cache=build_pool_stepped(st.cache, keep_all, st.sink, eng.decode_budget),
-        pruned=True)
+        st, cache=build(st.cache, keep_all, st.sink, eng.decode_budget), pruned=True)
     full.snapshot()
-    rep["allkept_attention"] = allkept_attention(st.cache, full.cache, cfg.num_heads)
-    rep["allkept"] = allkept_check(eng, st, full, queries[0], dense_ans)
+    if quant:
+        rep["allkept_attention_int4"] = allkept_attention_int4(st.cache, full.cache,
+                                                               cfg.num_heads)
+    else:
+        rep["allkept_attention"] = allkept_attention(st.cache, full.cache, cfg.num_heads)
+        rep["allkept"] = allkept_check(eng, st, full, queries[0], dense_ans)
     del full
 
     (thres, ratio), rep["prune_s"] = timed(lambda: eng.prune(st, 0.3, "pair"))
     rep["kept_ratio"] = ratio
     rep["kv_bytes_pruned"] = int(st.cache.used_bytes())
 
-    def decode_ms_per_token(state):
-        """(t(32 new tokens) - t(2 new tokens)) / 30 per query, averaged,
-        after one warm-up call on the state."""
-        per_tok, answers = [], []
-        eng.generate_ids(queries[0], state, max_new_tokens=2)  # warm-up
-        for qids in queries:
-            ans, t_long = timed(lambda: eng.generate_ids(qids, state))
-            ans2, t_short = timed(lambda: eng.generate_ids(qids, state, max_new_tokens=2))
-            if len(ans) <= len(ans2):
-                raise AssertionError("answer stopped before the timed window")
-            per_tok.append((t_long - t_short) / (len(ans) - len(ans2)) * 1e3)
-            answers.append(ans)
-        return float(np.mean(per_tok)), answers
-
-    rep["evicted_ms_per_token"], answers = decode_ms_per_token(st)
+    rep["evicted_ms_per_token"], answers = decode_ms_per_token(eng, st, queries)
     if st.cache.tail_len != 0:
         raise AssertionError("the O(1) restore left rows in the tail")
-    base = eng.synthetic_full_pool_state(st, eng.decode_budget)
-    rep["full_ms_per_token"], _ = decode_ms_per_token(base)
+    base = eng.synthetic_full_pool_state(st, eng.decode_budget, int4=quant)
+    rep["full_ms_per_token"], _ = decode_ms_per_token(eng, base, queries)
+    rep["dense_answer_tokens"] = dense_ans.tolist()
     rep["answer_tokens"] = [a.tolist() for a in answers]
     return rep
 
@@ -494,18 +830,46 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernels = kernel_parity(cfg, CTX, sink, capacity, eng.decode_budget)
-    log(phase="kernel_parity", seconds=time.perf_counter() - t0)
+    kernels_q = kernel_parity_int4(cfg, CTX, sink, capacity, eng.decode_budget)
+    log(phase="kernel_parity", seconds=time.perf_counter() - t0,
+        timing_details=[{k: v for k, v in r.items()
+                         if k in ("name", "ms", "host_ms", "library_ms", "decode_ms",
+                                  "decode_bound_ms", "per_shape")}
+                        for r in kernels + kernels_q])
 
-    reset_launches()
-    rep = main_path(eng, ctx_ids, queries)
-    launches = dict(LAUNCHES)
-    log(phase="main_path", model=MODEL, layers=cfg.num_layers, ctx=CTX, **rep,
-        launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    def run(tag, engine, kernel_names, **kw):
+        """One main path between a counter reset and a read; every kernel
+        of the path must have launched."""
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        rep = main_path(engine, ctx_ids, queries, **kw)
+        launches = {n: LAUNCHES[n] for n in kernel_names}
+        log(phase=tag, model=MODEL, layers=cfg.num_layers, ctx=CTX, **rep,
+            launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        missing = [n for n, c in launches.items() if c == 0]
+        if missing:
+            raise AssertionError(f"kernels never launched on the {tag}: {missing}")
+        return launches
+
+    launches = run("main_path", eng, ("flash_attend", "fused_scores",
+                                      "ragged_decode_attend", "pool_decode_attend"))
     for r in kernels:
         r["launches"] = launches[r["name"]]
-    missing = [n for n, c in launches.items() if c == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    eng = Engine(MODEL, config=cfg, dtype=torch.bfloat16, device="cuda",
+                 max_new_tokens=NEW_TOKENS, seed=SEED, **QUANT)
+    torch.cuda.synchronize()
+    log(phase="init_quant", seconds=time.perf_counter() - t0, **QUANT)
+    launches = run("main_path_quant", eng,
+                   ("fused_scores", "flash_attend_int4", "flash_attend_int4_extra",
+                    "pool_decode_attend_int4", "w4a8_matmul_stacked_v2"), quant=True)
+    for r in kernels_q:
+        r["launches"] = launches[r["name"]]
+    kernels += kernels_q
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "rms_want",
             "worst_to_tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,12 +1,12 @@
-"""Build and load the port's CUDA kernels (K1-K4).
+"""Build and load the port's CUDA kernels (K1-K8).
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, ``build/lib<name>-<hash>.so``, loaded through
-``ctypes``. The hash covers the source and the shared header, so an edited
-source rebuilds and an unchanged one is reused. Nothing builds when the
-module is imported: the first kernel call builds its library, and
-:func:`build_all` builds every library at once, one ``nvcc`` each, all
-started together. A failed build raises.
+``ctypes``. The hash covers the source and every shared header
+(``csrc/*.cuh``), so an edited source or header rebuilds and an unchanged
+one is reused. Nothing builds when the module is imported: the first
+kernel call builds its library, and :func:`build_all` builds every library
+at once, one ``nvcc`` each, all started together. A failed build raises.
 """
 
 from __future__ import annotations
@@ -22,7 +22,8 @@ from typing import Dict, List
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD = os.path.join(_HERE, "build")
-KERNELS = ("flash", "score", "ragged_decode", "pool_decode")
+KERNELS = ("flash", "score", "ragged_decode", "pool_decode", "flash_int4",
+           "pool_decode_int4", "w4a8")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -39,7 +40,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> str:
     h = hashlib.sha256()
-    for f in (f"{name}.cu", "attn_common.cuh"):
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in (f"{name}.cu", *headers):
         with open(os.path.join(CSRC, f), "rb") as fh:
             h.update(fh.read())
     return os.path.join(BUILD, f"lib{name}-{h.hexdigest()[:12]}.so")

@@ -1,4 +1,4 @@
-"""Dense KV cache (bf16 or float32) of the port.
+"""Dense KV caches of the port: bf16 / float32, and int4.
 
 Port of the dense part of ``kvzip_tpu/cache.py``: fixed-capacity buffers
 ``k/v (L, Hkv, C, D)`` with per-(layer, head) live lengths. Appends write in
@@ -35,6 +35,36 @@ class KVCache:
         return float(rows * self.k.shape[-1] * self.k.element_size() * 2)
 
 
+@dataclasses.dataclass
+class Int4KVCache:
+    """int4 KV: split-packed nibbles with one (scale, zero) per row (one
+    quant group of 128 per row, ``ops/quant.py``).
+
+    The port keeps the packed rows row-major ``(C, D//2)``, where the
+    reference transposed them to ``(D//2, C)`` for the TPU's matrix unit:
+    a kernel loads a row's 64 bytes as four 16-byte pieces. Scales and
+    zeros are stored in the model dtype, as in the reference.
+    """
+
+    k_q: torch.Tensor      # (L, Hkv, C, D//2) uint8
+    v_q: torch.Tensor
+    k_s: torch.Tensor      # (L, Hkv, C) scale
+    k_z: torch.Tensor      # (L, Hkv, C) zero
+    v_s: torch.Tensor
+    v_z: torch.Tensor
+    lengths: torch.Tensor  # (L, Hkv) int32 live rows
+    seen: int
+
+    @property
+    def capacity(self) -> int:
+        return self.k_q.shape[2]
+
+    def used_bytes(self) -> float:
+        """Live bytes of K and V: packed row plus its scale and zero."""
+        row = self.k_q.shape[-1] + 2 * self.k_s.element_size()
+        return float(int(self.lengths.sum()) * row * 2)
+
+
 def init_cache(cfg: ModelConfig, capacity: int, dtype=torch.bfloat16,
                device="cuda") -> KVCache:
     L, H, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
@@ -43,6 +73,23 @@ def init_cache(cfg: ModelConfig, capacity: int, dtype=torch.bfloat16,
         v=torch.zeros((L, H, capacity, D), dtype=dtype, device=device),
         lengths=torch.zeros((L, H), dtype=torch.int32, device=device),
         seen=0)
+
+
+def init_int4_cache(cfg: ModelConfig, capacity: int, dtype=torch.bfloat16,
+                    device="cuda") -> Int4KVCache:
+    L, H, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    if D != 128:
+        raise ValueError("the int4 cache holds one quant group of 128 per row")
+
+    def z(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    return Int4KVCache(
+        k_q=z(L, H, capacity, D // 2, dt=torch.uint8),
+        v_q=z(L, H, capacity, D // 2, dt=torch.uint8),
+        k_s=z(L, H, capacity), k_z=z(L, H, capacity),
+        v_s=z(L, H, capacity), v_z=z(L, H, capacity),
+        lengths=torch.zeros((L, H), dtype=torch.int32, device=device), seen=0)
 
 
 def append_layer(k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -59,6 +106,20 @@ def append_layer(k_cache: torch.Tensor, v_cache: torch.Tensor,
     rows = lens.long()[:, None] + torch.arange(T, device=k_cache.device)[None]
     k_cache[heads, rows] = k_new.transpose(0, 1).to(k_cache.dtype)
     v_cache[heads, rows] = v_new.transpose(0, 1).to(v_cache.dtype)
+
+
+def append_layer_int4(layer: tuple, lens: torch.Tensor, quantized: tuple) -> None:
+    """Write T quantized rows per head at each head's length, in place.
+
+    layer: one layer's (k_q, v_q, k_s, k_z, v_s, v_z), each (H, C, ...);
+    quantized: the rows' (k_q, v_q, k_s, k_z, v_s, v_z), each (T, H, ...)
+    from ``quantize_int4(..., pack="split")`` (``ops/quant.py``)."""
+    H = layer[0].shape[0]
+    T = quantized[0].shape[0]
+    heads = torch.arange(H, device=lens.device)[:, None]
+    rows = lens.long()[:, None] + torch.arange(T, device=lens.device)[None]
+    for dst, src in zip(layer, quantized):
+        dst[heads, rows] = src.transpose(0, 1).to(dst.dtype)
 
 
 _RESTORE_FIELDS = ("lengths", "seen", "tail_len")

@@ -2,14 +2,16 @@
 decode over the pool.
 
 Port of the ``Engine``/``KVState`` main path of ``kvzip_tpu/engine.py``
-(evict path, bf16 or float32 weights and KV). PyTorch runs eagerly: the
-chunk loop, the layer loop and the decode loop are Python loops, caches are
-updated in place, and the ``update_cache=False`` semantics are O(1) counter
-restores as in the reference.
+(evict path; bf16 or float32 weights and KV, with the quantized options
+``kv_quant="int4"``, ``weight_quant="w4a8"`` and ``embed_quant="int8"``).
+PyTorch runs eagerly: the chunk loop, the layer loop and the decode loop
+are Python loops, caches are updated in place, and the
+``update_cache=False`` semantics are O(1) counter restores as in the
+reference.
 
-Device rule: on a CUDA device every attention op launches its kernel
-(K1-K4); on the CPU the same calls run the plain PyTorch versions. Both
-devices build the pool at prune time.
+Device rule: on a CUDA device every attention op and every W4A8 linear
+below 512 rows launches its kernel (K1-K8); on the CPU the same calls run
+the plain PyTorch versions. Both devices build the pool at prune time.
 """
 
 from __future__ import annotations
@@ -22,11 +24,13 @@ import torch
 
 from kvzip_tpu_torch import prune as prune_lib
 from kvzip_tpu_torch import template as template_lib
-from kvzip_tpu_torch.cache import KVCache, init_cache, restore, snapshot
+from kvzip_tpu_torch.cache import (Int4KVCache, KVCache, init_cache,
+                                   init_int4_cache, restore, snapshot)
 from kvzip_tpu_torch.config import ModelConfig, resolve_config
-from kvzip_tpu_torch.models.params import init_params
+from kvzip_tpu_torch.models.params import prepare_params
 from kvzip_tpu_torch.models.transformer import check_supported, forward
-from kvzip_tpu_torch.pool import (PoolKV, build_pool_stepped, refold_pool,
+from kvzip_tpu_torch.pool import (PoolInt4KV, PoolKV, build_pool_int4_stepped,
+                                  build_pool_stepped, refold_pool,
                                   synthetic_full_pool)
 from kvzip_tpu_torch.tokenizer import load_tokenizer
 
@@ -52,7 +56,7 @@ def _round_up(n: int, m: int) -> int:
 class KVState:
     """One context's cache and its bookkeeping."""
 
-    cache: Union[KVCache, PoolKV]
+    cache: Union[KVCache, Int4KVCache, PoolKV, PoolInt4KV]
     kv_type: str
     sink: int                      # system-prompt rows, never evicted
     ctx_len: int
@@ -79,7 +83,9 @@ class Engine:
                  tokenizer=None, dtype=torch.bfloat16, device="cuda",
                  max_new_tokens: int = 512, decode_budget: int = 768,
                  capacity_granularity: int = 512,
-                 score_chunk_size: int = 2000, seed: int = 0):
+                 score_chunk_size: int = 2000, kv_quant: str = "none",
+                 weight_quant: str = "none", embed_quant: str = "none",
+                 seed: int = 0):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -88,6 +94,8 @@ class Engine:
             raise TypeError("the CUDA kernels take bfloat16 weights and KV")
         if kv_type != "evict":
             raise NotImplementedError("the port covers kv_type='evict' only")
+        if kv_quant not in ("none", "int4"):
+            raise ValueError(f"kv_quant: {kv_quant!r}")
         self.config = config or resolve_config(model_name)
         check_supported(self.config)
         self.name = (model_name.rstrip("/").split("/")[-1]
@@ -100,10 +108,13 @@ class Engine:
         self.score_chunk_size = score_chunk_size
         self.score_width = _round_up(score_chunk_size, 128)
         self.score_q_pad = self.score_width + 256
+        self.kv_quant = kv_quant
+        gen = None
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_params(self.config, gen, self.device, dtype)
-        self.params = params
+        self.params = prepare_params(
+            self.config, params, dtype=dtype, weight_quant=weight_quant,
+            embed_quant=embed_quant, generator=gen, device=self.device)
         self.tokenizer = tokenizer or load_tokenizer(
             model_name, vocab_size=self.config.vocab_size)
         eos = template_lib.eos_ids(model_name, self.tokenizer)
@@ -140,7 +151,8 @@ class Engine:
                         collect: str = "none") -> Optional[torch.Tensor]:
         """Run ids through the model on the chunk ladder; maybe return
         logits ("last" or "all")."""
-        ladder = POOL_LADDER if isinstance(state.cache, PoolKV) else CHUNK_LADDER
+        is_pool = isinstance(state.cache, (PoolKV, PoolInt4KV))
+        ladder = POOL_LADDER if is_pool else CHUNK_LADDER
         parts = []
         pos = 0
         for size in ladder_split(len(ids), ladder):
@@ -168,8 +180,9 @@ class Engine:
         prefill_len = int(len(prefill_ids))
         extra = max(self.score_q_pad, self.decode_budget)
         capacity = _round_up(prefill_len + extra, self.capacity_granularity)
+        init = init_int4_cache if self.kv_quant == "int4" else init_cache
         state = KVState(
-            cache=init_cache(self.config, capacity, self.dtype, self.device),
+            cache=init(self.config, capacity, self.dtype, self.device),
             kv_type=self.kv_type, sink=sink, ctx_len=int(len(ctx_ids)),
             prefill_len=prefill_len, prefill_ids=prefill_ids, ctx_ids=ctx_ids)
         pos = 0
@@ -257,7 +270,7 @@ class Engine:
         """Evict to the pool layout; returns (threshold, true_ratio).
 
         One-shot, as in the reference: the dense cache is compacted."""
-        if isinstance(state.cache, PoolKV) or state.pruned:
+        if isinstance(state.cache, (PoolKV, PoolInt4KV)) or state.pruned:
             raise RuntimeError(
                 "evict-path prune is one-shot (the cache was physically "
                 "compacted)")
@@ -267,21 +280,27 @@ class Engine:
             state.score, ratio, level, method="histogram")
         state.score = None
         dense = state.cache
-        state.cache = build_pool_stepped(dense, keep, state.sink,
-                                         self.decode_budget)
+        if isinstance(dense, Int4KVCache):
+            state.cache = build_pool_int4_stepped(dense, keep, state.sink,
+                                                  self.decode_budget, self.dtype)
+        else:
+            state.cache = build_pool_stepped(dense, keep, state.sink,
+                                             self.decode_budget)
         del dense
         state.pruned = True
         state.snapshot()
         return thres, true_ratio
 
-    def synthetic_full_pool_state(self, state: KVState, tail_cap: int) -> KVState:
-        """A full-occupancy pool with the geometry of an all-rows-kept build:
-        the full-cache decode baseline, which runs through the same kernel
-        (K3) as the evicted cache."""
+    def synthetic_full_pool_state(self, state: KVState, tail_cap: int,
+                                  int4: bool = False) -> KVState:
+        """A full-occupancy pool (int4 with ``int4``) with the geometry of an
+        all-rows-kept build: the full-cache decode baseline, which runs
+        through the same kernel (K3 or K7) as the evicted cache."""
         cfg = self.config
         cache = synthetic_full_pool(
             cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
-            state.ctx_len + state.sink, tail_cap, self.dtype, self.device)
+            state.ctx_len + state.sink, tail_cap, self.dtype, self.device,
+            int4=int4)
         st = dataclasses.replace(state, cache=cache, pruned=True)
         st.snapshot()
         return st
@@ -290,7 +309,7 @@ class Engine:
     def _check_capacity(self, state: KVState, need: int):
         """Fail loudly instead of writing past the cache."""
         cache = state.cache
-        if isinstance(cache, PoolKV):
+        if isinstance(cache, (PoolKV, PoolInt4KV)):
             cap, cur = cache.k_tail.shape[2], cache.tail_len
             if cur + need > cap:
                 raise ValueError(
@@ -308,7 +327,7 @@ class Engine:
         """Fold the committed tail into the pool when the next turn would
         overflow it; returns whether it did."""
         cache = state.cache
-        if not isinstance(cache, PoolKV) or \
+        if not isinstance(cache, (PoolKV, PoolInt4KV)) or \
                 cache.tail_len + need <= cache.k_tail.shape[2]:
             return False
         state.cache = refold_pool(cache)

@@ -1,15 +1,25 @@
-"""Decoder forward of the port: bf16 dense-cache and pool branches.
+"""Decoder forward of the port: dense (bf16 or int4) and pool branches.
 
 Port of ``kvzip_tpu/models/transformer.py::forward`` for the llama and
-qwen2 families (GQA, RoPE, optional qkv bias) without weight quantization.
-PyTorch runs eagerly, so the layer loop is a Python loop and the cache is
-updated in place. Attention dispatch, as in the reference:
+qwen2 families (GQA, RoPE, optional qkv bias), with plain or W4A8 weights
+and a plain or int8 embedding / lm_head. PyTorch runs eagerly, so the layer
+loop is a Python loop and the cache is updated in place. Dispatch, as in
+the reference:
 
-- dense cache: the KVzip score hook goes to K2 (``fused_scores``); T <= 8
-  queries go to K4 (``ragged_decode_attend``), longer blocks to K1
+- dense bf16 cache: the KVzip score hook goes to K2 (``fused_scores``);
+  T <= 8 queries go to K4 (``ragged_decode_attend``), longer blocks to K1
   (``flash_attend``);
-- pool cache: K3 (``pool_decode_attend``), after the T new rows are written
-  into the full (L, Hkv, Tcap, D) tail stacks at ``tail_len``.
+- dense int4 cache: the chunk's rows are quantized (``quantize_int4``) and
+  appended before attention, which goes to K5 (``flash_attend_int4``) at
+  every T. Scoring is read-only: nothing is appended, K6
+  (``flash_attend_int4_extra``) takes the chunk's quantized rows beside the
+  cache, and K2 scores against the dequantized sink and window keys and the
+  quantize-dequantized repeat keys;
+- pool cache: K3 (``pool_decode_attend``) or, for an int4 pool, K7
+  (``pool_decode_attend_int4``), after the T new rows are written into the
+  full (L, Hkv, Tcap, D) tail stacks at ``tail_len``;
+- W4A8 weights (fused ``wqkv``, ``wo``, ``w_gateup``, ``w_down``) go
+  through ``w4a8_linear_stacked`` (K8 below 512 rows).
 """
 
 from __future__ import annotations
@@ -19,14 +29,18 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from kvzip_tpu_torch.cache import append_layer
+from kvzip_tpu_torch.cache import Int4KVCache, append_layer, append_layer_int4
 from kvzip_tpu_torch.config import ModelConfig
 from kvzip_tpu_torch.models.rope import apply_rope, rope_cos_sin
 from kvzip_tpu_torch.ops.flash import flash_attend
-from kvzip_tpu_torch.ops.pool_decode import pool_decode_attend
+from kvzip_tpu_torch.ops.flash_int4 import flash_attend_int4, flash_attend_int4_extra
+from kvzip_tpu_torch.ops.pool_decode import pool_decode_attend, pool_decode_attend_int4
+from kvzip_tpu_torch.ops.quant import (dequantize_int4, embed_lookup, head_logits,
+                                       quantize_int4)
 from kvzip_tpu_torch.ops.ragged_decode import MAX_T, ragged_decode_attend
 from kvzip_tpu_torch.ops.score_kernel import fused_scores
-from kvzip_tpu_torch.pool import PoolKV
+from kvzip_tpu_torch.ops.w4a8 import w4a8_linear_stacked
+from kvzip_tpu_torch.pool import PoolInt4KV, PoolKV
 
 
 class ForwardResult(NamedTuple):
@@ -53,6 +67,22 @@ def _lin(x: torch.Tensor, w: torch.Tensor, bias=None) -> torch.Tensor:
     return y if bias is None else y + bias
 
 
+def _is_w4(w) -> bool:
+    return isinstance(w, dict) and "q4" in w
+
+
+def _quantize_rows(k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """The chunk's K/V rows (T, Hkv, D) in the int4 cache's form: (k_q,
+    v_q, k_s, k_z, v_s, v_z), packed (T, Hkv, D//2), scales (T, Hkv)."""
+    kq, ks, kz = quantize_int4(k, pack="split")
+    vq, vs, vz = quantize_int4(v, pack="split")
+    return kq, vq, ks[..., 0], kz[..., 0], vs[..., 0], vz[..., 0]
+
+
+def _deq(packed, s, z, dtype):
+    return dequantize_int4(packed, s[..., None], z[..., None], dtype, pack="split")
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """The port's forward covers the llama and qwen2 families."""
     if (cfg.is_hybrid or cfg.qk_norm or cfg.post_norms
@@ -76,35 +106,76 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
     T = ids.shape[0]
     L, H, Hkv, Dh = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = cfg.query_scale if cfg.query_scale is not None else Dh ** -0.5
-    is_pool = isinstance(cache, PoolKV)
+    is_pool = isinstance(cache, (PoolKV, PoolInt4KV))
+    is_int4 = isinstance(cache, Int4KVCache)
     if scoring and is_pool:
         raise ValueError("scoring runs before the prune; a pool is decode-only")
     if is_pool and cache.tail_len + T > cache.k_tail.shape[2]:
         raise ValueError("pool tail overflow")
-    dtype = params["embed"].dtype
+    emb = params["embed"]
+    dtype = emb["s"].dtype if isinstance(emb, dict) else emb.dtype
 
-    x = params["embed"][ids]
+    x = embed_lookup(emb, ids)
     positions = torch.arange(cache.seen, cache.seen + T, device=ids.device)
     cos, sin = rope_cos_sin(cfg.rope, Dh, positions)
     lp_all = params["layers"]
+    w4 = {k: v for k, v in lp_all.items() if _is_w4(v)}
     scores = []
     for l in range(L):
-        lp = {k: v[l] for k, v in lp_all.items()}
+        lp = {k: v[l] for k, v in lp_all.items() if k not in w4}
         h = rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
-        q = _lin(h, lp["wq"], lp.get("bq")).view(T, H, Dh)
-        k = _lin(h, lp["wk"], lp.get("bk")).view(T, Hkv, Dh)
-        v = _lin(h, lp["wv"], lp.get("bv")).view(T, Hkv, Dh)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        if "wqkv" in w4:
+            qkv = w4a8_linear_stacked(h, w4["wqkv"], l)
+            nq, nk = H * Dh, Hkv * Dh
+            q, k, v = qkv[:, :nq], qkv[:, nq:nq + nk], qkv[:, nq + nk:]
+            if "bq" in lp:
+                q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+        else:
+            q = _lin(h, lp["wq"], lp.get("bq"))
+            k = _lin(h, lp["wk"], lp.get("bk"))
+            v = _lin(h, lp["wv"], lp.get("bv"))
+        q = apply_rope(q.reshape(T, H, Dh), cos, sin)
+        k = apply_rope(k.reshape(T, Hkv, Dh), cos, sin)
+        v = v.reshape(T, Hkv, Dh)
 
         if is_pool:
             t0 = cache.tail_len
             cache.k_tail[l, :, t0:t0 + T] = k.transpose(0, 1)
             cache.v_tail[l, :, t0:t0 + T] = v.transpose(0, 1)
-            attn = pool_decode_attend(
-                q, cache.k_pool, cache.v_pool, cache.row_head,
-                cache.layer_off, cache.layer_rows, cache.k_tail,
-                cache.v_tail, t0, l, scale=scale, max_rows=cache.max_rows)
+            meta = (cache.row_head, cache.layer_off, cache.layer_rows,
+                    cache.k_tail, cache.v_tail, t0, l)
+            if isinstance(cache, PoolInt4KV):
+                attn = pool_decode_attend_int4(
+                    q, cache.k_pool_q, cache.k_pool_s, cache.k_pool_z,
+                    cache.v_pool_q, cache.v_pool_s, cache.v_pool_z, *meta,
+                    scale=scale, max_rows=cache.max_rows)
+            else:
+                attn = pool_decode_attend(q, cache.k_pool, cache.v_pool, *meta,
+                                          scale=scale, max_rows=cache.max_rows)
+        elif is_int4:
+            layer = (cache.k_q[l], cache.v_q[l], cache.k_s[l], cache.k_z[l],
+                     cache.v_s[l], cache.v_z[l])
+            base = cache.lengths[l]
+            rows = _quantize_rows(k, v)
+            kq_l, _, ks_l, kz_l = layer[:4]
+            if scoring:
+                win = slice(score_start, score_start + score_width)
+                keys = torch.cat(
+                    [_deq(kq_l[:, :sink], ks_l[:, :sink], kz_l[:, :sink], dtype),
+                     _deq(kq_l[:, win], ks_l[:, win], kz_l[:, win], dtype),
+                     _deq(rows[0], rows[2], rows[3], dtype).transpose(0, 1)], dim=1)
+                scores.append(fused_scores(
+                    q, keys, score_len, score_qlen, sink=sink,
+                    s_ctx=score_width, scale=scale, model_dtype=dtype).to(dtype))
+                # read-only: the chunk's rows ride beside the cache
+                attn = flash_attend_int4_extra(
+                    q, layer[0], layer[2], layer[3], layer[1], layer[4], layer[5],
+                    base, rows[0], rows[2], rows[3], rows[1], rows[4], rows[5],
+                    scale=scale)
+            else:
+                append_layer_int4(layer, base, rows)
+                attn = flash_attend_int4(q, layer[0], layer[2], layer[3], layer[1],
+                                         layer[4], layer[5], base, scale=scale)
         else:
             k_l, v_l, base = cache.k[l], cache.v[l], cache.lengths[l]
             append_layer(k_l, v_l, base, k, v)
@@ -120,21 +191,33 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
             else:
                 attn = flash_attend(q, k_l, v_l, base, scale=scale)
 
-        x = x + _lin(attn.reshape(T, H * Dh), lp["wo"])
+        attn = attn.reshape(T, H * Dh)
+        if "wo" in w4:
+            x = x + w4a8_linear_stacked(attn, w4["wo"], l)
+        else:
+            x = x + _lin(attn, lp["wo"])
         h2 = rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
-        hidden = _act(_lin(h2, lp["w_gate"]), cfg.hidden_act) * _lin(h2, lp["w_up"])
-        x = x + _lin(hidden, lp["w_down"])
+        if "w_gateup" in w4:
+            gate, up = w4a8_linear_stacked(h2, w4["w_gateup"], l).chunk(2, dim=-1)
+        else:
+            gate, up = _lin(h2, lp["w_gate"]), _lin(h2, lp["w_up"])
+        hidden = _act(gate, cfg.hidden_act) * up
+        if "w_down" in w4:
+            x = x + w4a8_linear_stacked(hidden, w4["w_down"], l)
+        else:
+            x = x + _lin(hidden, lp["w_down"])
 
     if is_pool:
         cache.tail_len += T
-    else:
+        cache.seen += T
+    elif not (is_int4 and scoring):  # int4 scoring appended nothing
         # stream-ordered after every kernel above that read the old lengths
         cache.lengths += T
-    cache.seen += T
+        cache.seen += T
 
     logits = None
     if collect_logits != "none":
         xf = x if collect_logits == "all" else x[-1:]
         xf = rms_norm(xf, params["final_norm"], cfg.rms_norm_eps)
-        logits = xf @ params.get("lm_head", params["embed"]).T
+        logits = head_logits(params.get("lm_head", params["embed"]), xf)
     return ForwardResult(logits, torch.stack(scores) if scoring else None)

@@ -1,4 +1,4 @@
-"""Attention ops of the port: each kernel wrapper beside its plain version.
+"""Attention and quantized-linear ops of the port: each kernel wrapper beside its plain version.
 
 A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
 tensors it launches its hand-written kernel (``csrc/``) or raises. Every
@@ -11,7 +11,9 @@ from __future__ import annotations
 import torch
 
 LAUNCHES = {"flash_attend": 0, "fused_scores": 0, "ragged_decode_attend": 0,
-            "pool_decode_attend": 0}
+            "pool_decode_attend": 0, "flash_attend_int4": 0,
+            "flash_attend_int4_extra": 0, "pool_decode_attend_int4": 0,
+            "w4a8_matmul_stacked_v2": 0}
 
 
 def reset_launches() -> None:
@@ -31,18 +33,23 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
 HEAD_DIM = 128  # the head_dim the kernels are built for (csrc/attn_common.cuh)
 
 
-def check_kernel_args(what: str, bf16: dict, int32: dict = None) -> None:
-    """Validate a kernel call: bf16 / int32 tensors, contiguous, with the
-    head_dim the kernels are built for."""
+def check_kernel_args(what: str, bf16: dict, int32: dict = None,
+                      other: dict = None) -> None:
+    """Validate a kernel call, all tensors contiguous: ``bf16`` holds bf16
+    rows of the head_dim the kernels are built for, ``int32`` int32
+    tensors, and ``other`` maps a name to (tensor, dtype) for any other
+    operand (packed uint8 rows, scales)."""
     for name, t in bf16.items():
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{what}: {name} must be bfloat16, got {t.dtype}")
         if t.shape[-1] != HEAD_DIM:
             raise ValueError(f"{what}: {name} head_dim {t.shape[-1]} != {HEAD_DIM}")
-    for name, t in (int32 or {}).items():
-        if t.dtype != torch.int32:
-            raise TypeError(f"{what}: {name} must be int32, got {t.dtype}")
-    for name, t in {**bf16, **(int32 or {})}.items():
+    checks = {**{n: (t, torch.int32) for n, t in (int32 or {}).items()},
+              **(other or {})}
+    for name, (t, dtype) in checks.items():
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: {name} must be {dtype}, got {t.dtype}")
+    for name, t in {**bf16, **{n: t for n, (t, _) in checks.items()}}.items():
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
 

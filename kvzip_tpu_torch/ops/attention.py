@@ -1,8 +1,8 @@
 """Plain PyTorch attention over the dense cache and the KVzip score.
 
-The plain versions of kernels K1, K2 and K4 (``ops/flash.py``,
-``ops/score_kernel.py``, ``ops/ragged_decode.py``) and the CPU path of the
-port. Masking rule: key row ``j`` of kv head ``h`` is visible to query ``i``
+The plain versions of kernels K1, K2, K4 and K5/K6 (``ops/flash.py``,
+``ops/score_kernel.py``, ``ops/ragged_decode.py``, ``ops/flash_int4.py``)
+and the CPU path of the port. Masking rule: key row ``j`` of kv head ``h`` is visible to query ``i``
 (0-based within the new block) iff ``j < base_lens[h] + i + 1`` — the new
 rows were appended at ``base_lens[h]``. Everything is computed in float32;
 a row that sees no key gives 0.
@@ -54,11 +54,23 @@ def attend_blockwise(q: torch.Tensor, k_cache: torch.Tensor,
                      q_block: int = 1024) -> torch.Tensor:
     """:func:`attend_dense` as an online softmax over key blocks, so memory
     stays O(q_block * kv_block) per head at long contexts."""
+    return _attend_heads(q, lambda h, n: (k_cache[h, :n], v_cache[h, :n]),
+                         k_cache.shape[1], base_lens, scale=scale,
+                         kv_block=kv_block, q_block=q_block)
+
+
+def _attend_heads(q: torch.Tensor, rows, C: int, base_lens: torch.Tensor, *,
+                  scale: float, kv_block: int = 1024,
+                  q_block: int = 1024) -> torch.Tensor:
+    """Online-softmax attention of q (T, H, D); ``rows(h, n)`` gives kv head
+    h's first n key and value rows (n <= C). Query i sees the rows
+    ``j < base_lens[h] + i + 1``."""
     T, H, D = q.shape
-    Hkv, C, _ = k_cache.shape
+    Hkv = base_lens.shape[0]
     G = H // Hkv
     out = torch.empty((Hkv, G, T, D), dtype=torch.float32, device=q.device)
     for h, base in enumerate(base_lens.tolist()):
+        k_h, v_h = rows(h, min(base + T, C))
         for t0 in range(0, T, q_block):
             t1 = min(t0 + q_block, T)
             qh = q[t0:t1, h * G:(h + 1) * G].float().transpose(0, 1)
@@ -67,7 +79,7 @@ def attend_blockwise(q: torch.Tensor, k_cache: torch.Tensor,
             acc = torch.zeros((G, t1 - t0, D), device=q.device)
             for c0 in range(0, min(base + t1, C), kv_block):
                 c1 = min(c0 + kv_block, base + t1, C)
-                s = qh @ k_cache[h, c0:c1].float().T * scale
+                s = qh @ k_h[c0:c1].float().T * scale
                 mask = causal_mask(base, t0, t1, c1, q.device)[:, c0:]
                 s = s.masked_fill(~mask, NEG_INF)
                 m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
@@ -76,10 +88,28 @@ def attend_blockwise(q: torch.Tensor, k_cache: torch.Tensor,
                 p = torch.where(torch.isfinite(s), torch.exp(s - m_new),
                                 torch.zeros_like(s))
                 l = l * alpha + p.sum(dim=-1, keepdim=True)
-                acc = acc * alpha + p @ v_cache[h, c0:c1].float()
+                acc = acc * alpha + p @ v_h[c0:c1].float()
                 m = m_new
             out[h, :, t0:t1] = acc / l.clamp_min(1e-37)
     return out.permute(2, 0, 1, 3).reshape(T, H, D).to(q.dtype)
+
+
+def attend_blockwise_int4(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
+                          kz: torch.Tensor, vq: torch.Tensor, vs: torch.Tensor,
+                          vz: torch.Tensor, base_lens: torch.Tensor, *,
+                          scale: float, kv_block: int = 512) -> torch.Tensor:
+    """:func:`attend_blockwise` over the int4 cache: kq/vq (Hkv, C, D//2)
+    split-packed uint8, ks/kz/vs/vz (Hkv, C) per-row scale and zero. Each
+    head's live rows are dequantized in float32 (``ops/quant.py``)."""
+    from kvzip_tpu_torch.ops.quant import dequantize_int4
+
+    def rows(h, n):
+        return tuple(dequantize_int4(p[h, :n], s[h, :n, None], z[h, :n, None],
+                                     torch.float32, pack="split")
+                     for p, s, z in ((kq, ks, kz), (vq, vs, vz)))
+
+    return _attend_heads(q, rows, kq.shape[1], base_lens, scale=scale,
+                         kv_block=kv_block)
 
 
 def reconstruction_scores(q: torch.Tensor, k_sink: torch.Tensor,

@@ -1,0 +1,146 @@
+"""K5 and K6: causal GQA flash attention over the dense int4 cache.
+
+Port of ``kvzip_tpu/ops/flash_int4.py``; the kernels are
+``csrc/flash_int4.cu``. The cache holds split-packed rows ``(Hkv, C, D//2)``
+uint8 with one (scale, zero) per row ``(Hkv, C)`` (``cache.Int4KVCache``).
+
+- K5 ``flash_attend_int4``: the T new rows were appended at ``base_lens``;
+  key j of head h is visible to query i iff ``j < base_lens[h] + i + 1``.
+  T <= ``SPLIT_T`` (decode) runs the kernel's flash-decoding form.
+- K6 ``flash_attend_int4_extra``: the read-only scoring forward. Nothing is
+  appended: cache rows ``[0, base_lens[h])`` are visible to every query and
+  the chunk's own quantized rows ``(T, Hkv, D//2)`` are causal within the
+  chunk, as if they had been appended at ``base_lens``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from kvzip_tpu_torch import _build
+from kvzip_tpu_torch.ops import (LAUNCHES, HEAD_DIM, attention,
+                                 check_kernel_args, on_cuda, stream_ptr)
+from kvzip_tpu_torch.ops.quant import dequantize_int4
+from kvzip_tpu_torch.ops.ragged_decode import split_size
+
+SPLIT_T = 16  # T at or below which K5 runs as flash-decoding
+
+_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float,
+                                                      ctypes.c_void_p]
+_ARGS_DECODE = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float,
+                                                              ctypes.c_void_p]
+_ARGS_EXTRA = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_float,
+                                                             ctypes.c_void_p]
+
+
+def flash_attend_int4_plain(q, k_q, k_s, k_z, v_q, v_s, v_z, base_lens, *,
+                            scale):
+    return attention.attend_blockwise_int4(q, k_q, k_s, k_z, v_q, v_s, v_z,
+                                           base_lens, scale=scale)
+
+
+def flash_attend_int4_extra_plain(q, k_q, k_s, k_z, v_q, v_s, v_z, base_lens,
+                                  kx_q, kx_s, kx_z, vx_q, vx_s, vx_z, *, scale):
+    """The chunk's rows appended after each head's live cache rows, then
+    :func:`flash_attend_int4_plain`'s causal attention."""
+    T = q.shape[0]
+
+    def deq(p, s, z):
+        return dequantize_int4(p, s[..., None], z[..., None], torch.float32,
+                               pack="split")
+
+    def rows(h, n):
+        base = int(base_lens[h])
+        out = []
+        for cache, extra in (((k_q, k_s, k_z), (kx_q, kx_s, kx_z)),
+                             ((v_q, v_s, v_z), (vx_q, vx_s, vx_z))):
+            c = deq(*(a[h, :base] for a in cache))
+            x = deq(*(a[:, h] for a in extra))
+            out.append(torch.cat([c, x])[:n])
+        return out
+
+    return attention._attend_heads(q, rows, int(base_lens.max()) + T,
+                                   base_lens, scale=scale)
+
+
+def _cache_args(what, q, k_q, k_s, k_z, v_q, v_s, v_z, base_lens):
+    check_kernel_args(what, dict(q=q), dict(base_lens=base_lens),
+                      dict(k_q=(k_q, torch.uint8), v_q=(v_q, torch.uint8),
+                           k_s=(k_s, torch.bfloat16), k_z=(k_z, torch.bfloat16),
+                           v_s=(v_s, torch.bfloat16), v_z=(v_z, torch.bfloat16)))
+    T, H, _ = q.shape
+    Hkv, C, Dp = k_q.shape
+    if H % Hkv or H // Hkv > 32 or Dp != HEAD_DIM // 2 \
+            or v_q.shape != k_q.shape or base_lens.shape != (Hkv,) \
+            or any(a.shape != (Hkv, C) for a in (k_s, k_z, v_s, v_z)):
+        raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} "
+                         f"k_q {tuple(k_q.shape)} k_s {tuple(k_s.shape)}")
+    return T, H, Hkv, C
+
+
+def flash_attend_int4(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
+                      k_z: torch.Tensor, v_q: torch.Tensor, v_s: torch.Tensor,
+                      v_z: torch.Tensor, base_lens: torch.Tensor, *,
+                      scale: float) -> torch.Tensor:
+    """q (T, H, D); k_q/v_q (Hkv, C, D//2) uint8; k_s/k_z/v_s/v_z (Hkv, C);
+    base_lens (Hkv,) int32 -> (T, H, D)."""
+    args = (q, k_q, k_s, k_z, v_q, v_s, v_z, base_lens)
+    if not on_cuda(*args):
+        return flash_attend_int4_plain(*args, scale=scale)
+    T, H, Hkv, C = _cache_args("flash_attend_int4", *args)
+    out = torch.empty_like(q)
+    ptrs = [a.data_ptr() for a in args] + [out.data_ptr()]
+    with torch.cuda.device(q.device):
+        if T <= SPLIT_T:
+            R = (H // Hkv) * T
+            ch = split_size(C, Hkv * -(-R // 64))
+            S = -(-C // ch)
+            part_acc = torch.empty((Hkv, S, R, HEAD_DIM), dtype=torch.float32,
+                                   device=q.device)
+            part_ml = torch.empty((Hkv, S, R, 2), dtype=torch.float32,
+                                  device=q.device)
+            fn = _build.kernel("flash_int4", "kvz_flash_int4_decode", _ARGS_DECODE)
+            err = fn(*ptrs, part_acc.data_ptr(), part_ml.data_ptr(), T, H, Hkv,
+                     C, ch, scale, stream_ptr(q.device))
+        else:
+            fn = _build.kernel("flash_int4", "kvz_flash_int4", _ARGS)
+            err = fn(*ptrs, T, H, Hkv, C, scale, stream_ptr(q.device))
+    _build.check(err, "flash_attend_int4")
+    LAUNCHES["flash_attend_int4"] += 1
+    return out
+
+
+def flash_attend_int4_extra(q: torch.Tensor, k_q: torch.Tensor,
+                            k_s: torch.Tensor, k_z: torch.Tensor,
+                            v_q: torch.Tensor, v_s: torch.Tensor,
+                            v_z: torch.Tensor, base_lens: torch.Tensor,
+                            kx_q: torch.Tensor, kx_s: torch.Tensor,
+                            kx_z: torch.Tensor, vx_q: torch.Tensor,
+                            vx_s: torch.Tensor, vx_z: torch.Tensor, *,
+                            scale: float) -> torch.Tensor:
+    """As :func:`flash_attend_int4` with nothing appended; kx_q/vx_q
+    (T, Hkv, D//2) uint8 and kx_s/kx_z/vx_s/vx_z (T, Hkv) are the chunk's
+    own quantized rows -> (T, H, D)."""
+    cache = (q, k_q, k_s, k_z, v_q, v_s, v_z, base_lens)
+    extra = (kx_q, kx_s, kx_z, vx_q, vx_s, vx_z)
+    if not on_cuda(*cache, *extra):
+        return flash_attend_int4_extra_plain(*cache, *extra, scale=scale)
+    T, H, Hkv, C = _cache_args("flash_attend_int4_extra", *cache)
+    check_kernel_args("flash_attend_int4_extra", {}, None,
+                      dict(kx_q=(kx_q, torch.uint8), vx_q=(vx_q, torch.uint8),
+                           kx_s=(kx_s, torch.bfloat16), kx_z=(kx_z, torch.bfloat16),
+                           vx_s=(vx_s, torch.bfloat16), vx_z=(vx_z, torch.bfloat16)))
+    if kx_q.shape != (T, Hkv, HEAD_DIM // 2) or vx_q.shape != kx_q.shape \
+            or any(a.shape != (T, Hkv) for a in (kx_s, kx_z, vx_s, vx_z)):
+        raise ValueError(f"flash_attend_int4_extra: bad extra shapes "
+                         f"{tuple(kx_q.shape)} {tuple(kx_s.shape)}")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        fn = _build.kernel("flash_int4", "kvz_flash_int4_extra", _ARGS_EXTRA)
+        _build.check(fn(*[a.data_ptr() for a in (*cache, *extra, out)],
+                        T, H, Hkv, C, scale, stream_ptr(q.device)),
+                     "flash_attend_int4_extra")
+    LAUNCHES["flash_attend_int4_extra"] += 1
+    return out

@@ -1,9 +1,11 @@
-"""K3: decode attention over the POOL cache (after eviction).
+"""K3 and K7: decode attention over the POOL cache (after eviction).
 
-Port of ``kvzip_tpu/ops/pool_decode.py::pool_decode_attend``; the kernel is
-``csrc/pool_decode.cu`` (flash-decoding over the layer's pool segment plus
-one split for the tail, then a merge). The port stores the pool row-major:
-K and V are both (P, D).
+Port of ``kvzip_tpu/ops/pool_decode.py::pool_decode_attend`` (K3, bf16
+pool, ``csrc/pool_decode.cu``) and ``::pool_decode_attend_int4`` (K7, int4
+pool, ``csrc/pool_decode_int4.cu``): flash-decoding over the layer's pool
+segment plus one split for the bf16 tail, then a merge. The port stores the
+pool row-major: K and V are both (P, D), or (P, D//2) packed int4 rows with
+float32 per-row scales and zeros (P,).
 """
 
 from __future__ import annotations
@@ -15,21 +17,46 @@ import torch
 from kvzip_tpu_torch import _build
 from kvzip_tpu_torch.ops import (LAUNCHES, attention, check_kernel_args,
                                  on_cuda, stream_ptr)
+from kvzip_tpu_torch.ops.quant import dequantize_int4
 from kvzip_tpu_torch.ops.ragged_decode import split_size
 
 _ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                        ctypes.c_void_p]
+_ARGS_INT4 = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_float,
+                                                            ctypes.c_void_p]
 
 
 def pool_decode_attend_plain(q, k_pool, v_pool, row_head, layer_off,
                              layer_rows, k_tail, v_tail, tail_len, layer, *,
                              scale):
+    off, n = int(layer_off[layer]), int(layer_rows[layer])
+    return _pool_layer_plain(q, k_pool[off:off + n].float(),
+                             v_pool[off:off + n].float(), row_head[off:off + n],
+                             k_tail, v_tail, tail_len, layer, scale=scale)
+
+
+def pool_decode_attend_int4_plain(q, k_pool_q, k_pool_s, k_pool_z, v_pool_q,
+                                  v_pool_s, v_pool_z, row_head, layer_off,
+                                  layer_rows, k_tail, v_tail, tail_len, layer,
+                                  *, scale):
+    """The layer's pool rows dequantized in float32, then K3's plain
+    attention."""
+    off, n = int(layer_off[layer]), int(layer_rows[layer])
+    kp, vp = (dequantize_int4(p[off:off + n], s[off:off + n, None],
+                              z[off:off + n, None], torch.float32, pack="split")
+              for p, s, z in ((k_pool_q, k_pool_s, k_pool_z),
+                              (v_pool_q, v_pool_s, v_pool_z)))
+    return _pool_layer_plain(q, kp, vp, row_head[off:off + n], k_tail, v_tail,
+                             tail_len, layer, scale=scale)
+
+
+def _pool_layer_plain(q, kp, vp, rh, k_tail, v_tail, tail_len, layer, *,
+                      scale):
+    """Attention of q over one layer's pool rows kp/vp (n, D) float32 with
+    their kv heads rh (n,), and the layer's tail."""
     T, H, D = q.shape
     Hkv, Tcap = k_tail.shape[1], k_tail.shape[2]
     G = H // Hkv
-    off, n = int(layer_off[layer]), int(layer_rows[layer])
-    kp, vp = k_pool[off:off + n].float(), v_pool[off:off + n].float()
-    rh = row_head[off:off + n]
     tail_ok = attention.causal_mask(tail_len, 0, T, Tcap, q.device)
     out = torch.empty((Hkv, G, T, D), dtype=torch.float32, device=q.device)
     for h in range(Hkv):
@@ -89,4 +116,55 @@ def pool_decode_attend(q: torch.Tensor, k_pool: torch.Tensor,
                         ch, s_pool, scale, stream_ptr(q.device)),
                      "pool_decode_attend")
     LAUNCHES["pool_decode_attend"] += 1
+    return out
+
+
+def pool_decode_attend_int4(q: torch.Tensor, k_pool_q: torch.Tensor,
+                            k_pool_s: torch.Tensor, k_pool_z: torch.Tensor,
+                            v_pool_q: torch.Tensor, v_pool_s: torch.Tensor,
+                            v_pool_z: torch.Tensor, row_head: torch.Tensor,
+                            layer_off: torch.Tensor, layer_rows: torch.Tensor,
+                            k_tail: torch.Tensor, v_tail: torch.Tensor,
+                            tail_len: int, layer: int, *, scale: float,
+                            max_rows: int) -> torch.Tensor:
+    """As :func:`pool_decode_attend` over an int4 pool: k_pool_q/v_pool_q
+    (P, D//2) uint8 split-packed, k/v_pool_s/z (P,) float32 -> (T, H, D)."""
+    pool = (k_pool_q, k_pool_s, k_pool_z, v_pool_q, v_pool_s, v_pool_z)
+    meta = (row_head, layer_off, layer_rows)
+    if not on_cuda(q, *pool, *meta, k_tail, v_tail):
+        return pool_decode_attend_int4_plain(q, *pool, *meta, k_tail, v_tail,
+                                             tail_len, layer, scale=scale)
+    check_kernel_args("pool_decode_attend_int4",
+                      dict(q=q, k_tail=k_tail, v_tail=v_tail),
+                      dict(row_head=row_head, layer_off=layer_off,
+                           layer_rows=layer_rows),
+                      {n: (t, torch.uint8 if n.endswith("q") else torch.float32)
+                       for n, t in zip(("k_pool_q", "k_pool_s", "k_pool_z",
+                                        "v_pool_q", "v_pool_s", "v_pool_z"), pool)})
+    T, H, D = q.shape
+    L, Hkv, Tcap, _ = k_tail.shape
+    P = k_pool_q.shape[0]
+    if H % Hkv or k_pool_q.shape != (P, D // 2) or v_pool_q.shape != (P, D // 2) \
+            or any(a.shape != (P,) for a in (k_pool_s, k_pool_z, v_pool_s,
+                                             v_pool_z, row_head)) \
+            or v_tail.shape != k_tail.shape or not 0 <= layer < L \
+            or tail_len + T > Tcap:
+        raise ValueError(f"pool_decode_attend_int4: bad shapes q {tuple(q.shape)} "
+                         f"pool {tuple(k_pool_q.shape)} tail {tuple(k_tail.shape)}"
+                         f" tail_len {tail_len}")
+    R = (H // Hkv) * T
+    ch = split_size(max_rows, -(-R // 64), target=512)
+    s_pool = -(-max_rows // ch)
+    out = torch.empty_like(q)
+    part_acc = torch.empty((Hkv, s_pool + 1, R, D), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((Hkv, s_pool + 1, R, 2), dtype=torch.float32,
+                          device=q.device)
+    with torch.cuda.device(q.device):
+        fn = _build.kernel("pool_decode_int4", "kvz_pool_decode_int4", _ARGS_INT4)
+        _build.check(fn(*[a.data_ptr() for a in (q, *pool, *meta, k_tail, v_tail,
+                                                 out, part_acc, part_ml)],
+                        T, H, Hkv, Tcap, layer, tail_len, ch, s_pool, scale,
+                        stream_ptr(q.device)), "pool_decode_attend_int4")
+    LAUNCHES["pool_decode_attend_int4"] += 1
     return out

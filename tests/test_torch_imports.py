@@ -17,7 +17,9 @@ def test_import_loads_no_jax_and_no_reference():
     code = ("import sys, kvzip_tpu_torch.engine, kvzip_tpu_torch.ops.flash, "
             "kvzip_tpu_torch.ops.score_kernel, "
             "kvzip_tpu_torch.ops.ragged_decode, "
-            "kvzip_tpu_torch.ops.pool_decode\n"
+            "kvzip_tpu_torch.ops.pool_decode, kvzip_tpu_torch.ops.flash_int4, "
+            "kvzip_tpu_torch.ops.quant, kvzip_tpu_torch.ops.w4a8, "
+            "kvzip_tpu_torch.ops.w4a8_v2, kvzip_tpu_torch.models.params\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'kvzip_tpu' or m.startswith('kvzip_tpu.')]\n"
             "print(bad)\n")
@@ -71,3 +73,24 @@ def test_kernel_wrappers_raise_on_cuda_without_kernel_inputs():
         check_kernel_args("k", dict(q=q[..., :64].bfloat16()))
     with pytest.raises(ValueError, match="mixed devices"):
         on_cuda(q, torch.zeros(1, device="meta"))
+
+
+def test_quantized_kernel_wrappers_check_dtypes():
+    """The int4 and W4A8 wrappers' argument check: packed rows must be
+    uint8, scales of the stated float type, everything contiguous; a
+    wrong dtype raises before any launch."""
+    from kvzip_tpu_torch.ops import check_kernel_args
+
+    q = torch.zeros((4, 8, 128), dtype=torch.bfloat16)
+    packed = torch.zeros((2, 16, 64), dtype=torch.uint8)
+    scales = torch.zeros((2, 16), dtype=torch.bfloat16)
+    check_kernel_args("k", dict(q=q), None,
+                      dict(k_q=(packed, torch.uint8), k_s=(scales, torch.bfloat16)))
+    with pytest.raises(TypeError, match="uint8"):
+        check_kernel_args("k", dict(q=q), None,
+                          dict(k_q=(packed.to(torch.int8), torch.uint8)))
+    with pytest.raises(TypeError, match="float32"):
+        check_kernel_args("k", {}, None, dict(k_s=(scales, torch.float32)))
+    with pytest.raises(ValueError, match="contiguous"):
+        check_kernel_args("k", {}, None,
+                          dict(k_q=(packed.transpose(1, 2), torch.uint8)))

@@ -1,11 +1,13 @@
-"""On the card: each CUDA kernel (K1-K4) against its plain version, on the
-same bf16 inputs, the plain version computed in float32.
+"""On the card: each CUDA kernel (K1-K8) against its plain version, on the
+same bf16 inputs (int4 rows with bf16 or float32 scales for K5-K7, int4
+weights with bf16 scales for K8), the plain version computed in float32.
 
 Run on a machine with a card: ``python -m pytest -n 0 -m cuda
 tests/test_torch_kernels.py``. Here (no card) every test skips.
 Tolerance: ``kvzip_tpu_torch.ops.parity``, relative to the reference's
 size: elementwise |got - want| <= rtol |want| + 0.02 RMS(want), with rtol
 2^-7 on attention outputs (bf16 probabilities in the p.v product, bf16
+output; K5-K7 also round their dequantized values to bf16, K8 its
 output) and 2^-4 on scores (bf16-rounded logits), and RMS(got - want) <=
 2^-7 RMS(want).
 """
@@ -99,3 +101,118 @@ def test_pool_decode_kernel(gen, H, Hkv, T):
             tail_len, layer, scale=D ** -0.5)
         assert _ok(got, want)
     assert LAUNCHES["pool_decode_attend"] == L
+
+
+def _quant(gen, *shape):
+    """Random rows (..., D) as the int4 caches hold them (packed uint8,
+    bf16 scale/zero), on the card."""
+    from kvzip_tpu_torch.ops.quant import quantize_int4
+
+    p, s, z = quantize_int4(torch.randn(*shape, D, generator=gen).to(torch.bfloat16),
+                            pack="split")
+    return p.cuda(), s[..., 0].cuda(), z[..., 0].cuda()
+
+
+@pytest.mark.parametrize("H,Hkv", [(4, 2), (28, 4)])
+@pytest.mark.parametrize("T,C,base", [(1, 1024, 700), (4, 4096, 3000),
+                                      (16, 1024, 500), (48, 256, 100),
+                                      (1024, 8192, 5000)])
+def test_flash_int4_kernel(gen, H, Hkv, T, C, base):
+    from kvzip_tpu_torch.ops import flash_int4
+
+    q = _rn(gen, T, H, D)
+    kv = (*_quant(gen, Hkv, C), *_quant(gen, Hkv, C))
+    lens = torch.tensor([max(base - 7 * i, 0) for i in range(Hkv)],
+                        dtype=torch.int32, device="cuda")
+    got = flash_int4.flash_attend_int4(q, *kv, lens, scale=D ** -0.5)
+    want = flash_int4.flash_attend_int4_plain(q.float(), *kv, lens, scale=D ** -0.5)
+    assert _ok(got, want) and LAUNCHES["flash_attend_int4"] == 1
+
+
+@pytest.mark.parametrize("H,Hkv", [(4, 2), (28, 4)])
+@pytest.mark.parametrize("T,C,base", [(48, 256, 100), (320, 2048, 1500)])
+def test_flash_int4_extra_kernel(gen, H, Hkv, T, C, base):
+    from kvzip_tpu_torch.ops import flash_int4
+
+    q = _rn(gen, T, H, D)
+    kv = (*_quant(gen, Hkv, C), *_quant(gen, Hkv, C))
+    extra = (*_quant(gen, T, Hkv), *_quant(gen, T, Hkv))
+    lens = torch.tensor([max(base - 7 * i, 0) for i in range(Hkv)],
+                        dtype=torch.int32, device="cuda")
+    got = flash_int4.flash_attend_int4_extra(q, *kv, lens, *extra, scale=D ** -0.5)
+    want = flash_int4.flash_attend_int4_extra_plain(q.float(), *kv, lens, *extra,
+                                                    scale=D ** -0.5)
+    assert _ok(got, want) and LAUNCHES["flash_attend_int4_extra"] == 1
+
+
+@pytest.mark.parametrize("H,Hkv", [(4, 2), (28, 4)])
+@pytest.mark.parametrize("T", [1, 4, 16])
+def test_pool_decode_int4_kernel(gen, H, Hkv, T):
+    L, Tcap, tail_len = 3, 64, 7
+    rows, off, P = [300, 0, 129], [0, 384, 512], 768
+    rh = torch.full((P,), -1, dtype=torch.int32)
+    for o, r in zip(off, rows):
+        rh[o:o + r] = torch.randint(0, Hkv, (r,), generator=gen,
+                                    dtype=torch.int32).sort().values
+    kq, ks, kz = _quant(gen, P)
+    vq, vs, vz = _quant(gen, P)
+    pool = (kq, ks.float(), kz.float(), vq, vs.float(), vz.float())
+    q, kt, vt = _rn(gen, T, H, D), _rn(gen, L, Hkv, Tcap, D), _rn(gen, L, Hkv, Tcap, D)
+    meta = (rh.cuda(), torch.tensor(off, dtype=torch.int32, device="cuda"),
+            torch.tensor(rows, dtype=torch.int32, device="cuda"))
+    for layer in range(L):
+        got = pool_decode.pool_decode_attend_int4(
+            q, *pool, *meta, kt, vt, tail_len, layer, scale=D ** -0.5, max_rows=384)
+        want = pool_decode.pool_decode_attend_int4_plain(
+            q.float(), *pool, *meta, kt.float(), vt.float(), tail_len, layer,
+            scale=D ** -0.5)
+        assert _ok(got, want)
+    assert LAUNCHES["pool_decode_attend_int4"] == L
+
+
+@pytest.mark.parametrize("T", [1, 3, 16, 100])
+@pytest.mark.parametrize("IN,OUT", [(256, 640), (384, 256)])
+def test_w4a8_kernel(gen, T, IN, OUT):
+    from kvzip_tpu_torch.ops import w4a8, w4a8_v2
+
+    L = 2
+    w = torch.randn(L, IN, OUT, generator=gen) * 0.02
+    v2 = w4a8_v2.repack_scales_v2(w4a8.quantize_weight_int4(w), in_dim=IN)
+    v2 = {k: t.cuda() for k, t in v2.items()}
+    x = _rn(gen, T, IN)
+    for layer in range(L):
+        got = w4a8_v2.w4a8_matmul_stacked_v2(x, v2["q4"], v2["s2"], v2["z2"], layer)
+        want = w4a8_v2.w4a8_jnp_v2(x.float(), {k: t[layer] for k, t in v2.items()})
+        assert _ok(got, want)
+    assert LAUNCHES["w4a8_matmul_stacked_v2"] == L
+
+
+def test_quantized_wrappers_reject_wrong_dtypes(gen):
+    """On the card a wrapper checks its operands before any launch: int4
+    rows must be uint8, the dense cache's scales bf16, the pool's float32,
+    the W4A8 bytes uint8."""
+    from kvzip_tpu_torch.ops import flash_int4, w4a8_v2
+
+    T, H, Hkv, C = 4, 4, 2, 256
+    q = _rn(gen, T, H, D)
+    kq, ks, kz = _quant(gen, Hkv, C)
+    lens = torch.full((Hkv,), 100, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_int4.flash_attend_int4(q, kq, ks.float(), kz, kq, ks, kz, lens,
+                                     scale=D ** -0.5)
+    with pytest.raises(TypeError, match="uint8"):
+        flash_int4.flash_attend_int4(q, kq.to(torch.int8), ks, kz, kq, ks, kz, lens,
+                                     scale=D ** -0.5)
+    rh = torch.zeros((C,), dtype=torch.int32, device="cuda")
+    off = torch.zeros((1,), dtype=torch.int32, device="cuda")
+    tail = _rn(gen, 1, Hkv, 16, D)
+    with pytest.raises(TypeError, match="float32"):
+        pool_decode.pool_decode_attend_int4(
+            q, kq[0], ks[0], kz[0], kq[0], ks[0], kz[0], rh, off, off + C, tail, tail,
+            0, 0, scale=D ** -0.5, max_rows=C)
+    x = _rn(gen, T, 256)
+    s2 = torch.zeros((1, 2, 8, 64), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(TypeError, match="uint8"):
+        w4a8_v2.w4a8_matmul_stacked_v2(
+            x, torch.zeros((1, 256, 64), dtype=torch.int8, device="cuda"), s2, s2, 0)
+    assert sum(LAUNCHES.values()) == 0
