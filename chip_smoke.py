@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 1. Card: prints ``nvidia-smi``'s name and power limit; fails without CUDA.
-2. Build: builds the CUDA kernels K1-K8 from ``kvzip_tpu_torch/csrc``.
+2. Build: builds the CUDA kernels K1-K9, K13 and K14 from
+   ``kvzip_tpu_torch/csrc``.
 3. Kernel parity: each kernel against its plain PyTorch version (computed
    in float32 from the same inputs) at every shape its main path gives
    it, through ``kvzip_tpu_torch.ops.parity`` (tolerances relative to the
@@ -31,7 +32,18 @@
    cache (``allkept_attention_int4``), prune(0.3, "pair"), three queries
    on the int4 pool and the full int4 pool baseline. Counters zeroed
    before and read after; K2 and K5-K8 must have run.
-6. Prints the kernels line, then as the last line
+6. W8A8-KV4 path (QServe's W8A8-KV4 geometry, the upstream KVzip's own
+   quantized model) at the full width of llama3.1-8b (32 layers, G = 4,
+   random weights from a seed), after the qwen2.5-7b engines are freed:
+   K9, K13 and K14 parity and times at its shapes, then
+   ``Engine(weight_quant="w8a8", kv_quant="int4", act_fused="pallas")``
+   through the same main path (its own 16384-token context and queries);
+   K2, K5, K6, K7, K13 and K14 must have run. Then the windowed pass: one
+   prefill of the same context scored exactly and with
+   ``scoring_attend="window"`` (K9 must have run), reporting both scoring
+   times, the Pearson correlation of the two scores and the agreement of
+   their keep masks at ratio 0.3 (reported, asserted only finite).
+7. Prints the kernels line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -52,9 +64,13 @@ NEW_TOKENS = 32
 SEED = 0
 # the reference's flagship configuration (its bench.py)
 QUANT = dict(kv_quant="int4", weight_quant="w4a8", embed_quant="int8")
+# QServe's W8A8-KV4 geometry (get_model_id("llama3-8b-4m-w8a8kv4"))
+W8_MODEL = "llama3.1-8b"
+W8 = dict(kv_quant="int4", weight_quant="w8a8", act_fused="pallas")
 # H100 SXM data-sheet peaks (dense bf16 and int8 tensor cores, HBM3)
 PEAK_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
+PEAK_F32 = 67e12  # float32 outside the tensor cores
 PEAK_BYTES = 3.35e12
 
 
@@ -129,6 +145,20 @@ def hold_parity(checks, name, shape, got, want, rtol, perturbed=None):
     if perturbed is not None:
         p = parity(got, perturbed, rtol)
         r.update(rejects_perturbed=not p["ok"], perturbed_rel_rms_err=p["rel_rms_err"])
+    checks.setdefault(name, []).append(r)
+
+
+def hold_quant(checks, name, shape, got, want):
+    """Record ``ops.quant_parity`` of an int8 kernel's (q, s) against its
+    plain version's, and whether the same gate rejects the plain version
+    with row 0's scale doubled."""
+    from kvzip_tpu_torch.ops import quant_parity
+
+    r = dict(quant_parity(*got, *want), shape=shape)
+    s2 = want[1].clone()
+    s2[0] *= 2
+    p = quant_parity(*got, want[0], s2)
+    r.update(rejects_perturbed=not p["ok"], perturbed_scale_rel_err=p["scale_rel_err"])
     checks.setdefault(name, []).append(r)
 
 
@@ -541,6 +571,93 @@ def kernel_parity_int4(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap:
     return verify_parity(out, checks)
 
 
+def kernel_parity_w8a8(cfg, sink: int):
+    """K9, K13 and K14 against their plain versions at the shapes the
+    W8A8-KV4 path gives them at llama3.1-8b: K9 at a scoring chunk (2304
+    padded queries, keys sink + 2048 + 2304) with a full window (ctx_len
+    2000) and the context's short last window (384); K13 at D = 4096 and
+    K14 at F = 14336, each at T = 1 (decode), 16 and 2304 (a scoring
+    chunk). K9 through ``ops.parity`` (a reference with one 64-key window
+    tile left out must fail), K13/K14 through ``ops.quant_parity`` (a
+    reference with one row's scale doubled must fail). The kernels line
+    carries K9 at ctx_len 2000 and K13/K14 at T = 2304; every shape's time
+    is logged."""
+    import torch
+    import torch.nn.functional as F
+
+    from kvzip_tpu_torch.ops import OUT_RTOL, fused_act, windowed_attend
+
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    D_m, I = cfg.hidden_size, cfg.intermediate_size
+    scale = D ** -0.5
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    checks, out = {}, []
+
+    # K9
+    T, s_ctx = 2304, 2048
+    s0, K = sink + s_ctx, sink + s_ctx + T
+    q, keys, vals = rn(T, H, D), rn(Hkv, K, D), rn(Hkv, K, D)
+    kw = dict(sink=sink, s_ctx=s_ctx, scale=scale)
+    timed_k9 = {}
+    for ctx_len in (2000, 384):
+        got = windowed_attend.windowed_attend(q, keys, vals, ctx_len, **kw)
+        want, drop = (windowed_attend.windowed_attend_plain(
+            q.float(), keys.float(), vals.float(), n, **kw) for n in (ctx_len, ctx_len - 64))
+        hold_parity(checks, "windowed_attend",
+                    f"q ({T},{H},{D}) keys ({Hkv},{K},{D}) ctx_len {ctx_len}", got, want,
+                    OUT_RTOL, drop)
+        col, row = torch.arange(K, device=dev)[None], torch.arange(T, device=dev)[:, None]
+        mask = ~(((col >= s0) & (col - s0 > row)) | ((col >= sink + ctx_len) & (col < s0)))
+        pairs = H * (T * (sink + ctx_len) + T * (T + 1) // 2)
+        b = bound(4 * D * pairs, 2 * 2 * T * H * D + 2 * 2 * Hkv * K * D)
+        timed_k9[ctx_len] = dict(
+            **kernel_ms(lambda: windowed_attend.windowed_attend(q, keys, vals, ctx_len, **kw),
+                        10),
+            plain_ms=time_ms(lambda: windowed_attend.windowed_attend_plain(
+                q, keys, vals, ctx_len, **kw), 2, 1),
+            bound_ms=b[0], bound_by=b[1],
+            library_ms=graph_ms(lambda: F.scaled_dot_product_attention(
+                q.transpose(0, 1)[None], keys[None], vals[None], attn_mask=mask,
+                enable_gqa=True), 10))
+        del mask
+    out.append(dict(name="windowed_attend", route="cuda",
+                    source="kvzip_tpu_torch/csrc/windowed_attend.cu",
+                    replaces="kvzip_tpu/ops/windowed_attend.py:118", **timed_k9[2000],
+                    per_shape={f"ctx_len {n}": v for n, v in timed_k9.items()}))
+    del q, keys, vals
+
+    # K13 and K14
+    for name, W, line in (("rmsnorm_quant", D_m, 72), ("silu_mul_quant", I, 115)):
+        per_shape = {}
+        for T in (1, 16, 2304):
+            if name == "rmsnorm_quant":
+                x = rn(T, W) * 3
+                w = (1 + 0.2 * torch.randn(W, generator=gen, device=dev)).to(torch.bfloat16)
+                args = (x, w, cfg.rms_norm_eps)
+                kern, plain = fused_act.rmsnorm_quant, fused_act.rmsnorm_quant_plain
+                nbytes = 2 * T * W + 2 * W + T * W + 4 * T
+            else:
+                args = (rn(T, W) * 3, rn(T, W), cfg.hidden_act)
+                kern, plain = fused_act.silu_mul_quant, fused_act.silu_mul_quant_plain
+                nbytes = 2 * 2 * T * W + T * W + 4 * T
+            hold_quant(checks, name, f"({T},{W})", kern(*args), plain(*args))
+            # float32 operations an element: K13 square, sum, two products,
+            # abs, max, divide, round; K14 about 12 with its exp or tanh
+            b = bound((8 if name == "rmsnorm_quant" else 12) * T * W, nbytes, PEAK_F32)
+            per_shape[f"T {T}"] = dict(**kernel_ms(lambda: kern(*args), 56),
+                                       plain_ms=time_ms(lambda: plain(*args), 5, 1),
+                                       bound_ms=b[0], bound_by=b[1])
+        out.append(dict(name=name, route="cuda", source="kvzip_tpu_torch/csrc/fused_act.cu",
+                        replaces=f"kvzip_tpu/ops/fused_act.py:{line}", **per_shape["T 2304"],
+                        library_ms=None, per_shape=per_shape))
+    return verify_parity(out, checks)
+
+
 def allkept_attention(cache, pool, num_heads: int):
     """Attention on the all-rows-kept pool against the dense cache, layer by
     layer on the same q and the same T new rows (written at each head's
@@ -790,6 +907,41 @@ def main_path(eng, ctx_ids, queries, quant: bool = False):
     return rep
 
 
+def windowed_pass(weng, eng, ctx_ids):
+    """One prefill of ctx_ids, scored exactly (``eng``) and windowed
+    (``weng``, the same parameters with ``scoring_attend="window"``): both
+    scoring times, the Pearson correlation of the two scores (all layers,
+    and layer by layer) and the share of (layer, head, token) entries on
+    which their pair keep masks at ratio 0.3 agree. Reported, and asserted
+    only finite; layer 0, whose queries and keys the window does not
+    change, must score identically in both modes."""
+    import numpy as np
+    import torch
+
+    from kvzip_tpu_torch.prune import prune_mask
+
+    st = weng.prefill(ctx_ids, do_score=False)
+    _, exact_s = timed(lambda: eng.scoring(st, st.ctx_ids))
+    exact = st.score.clone()
+    _, window_s = timed(lambda: weng.scoring(st, st.ctx_ids))
+    window = st.score
+    if window.shape != exact.shape or not torch.isfinite(window).all():
+        raise AssertionError(f"bad windowed scores: {tuple(window.shape)}")
+    if not torch.equal(window[0], exact[0]):
+        raise AssertionError("layer 0 scores differ between exact and windowed scoring")
+    w, e = (s.double().flatten(1).cpu().numpy() for s in (window, exact))
+    corr = float(np.corrcoef(w.ravel(), e.ravel())[0, 1])
+    per_layer = [float(np.corrcoef(a, b)[0, 1]) for a, b in zip(w, e)]
+    keep_w, keep_e = (prune_mask(s, 0.3, "pair", method="histogram")[0]
+                      for s in (window, exact))
+    agree = float((keep_w == keep_e).float().mean())
+    if not (np.isfinite(corr) and np.isfinite(agree)):
+        raise AssertionError(f"windowed scores: correlation {corr}, agreement {agree}")
+    return dict(exact_scoring_s=exact_s, window_scoring_s=window_s, score_pearson=corr,
+                score_pearson_per_layer=per_layer, keep_mask_agreement=agree, keep_share_window=float(keep_w.float().mean()),
+                keep_share_exact=float(keep_e.float().mean()))
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "kvzip_tpu_torch")):
         sys.exit("chip_smoke.py runs from a checkout of the repository "
@@ -837,19 +989,22 @@ def main() -> int:
                                   "decode_bound_ms", "per_shape")}
                         for r in kernels + kernels_q])
 
-    def run(tag, engine, kernel_names, **kw):
-        """One main path between a counter reset and a read; every kernel
-        of the path must have launched."""
+    def counted(tag, engine, kernel_names, path, *args, **kw):
+        """One path between a counter reset and a read; every kernel of the
+        path must have launched."""
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        rep = main_path(engine, ctx_ids, queries, **kw)
+        rep = path(engine, *args, **kw)
         launches = {n: LAUNCHES[n] for n in kernel_names}
-        log(phase=tag, model=MODEL, layers=cfg.num_layers, ctx=CTX, **rep,
+        log(phase=tag, model=engine.name, layers=engine.config.num_layers, ctx=CTX, **rep,
             launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         missing = [n for n, c in launches.items() if c == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the {tag}: {missing}")
         return launches
+
+    def run(tag, engine, kernel_names, **kw):
+        return counted(tag, engine, kernel_names, main_path, ctx_ids, queries, **kw)
 
     launches = run("main_path", eng, ("flash_attend", "fused_scores",
                                       "ragged_decode_attend", "pool_decode_attend"))
@@ -870,6 +1025,39 @@ def main() -> int:
     for r in kernels_q:
         r["launches"] = launches[r["name"]]
     kernels += kernels_q
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the W8A8-KV4 path at llama3.1-8b, its own context and queries
+    cfg = resolve_config(W8_MODEL)
+    t0 = time.perf_counter()
+    eng = Engine(W8_MODEL, config=cfg, dtype=torch.bfloat16, device="cuda",
+                 max_new_tokens=NEW_TOKENS, seed=SEED, **W8)
+    weng = Engine(W8_MODEL, config=cfg, params=eng.params, tokenizer=eng.tokenizer,
+                  dtype=torch.bfloat16, device="cuda", max_new_tokens=NEW_TOKENS,
+                  scoring_attend="window", **W8)
+    torch.cuda.synchronize()
+    log(phase="init_w8a8", seconds=time.perf_counter() - t0, model=W8_MODEL, **W8)
+    rng = np.random.default_rng(SEED)
+    ctx_ids = rng.integers(0, cfg.vocab_size, CTX).astype(np.int32)
+    queries = [rng.integers(0, cfg.vocab_size, 24).astype(np.int32) for _ in range(3)]
+
+    t0 = time.perf_counter()
+    kernels_w8 = kernel_parity_w8a8(cfg, len(eng.sys_prompt_ids))
+    log(phase="kernel_parity_w8a8", seconds=time.perf_counter() - t0,
+        timing_details=[{k: v for k, v in r.items() if k in ("name", "ms", "host_ms",
+                                                             "library_ms", "per_shape")}
+                        for r in kernels_w8])
+    launches = run("main_path_w8a8", eng,
+                   ("fused_scores", "flash_attend_int4", "flash_attend_int4_extra",
+                    "pool_decode_attend_int4", "rmsnorm_quant", "silu_mul_quant"),
+                   quant=True)
+    launches.update(counted("windowed_scoring", weng, ("windowed_attend",), windowed_pass,
+                            eng, ctx_ids))
+    for r in kernels_w8:
+        r["launches"] = launches[r["name"]]
+    kernels += kernels_w8
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "rms_want",
             "worst_to_tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

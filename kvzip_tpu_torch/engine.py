@@ -3,15 +3,18 @@ decode over the pool.
 
 Port of the ``Engine``/``KVState`` main path of ``kvzip_tpu/engine.py``
 (evict path; bf16 or float32 weights and KV, with the quantized options
-``kv_quant="int4"``, ``weight_quant="w4a8"`` and ``embed_quant="int8"``).
+``kv_quant="int4"``, ``weight_quant="w8a8"`` or ``"w4a8"`` and
+``embed_quant="int8"``, the fused W8A8 activation quantization
+``act_fused="pallas"`` and the windowed scoring ``scoring_attend="window"``).
 PyTorch runs eagerly: the chunk loop, the layer loop and the decode loop
 are Python loops, caches are updated in place, and the
 ``update_cache=False`` semantics are O(1) counter restores as in the
 reference.
 
-Device rule: on a CUDA device every attention op and every W4A8 linear
-below 512 rows launches its kernel (K1-K8); on the CPU the same calls run
-the plain PyTorch versions. Both devices build the pool at prune time.
+Device rule: on a CUDA device every attention op, every W4A8 linear below
+512 rows and every fused activation quantization launches its kernel
+(K1-K9, K13, K14); on the CPU the same calls run the plain PyTorch
+versions. Both devices build the pool at prune time.
 """
 
 from __future__ import annotations
@@ -85,7 +88,12 @@ class Engine:
                  capacity_granularity: int = 512,
                  score_chunk_size: int = 2000, kv_quant: str = "none",
                  weight_quant: str = "none", embed_quant: str = "none",
+                 act_fused: str = "xla", scoring_attend: str = "full",
                  seed: int = 0):
+        """``act_fused``: "xla" (the W8A8 norm, activation and quantization
+        as separate ops) or "pallas" (fused, K13 and K14; the values keep
+        the reference's names). ``scoring_attend``: "full" (exact scoring)
+        or "window" (the O(ctx * window) approximation through K9)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -96,7 +104,18 @@ class Engine:
             raise NotImplementedError("the port covers kv_type='evict' only")
         if kv_quant not in ("none", "int4"):
             raise ValueError(f"kv_quant: {kv_quant!r}")
+        if act_fused not in ("xla", "pallas"):
+            raise ValueError(f"act_fused: {act_fused!r}")
         self.config = config or resolve_config(model_name)
+        if act_fused == "pallas":
+            self.config = dataclasses.replace(self.config, fused_act=True)
+        if scoring_attend not in ("full", "window"):
+            raise ValueError(f"scoring_attend: {scoring_attend!r}")
+        if scoring_attend == "window" and self.config.is_hybrid:
+            raise ValueError(
+                "scoring_attend='window' is not supported for hybrid "
+                "(gemma3) models — their scoring runs in forward_hybrid")
+        self.scoring_attend = scoring_attend
         check_supported(self.config)
         self.name = (model_name.rstrip("/").split("/")[-1]
                      if "/" in model_name else model_name)
@@ -255,7 +274,7 @@ class Engine:
             res = forward(self.params, cfg, self._ids(rep_padded), state.cache,
                           scoring=True, score_start=start, score_len=len(a_ids),
                           score_qlen=n_q, score_width=self.score_width,
-                          sink=state.sink)
+                          sink=state.sink, scoring_attend=self.scoring_attend)
             o = start - state.sink
             score[:, :, o:o + len(a_ids)] = res.chunk_scores[:, :, :len(a_ids)].float()
             start += len(a_ids)

@@ -4,8 +4,9 @@ import from the reference.
 Same tree and layout as ``kvzip_tpu/models/params.py``: stacked per-layer
 tensors with a leading ``L`` axis, linear weights stored ``(in, out)`` and
 applied as ``x @ w``. Quantized weights are dicts: W4A8 v2 stacks
-``{"q4", "s2", "z2"}`` (``ops/w4a8_v2.py``) and int8 tables ``{"q", "s"}``
-(``ops/quant.py``).
+``{"q4", "s2", "z2"}`` (``ops/w4a8_v2.py``), W8A8 stacks ``{"q", "s"}``
+with int8 bytes ``(L, out, in)`` and the int8 embedding / lm_head tables
+``{"q", "s"}`` (``ops/quant.py``).
 """
 
 from __future__ import annotations
@@ -60,12 +61,29 @@ _BIG = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 def init_params_w4a8(cfg: ModelConfig, generator: torch.Generator,
                      device="cuda", dtype=torch.bfloat16) -> Params:
-    """Random init directly in W4A8 (v1) form: each layer's N(0, 0.02)
-    weight is drawn, rounded to ``dtype`` and quantized before the next, so
-    no bf16 stack is ever resident. Biases are zero and norms one, as in
-    the reference's quantized init."""
+    """Random init directly in W4A8 (v1) form (int4 per-group weights)."""
     from kvzip_tpu_torch.ops.w4a8 import quantize_weight_int4
 
+    return _init_params_quantized(cfg, generator, device, dtype,
+                                  quantize_weight_int4)
+
+
+def init_params_w8a8(cfg: ModelConfig, generator: torch.Generator,
+                     device="cuda", dtype=torch.bfloat16) -> Params:
+    """Random init directly in W8A8 form (int8 per-channel weights, stored
+    ``(out, in)``); embedding and lm_head stay in ``dtype``, as in QServe."""
+    from kvzip_tpu_torch.ops.quant import quantize_weight_int8
+
+    return _init_params_quantized(cfg, generator, device, dtype,
+                                  quantize_weight_int8)
+
+
+def _init_params_quantized(cfg: ModelConfig, generator: torch.Generator,
+                           device, dtype, quant_fn) -> Params:
+    """Each layer's N(0, 0.02) weight is drawn, rounded to ``dtype`` and
+    quantized by ``quant_fn`` before the next, so no float stack is ever
+    resident (a (32, 4096, 14336) float32 stack is 7.5 GB). Biases are zero
+    and norms one, as in the reference's quantized init."""
     D, H, Hkv, Dh = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     L, I, V = cfg.num_layers, cfg.intermediate_size, cfg.vocab_size
     shapes = {"wq": (D, H * Dh), "wk": (D, Hkv * Dh), "wv": (D, Hkv * Dh),
@@ -78,7 +96,7 @@ def init_params_w4a8(cfg: ModelConfig, generator: torch.Generator,
 
     layers = {}
     for name, shape in shapes.items():
-        parts = [quantize_weight_int4(nrm(*shape)) for _ in range(L)]
+        parts = [quant_fn(nrm(*shape)) for _ in range(L)]
         layers[name] = {k: torch.stack([p[k] for p in parts]) for k in parts[0]}
         del parts
     layers["ln_attn"] = torch.ones((L, D), dtype=dtype, device=device)
@@ -111,16 +129,22 @@ def prepare_params(cfg: ModelConfig, params: Params = None, *, dtype,
                    generator: torch.Generator = None, device="cuda") -> Params:
     """Quantization policy of the reference's ``prepare_params``: random
     init (from ``generator``) or passed-in params, times ``weight_quant``
-    in {"none", "w4a8"} and ``embed_quant`` in {"none", "int8"}. W4A8
-    stacks end fused (wqkv, w_gateup) and in v2 storage; checkpoint loading
-    is not ported."""
-    if weight_quant not in ("none", "w4a8"):
+    in {"none", "w8a8", "w4a8"} and ``embed_quant`` in {"none", "int8"}.
+    W8A8 stacks are ``{"q", "s"}`` dicts stored ``(out, in)``; W4A8 stacks
+    end fused (wqkv, w_gateup) and in v2 storage; checkpoint loading is not
+    ported."""
+    if weight_quant not in ("none", "w8a8", "w4a8"):
         raise NotImplementedError(f"weight_quant={weight_quant!r} is not ported")
     if embed_quant not in ("none", "int8"):
         raise NotImplementedError(f"embed_quant={embed_quant!r} is not ported")
     if params is None:
-        init = init_params_w4a8 if weight_quant == "w4a8" else init_params
+        init = {"w4a8": init_params_w4a8, "w8a8": init_params_w8a8}.get(
+            weight_quant, init_params)
         params = init(cfg, generator, device, dtype)
+    if weight_quant == "w8a8" and not isinstance(params["layers"].get("wq"), dict):
+        from kvzip_tpu_torch.ops.quant import quantize_params_w8a8
+
+        params = quantize_params_w8a8(params)
     if weight_quant == "w4a8":
         from kvzip_tpu_torch.ops.w4a8 import fuse_w4a8_params, quantize_weight_int4
         from kvzip_tpu_torch.ops.w4a8_v2 import repack_w4a8_layers
@@ -160,12 +184,25 @@ def _tensor(a: np.ndarray, device, dtype) -> torch.Tensor:
 
 def params_from_jax(tree: Params, device="cuda", dtype=torch.bfloat16) -> Params:
     """The reference's parameter tree, given as numpy arrays (for example
-    ``jax.device_get(params)``), as torch tensors in the same layout.
-    Floating weights cast to ``dtype``; integer leaves (packed int4 bytes,
-    int8 tables) keep their dtype, and every leaf of a quantized dict
-    (``{"q4", ...}``, ``{"q", "s"}``) carries across unchanged."""
+    ``jax.device_get(params)``), as torch tensors in the same layout, except
+    that W8A8 layer weights' int8 bytes go from the reference's ``(L, in,
+    out)`` to the port's ``(L, out, in)``. Floating weights cast to
+    ``dtype``; integer leaves (packed int4 bytes, int8 tables) keep their
+    dtype, and every leaf of a quantized dict (``{"q4", ...}``,
+    ``{"q", "s"}``) carries across with its dtype."""
+    from kvzip_tpu_torch.ops.quant import is_w8
+
+    out = _from_jax(tree, device, dtype)
+    if isinstance(out, dict) and isinstance(out.get("layers"), dict):
+        for w in out["layers"].values():
+            if is_w8(w):
+                w["q"] = w["q"].transpose(-1, -2).contiguous()
+    return out
+
+
+def _from_jax(tree, device, dtype):
     if isinstance(tree, dict):
         quantized = "q4" in tree or "q" in tree
-        return {k: params_from_jax(v, device, None if quantized else dtype)
+        return {k: _from_jax(v, device, None if quantized else dtype)
                 for k, v in tree.items()}
     return _tensor(tree, device, dtype)

@@ -1,10 +1,10 @@
 """Decoder forward of the port: dense (bf16 or int4) and pool branches.
 
 Port of ``kvzip_tpu/models/transformer.py::forward`` for the llama and
-qwen2 families (GQA, RoPE, optional qkv bias), with plain or W4A8 weights
-and a plain or int8 embedding / lm_head. PyTorch runs eagerly, so the layer
-loop is a Python loop and the cache is updated in place. Dispatch, as in
-the reference:
+qwen2 families (GQA, RoPE, optional qkv bias), with plain, W8A8 or W4A8
+weights and a plain or int8 embedding / lm_head. PyTorch runs eagerly, so
+the layer loop is a Python loop and the cache is updated in place.
+Dispatch, as in the reference:
 
 - dense bf16 cache: the KVzip score hook goes to K2 (``fused_scores``);
   T <= 8 queries go to K4 (``ragged_decode_attend``), longer blocks to K1
@@ -15,11 +15,22 @@ the reference:
   (``flash_attend_int4_extra``) takes the chunk's quantized rows beside the
   cache, and K2 scores against the dequantized sink and window keys and the
   quantize-dequantized repeat keys;
+- windowed scoring (``scoring_attend="window"``): the scoring pass attends
+  only [sink | window | repeat] through K9 (``windowed_attend``) in place
+  of K1/K4 (bf16 cache, where the chunk is still appended and the engine's
+  snapshot restore drops it) or K6 (int4 cache, read-only; the repeat rows'
+  K/V go through the cache's quantize-dequantize round trip); K2 still
+  makes the scores;
 - pool cache: K3 (``pool_decode_attend``) or, for an int4 pool, K7
   (``pool_decode_attend_int4``), after the T new rows are written into the
   full (L, Hkv, Tcap, D) tail stacks at ``tail_len``;
 - W4A8 weights (fused ``wqkv``, ``wo``, ``w_gateup``, ``w_down``) go
-  through ``w4a8_linear_stacked`` (K8 below 512 rows).
+  through ``w4a8_linear_stacked`` (K8 below 512 rows);
+- W8A8 weights (``{"q", "s"}``): q/k/v share one activation quantization
+  and gate/up another; with ``cfg.fused_act`` the RMSNorm and the
+  quantization run as K13 (``rmsnorm_quant``) and act(gate) * up with the
+  down projection's quantization as K14 (``silu_mul_quant``). The int8
+  products go to ``int8_matmul`` (``torch._int_mm`` on the card).
 """
 
 from __future__ import annotations
@@ -34,12 +45,15 @@ from kvzip_tpu_torch.config import ModelConfig
 from kvzip_tpu_torch.models.rope import apply_rope, rope_cos_sin
 from kvzip_tpu_torch.ops.flash import flash_attend
 from kvzip_tpu_torch.ops.flash_int4 import flash_attend_int4, flash_attend_int4_extra
+from kvzip_tpu_torch.ops.fused_act import rmsnorm_quant, silu_mul_quant
 from kvzip_tpu_torch.ops.pool_decode import pool_decode_attend, pool_decode_attend_int4
 from kvzip_tpu_torch.ops.quant import (dequantize_int4, embed_lookup, head_logits,
-                                       quantize_int4)
+                                       int8_linear, int8_matmul, is_w8,
+                                       quantize_act_int8, quantize_int4)
 from kvzip_tpu_torch.ops.ragged_decode import MAX_T, ragged_decode_attend
 from kvzip_tpu_torch.ops.score_kernel import fused_scores
 from kvzip_tpu_torch.ops.w4a8 import w4a8_linear_stacked
+from kvzip_tpu_torch.ops.windowed_attend import windowed_attend
 from kvzip_tpu_torch.pool import PoolInt4KV, PoolKV
 
 
@@ -62,9 +76,33 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(kind)
 
 
-def _lin(x: torch.Tensor, w: torch.Tensor, bias=None) -> torch.Tensor:
+def _lin(x: torch.Tensor, w, bias=None) -> torch.Tensor:
+    """Linear of a plain (in, out) weight or a W8A8 dict."""
+    if is_w8(w):
+        return int8_linear(x, w["q"], w["s"], bias)
     y = x @ w
     return y if bias is None else y + bias
+
+
+def _lin_shared(x: torch.Tensor, weights, biases) -> list:
+    """Several projections of one activation; W8A8 quantizes it once."""
+    if is_w8(weights[0]):
+        xq, xs = quantize_act_int8(x)
+        return [int8_matmul(xq, xs, w["q"], w["s"], b, x.dtype)
+                for w, b in zip(weights, biases)]
+    return [_lin(x, w, b) for w, b in zip(weights, biases)]
+
+
+def _norm_lin_shared(x: torch.Tensor, norm_w, eps: float, weights, biases,
+                     fused: bool) -> list:
+    """RMSNorm, then :func:`_lin_shared`; with ``fused`` and W8A8 weights
+    the norm and the activation quantization are one K13 pass, in float32
+    with no rounding to the model dtype between them."""
+    if fused and is_w8(weights[0]):
+        xq, xs = rmsnorm_quant(x, norm_w, eps)
+        return [int8_matmul(xq, xs, w["q"], w["s"], b, x.dtype)
+                for w, b in zip(weights, biases)]
+    return _lin_shared(rms_norm(x, norm_w, eps), weights, biases)
 
 
 def _is_w4(w) -> bool:
@@ -83,6 +121,17 @@ def _deq(packed, s, z, dtype):
     return dequantize_int4(packed, s[..., None], z[..., None], dtype, pack="split")
 
 
+def _window_rows(layer, rep, sink: int, win: slice, dtype) -> torch.Tensor:
+    """[sink | window | repeat] rows (Hkv, K, D) of one int4 layer's keys or
+    values, dequantized; ``layer`` (packed, scale, zero) of the cache,
+    ``rep`` the chunk's own quantized rows, which so take the same
+    quantize-dequantize round trip as the cache's."""
+    p, s, z = layer
+    return torch.cat([_deq(p[:, :sink], s[:, :sink], z[:, :sink], dtype),
+                      _deq(p[:, win], s[:, win], z[:, win], dtype),
+                      _deq(*rep, dtype).transpose(0, 1)], dim=1)
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """The port's forward covers the llama and qwen2 families."""
     if (cfg.is_hybrid or cfg.qk_norm or cfg.post_norms
@@ -94,14 +143,17 @@ def check_supported(cfg: ModelConfig) -> None:
 def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
             collect_logits: str = "none", scoring: bool = False,
             score_start: int = 0, score_len: int = 0, score_qlen: int = 0,
-            score_width: int = 0, sink: int = 0) -> ForwardResult:
+            score_width: int = 0, sink: int = 0,
+            scoring_attend: str = "full") -> ForwardResult:
     """Run ids (T,) through the model, appending their KV to ``cache`` in
     place (``lengths``/``seen``, or ``tail_len``/``seen`` for a pool).
 
     ``collect_logits``: "none" | "last" | "all". ``scoring``: the KVzip
     repeat pass on a dense cache; ``score_start`` is the cache row of the
     scored ctx window, ``score_len`` its true length, ``score_qlen`` the
-    true number of repeat queries.
+    true number of repeat queries. ``scoring_attend``: "full" (the exact
+    pass over the whole cache) or "window" (K9 over [sink | window |
+    repeat] only).
     """
     T = ids.shape[0]
     L, H, Hkv, Dh = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -110,6 +162,9 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
     is_int4 = isinstance(cache, Int4KVCache)
     if scoring and is_pool:
         raise ValueError("scoring runs before the prune; a pool is decode-only")
+    if scoring_attend not in ("full", "window"):
+        raise ValueError(f"scoring_attend: {scoring_attend!r}")
+    window = scoring and scoring_attend == "window"
     if is_pool and cache.tail_len + T > cache.k_tail.shape[2]:
         raise ValueError("pool tail overflow")
     emb = params["embed"]
@@ -121,19 +176,21 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
     lp_all = params["layers"]
     w4 = {k: v for k, v in lp_all.items() if _is_w4(v)}
     scores = []
+    eps = cfg.rms_norm_eps
     for l in range(L):
-        lp = {k: v[l] for k, v in lp_all.items() if k not in w4}
-        h = rms_norm(x, lp["ln_attn"], cfg.rms_norm_eps)
+        lp = {k: ({kk: vv[l] for kk, vv in v.items()} if isinstance(v, dict)
+                  else v[l]) for k, v in lp_all.items() if k not in w4}
         if "wqkv" in w4:
+            h = rms_norm(x, lp["ln_attn"], eps)
             qkv = w4a8_linear_stacked(h, w4["wqkv"], l)
             nq, nk = H * Dh, Hkv * Dh
             q, k, v = qkv[:, :nq], qkv[:, nq:nq + nk], qkv[:, nq + nk:]
             if "bq" in lp:
                 q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
         else:
-            q = _lin(h, lp["wq"], lp.get("bq"))
-            k = _lin(h, lp["wk"], lp.get("bk"))
-            v = _lin(h, lp["wv"], lp.get("bv"))
+            q, k, v = _norm_lin_shared(
+                x, lp["ln_attn"], eps, (lp["wq"], lp["wk"], lp["wv"]),
+                (lp.get("bq"), lp.get("bk"), lp.get("bv")), cfg.fused_act)
         q = apply_rope(q.reshape(T, H, Dh), cos, sin)
         k = apply_rope(k.reshape(T, Hkv, Dh), cos, sin)
         v = v.reshape(T, Hkv, Dh)
@@ -160,13 +217,17 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
             kq_l, _, ks_l, kz_l = layer[:4]
             if scoring:
                 win = slice(score_start, score_start + score_width)
-                keys = torch.cat(
-                    [_deq(kq_l[:, :sink], ks_l[:, :sink], kz_l[:, :sink], dtype),
-                     _deq(kq_l[:, win], ks_l[:, win], kz_l[:, win], dtype),
-                     _deq(rows[0], rows[2], rows[3], dtype).transpose(0, 1)], dim=1)
+                keys = _window_rows((kq_l, ks_l, kz_l), (rows[0], rows[2], rows[3]),
+                                    sink, win, dtype)
                 scores.append(fused_scores(
                     q, keys, score_len, score_qlen, sink=sink,
                     s_ctx=score_width, scale=scale, model_dtype=dtype).to(dtype))
+            if window:
+                vals = _window_rows((layer[1], layer[4], layer[5]),
+                                    (rows[1], rows[4], rows[5]), sink, win, dtype)
+                attn = windowed_attend(q, keys, vals, score_len, sink=sink,
+                                       s_ctx=score_width, scale=scale)
+            elif scoring:
                 # read-only: the chunk's rows ride beside the cache
                 attn = flash_attend_int4_extra(
                     q, layer[0], layer[2], layer[3], layer[1], layer[4], layer[5],
@@ -180,13 +241,16 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
             k_l, v_l, base = cache.k[l], cache.v[l], cache.lengths[l]
             append_layer(k_l, v_l, base, k, v)
             if scoring:
-                keys = torch.cat(
-                    [k_l[:, :sink], k_l[:, score_start:score_start + score_width],
-                     k.transpose(0, 1)], dim=1)
+                win = slice(score_start, score_start + score_width)
+                keys = torch.cat([k_l[:, :sink], k_l[:, win], k.transpose(0, 1)], dim=1)
                 scores.append(fused_scores(
                     q, keys, score_len, score_qlen, sink=sink,
                     s_ctx=score_width, scale=scale, model_dtype=dtype).to(dtype))
-            if T <= MAX_T:
+            if window:
+                vals = torch.cat([v_l[:, :sink], v_l[:, win], v.transpose(0, 1)], dim=1)
+                attn = windowed_attend(q, keys, vals, score_len, sink=sink,
+                                       s_ctx=score_width, scale=scale)
+            elif T <= MAX_T:
                 attn = ragged_decode_attend(q, k_l, v_l, base, scale=scale)
             else:
                 attn = flash_attend(q, k_l, v_l, base, scale=scale)
@@ -196,16 +260,23 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
             x = x + w4a8_linear_stacked(attn, w4["wo"], l)
         else:
             x = x + _lin(attn, lp["wo"])
-        h2 = rms_norm(x, lp["ln_mlp"], cfg.rms_norm_eps)
         if "w_gateup" in w4:
+            h2 = rms_norm(x, lp["ln_mlp"], eps)
             gate, up = w4a8_linear_stacked(h2, w4["w_gateup"], l).chunk(2, dim=-1)
         else:
-            gate, up = _lin(h2, lp["w_gate"]), _lin(h2, lp["w_up"])
-        hidden = _act(gate, cfg.hidden_act) * up
+            gate, up = _norm_lin_shared(x, lp["ln_mlp"], eps,
+                                        (lp["w_gate"], lp["w_up"]), (None, None),
+                                        cfg.fused_act)
         if "w_down" in w4:
-            x = x + w4a8_linear_stacked(hidden, w4["w_down"], l)
+            x = x + w4a8_linear_stacked(_act(gate, cfg.hidden_act) * up, w4["w_down"], l)
+        elif cfg.fused_act and is_w8(lp["w_down"]):
+            # act(gate) * up and its quantization as one K14 pass, feeding
+            # the int8 down projection
+            hq, hs = silu_mul_quant(gate, up, act=cfg.hidden_act)
+            x = x + int8_matmul(hq, hs, lp["w_down"]["q"], lp["w_down"]["s"],
+                                None, x.dtype)
         else:
-            x = x + _lin(hidden, lp["w_down"])
+            x = x + _lin(_act(gate, cfg.hidden_act) * up, lp["w_down"])
 
     if is_pool:
         cache.tail_len += T

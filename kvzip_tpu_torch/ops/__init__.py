@@ -1,4 +1,5 @@
-"""Attention and quantized-linear ops of the port: each kernel wrapper beside its plain version.
+"""Attention, quantized-linear and activation-quantization ops of the port:
+each kernel wrapper beside its plain version.
 
 A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
 tensors it launches its hand-written kernel (``csrc/``) or raises. Every
@@ -13,7 +14,8 @@ import torch
 LAUNCHES = {"flash_attend": 0, "fused_scores": 0, "ragged_decode_attend": 0,
             "pool_decode_attend": 0, "flash_attend_int4": 0,
             "flash_attend_int4_extra": 0, "pool_decode_attend_int4": 0,
-            "w4a8_matmul_stacked_v2": 0}
+            "w4a8_matmul_stacked_v2": 0, "windowed_attend": 0,
+            "rmsnorm_quant": 0, "silu_mul_quant": 0}
 
 
 def reset_launches() -> None:
@@ -82,3 +84,30 @@ def parity(got: torch.Tensor, want: torch.Tensor, rtol: float) -> dict:
     rel_rms = err.square().mean().sqrt().item() / max(rms, 1e-30)
     return dict(max_abs_err=err.max().item(), rms_want=rms, worst_to_tol=worst,
                 rel_rms_err=rel_rms, ok=worst <= 1.0 and rel_rms <= RMS_SHARE)
+
+
+# Holding an int8 quantization kernel (K13, K14) against its plain version:
+# the kernel's sum of squares, rsqrtf and expf/tanhf differ from PyTorch's
+# in the last bits of h, which moves a value lying within those bits of a
+# rounding boundary to the next int8 step; nothing else may differ.
+Q_STEP_SHARE = 1e-3  # share of int8 elements that may be one step away
+SCALE_RTOL = 1e-5    # per-token scales, relative
+
+
+def quant_parity(got_q: torch.Tensor, got_s: torch.Tensor,
+                 want_q: torch.Tensor, want_s: torch.Tensor) -> dict:
+    """int8 rows equal except for one step on at most ``Q_STEP_SHARE`` of
+    the elements, scales within ``SCALE_RTOL`` relative. ``worst_to_tol``
+    is the larger of the two shares over their limits; ``max_abs_err`` and
+    ``rms_want`` are of the dequantized rows ``q * s``."""
+    dq = (got_q.int() - want_q.int()).abs()
+    gs, ws = got_s.float(), want_s.float()
+    s_rel = ((gs - ws).abs() / ws.abs().clamp_min(1e-30)).max().item()
+    max_step = dq.max().item()
+    share = (dq != 0).float().mean().item()
+    want = want_q.float() * ws
+    return dict(max_step=max_step, step_share=share, scale_rel_err=s_rel,
+                max_abs_err=(got_q.float() * gs - want).abs().max().item(),
+                rms_want=want.square().mean().sqrt().item(),
+                worst_to_tol=max(share / Q_STEP_SHARE, s_rel / SCALE_RTOL),
+                ok=max_step <= 1 and share <= Q_STEP_SHARE and s_rel <= SCALE_RTOL)

@@ -1,8 +1,8 @@
 """Plain PyTorch attention over the dense cache and the KVzip score.
 
-The plain versions of kernels K1, K2, K4 and K5/K6 (``ops/flash.py``,
-``ops/score_kernel.py``, ``ops/ragged_decode.py``, ``ops/flash_int4.py``)
-and the CPU path of the port. Masking rule: key row ``j`` of kv head ``h`` is visible to query ``i``
+The plain versions of kernels K1, K2, K4, K5/K6 and K9 (``ops/flash.py``,
+``ops/score_kernel.py``, ``ops/ragged_decode.py``, ``ops/flash_int4.py``,
+``ops/windowed_attend.py``) and the CPU path of the port. Masking rule: key row ``j`` of kv head ``h`` is visible to query ``i``
 (0-based within the new block) iff ``j < base_lens[h] + i + 1`` — the new
 rows were appended at ``base_lens[h]``. Everything is computed in float32;
 a row that sees no key gives 0.
@@ -145,3 +145,43 @@ def reconstruction_scores(q: torch.Tensor, k_sink: torch.Tensor,
         p[:, q_valid:] = 0.0
         out[h] = p[:, :, S_sink:s0].amax(dim=(0, 1))
     return out
+
+
+def windowed_scoring_attend(q: torch.Tensor, k_sink: torch.Tensor,
+                            k_ctx: torch.Tensor, k_rep: torch.Tensor,
+                            v_sink: torch.Tensor, v_ctx: torch.Tensor,
+                            v_rep: torch.Tensor, ctx_len: int, *, scale: float,
+                            out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Attention output of the scoring pass in windowed mode
+    (``Engine(scoring_attend="window")``): the repeat queries attend only
+    [sink | scored window | repeat] instead of the whole cache, which makes
+    scoring O(ctx * window) instead of O(ctx^2). An approximation, except
+    when one window covers the whole context.
+
+    Masks as in :func:`reconstruction_scores`: causal only on the trailing
+    T x T block, window columns past ``ctx_len`` dropped. Padded query rows
+    are deliberately not masked: they attend real keys, so their outputs
+    are finite, and the engine discards them (only the q_valid-masked
+    scores leave the scoring forward). Float32 softmax. Returns (T, H, D)
+    in ``out_dtype``.
+
+    q (T, H, D); k_sink/v_sink (Hkv, S_sink, D); k_ctx/v_ctx
+    (Hkv, S_ctx, D); k_rep/v_rep (T, Hkv, D).
+    """
+    T, H, D = q.shape
+    Hkv, S_sink, _ = k_sink.shape
+    S_ctx = k_ctx.shape[1]
+    G = H // Hkv
+    s0 = S_sink + S_ctx
+    keys = torch.cat([k_sink, k_ctx, k_rep.transpose(0, 1)], dim=1)
+    vals = torch.cat([v_sink, v_ctx, v_rep.transpose(0, 1)], dim=1)
+    col = torch.arange(s0 + T, device=q.device)[None, :]
+    row = torch.arange(T, device=q.device)[:, None]
+    bad = ((col >= s0) & (col - s0 > row)) | (
+        (col >= S_sink + ctx_len) & (col < s0))
+    out = torch.empty((Hkv, G, T, D), dtype=torch.float32, device=q.device)
+    for h in range(Hkv):
+        qh = q[:, h * G:(h + 1) * G].float().transpose(0, 1)        # (G, T, D)
+        s = (qh @ keys[h].float().T * scale).masked_fill(bad, NEG_INF)
+        out[h] = softmax_guarded(s) @ vals[h].float()
+    return out.permute(2, 0, 1, 3).reshape(T, H, D).to(out_dtype)

@@ -1,13 +1,20 @@
-"""Quantization ops of the port: int4 KV, per-token int8 activations and the
-int8 embedding / lm_head tables.
+"""Quantization ops of the port: int4 KV, per-token int8 activations, W8A8
+linears and the int8 embedding / lm_head tables.
 
-Port of ``kvzip_tpu/ops/quant.py`` (int4 KV, ``quantize_act_int8``, the int8
-embed and head). The int4 KV semantics: per group of 128 contiguous head-dim
+Port of ``kvzip_tpu/ops/quant.py`` (int4 KV, ``quantize_act_int8``, W8A8,
+the int8 embed and head). The int4 KV semantics: per group of 128 contiguous head-dim
 elements, ``scale = (max - min) / 15 + 1e-8``, ``zero = min``,
 ``q = clamp(round((x - zero) / scale), 0, 15)``, two nibbles per byte. The
 scale is computed in float32 and used unrounded to pick the nibble, then
 stored in the input's dtype, so bytes and stored scales are bit-identical
 to the JAX package's.
+
+W8A8 (QServe's per-channel int8 weights, per-token int8 activations): a
+weight is stored as ``{"q": int8 (..., out, in), "s": float32 (..., out)}``,
+the transpose of the reference's ``(in, out)`` bytes, so that on the card
+``torch._int_mm`` takes ``q.T`` as its column-major operand, as the int8
+lm_head does. The reference leaves the int8 product to XLA outside any
+Pallas kernel; the port leaves it to ``torch._int_mm``.
 """
 
 from __future__ import annotations
@@ -72,6 +79,52 @@ def quantize_act_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     xs = xf.abs().amax(dim=-1, keepdim=True) / 127.0 + EPS
     xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
     return xq, xs
+
+
+def is_w8(w) -> bool:
+    """True for a W8A8 weight dict (``{"q", "s"}``, not W4A8's ``q4``)."""
+    return isinstance(w, dict) and "q" in w and "q4" not in w
+
+
+def quantize_weight_int8(w: torch.Tensor) -> dict:
+    """w (..., in, out) float -> {"q": int8 (..., out, in), "s": float32
+    (..., out)}: per output channel, ``s = amax / 127 + EPS``,
+    ``q = clamp(round(w / s), -127, 127)``."""
+    wf = w.float()
+    s = wf.abs().amax(dim=-2) / 127.0 + EPS
+    q = torch.clamp(torch.round(wf / s[..., None, :]), -127, 127).to(torch.int8)
+    return {"q": q.transpose(-1, -2).contiguous(), "s": s}
+
+
+def int8_matmul(xq: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor,
+                ws: torch.Tensor, bias=None, out_dtype=torch.bfloat16
+                ) -> torch.Tensor:
+    """Pre-quantized activations xq (T, in) int8 with scales xs (T, 1) times
+    wq (out, in) int8 with scales ws (out,): the exact int32 product, then
+    ``acc * xs * ws`` (+ bias) in float32, cast to ``out_dtype``."""
+    acc = _int8_rows_dot(xq, wq)
+    out = acc.float() * xs * ws[None, :]
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(out_dtype)
+
+
+def int8_linear(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor,
+                bias=None) -> torch.Tensor:
+    """Dynamic per-token activation quantization, then :func:`int8_matmul`;
+    x (T, in) of any float dtype, which the output keeps."""
+    xq, xs = quantize_act_int8(x)
+    return int8_matmul(xq, xs, wq, ws, bias, x.dtype)
+
+
+def quantize_params_w8a8(params: dict) -> dict:
+    """Every float projection stack (L, in, out) of the layer tree as a W8
+    dict, one layer at a time. Embedding, lm_head, norms and biases stay as
+    they are, as in QServe."""
+    from kvzip_tpu_torch.models.params import quantize_layer_stacks
+
+    return {**params, "layers": quantize_layer_stacks(params["layers"],
+                                                      quantize_weight_int8)}
 
 
 def quantize_embed_int8(w: torch.Tensor, model_dtype=torch.bfloat16) -> dict:

@@ -1,6 +1,7 @@
-"""On the card: each CUDA kernel (K1-K8) against its plain version, on the
-same bf16 inputs (int4 rows with bf16 or float32 scales for K5-K7, int4
-weights with bf16 scales for K8), the plain version computed in float32.
+"""On the card: each CUDA kernel (K1-K9, K13, K14) against its plain
+version, on the same bf16 inputs (int4 rows with bf16 or float32 scales
+for K5-K7, int4 weights with bf16 scales for K8), the plain version
+computed in float32.
 
 Run on a machine with a card: ``python -m pytest -n 0 -m cuda
 tests/test_torch_kernels.py``. Here (no card) every test skips.
@@ -9,15 +10,19 @@ size: elementwise |got - want| <= rtol |want| + 0.02 RMS(want), with rtol
 2^-7 on attention outputs (bf16 probabilities in the p.v product, bf16
 output; K5-K7 also round their dequantized values to bf16, K8 its
 output) and 2^-4 on scores (bf16-rounded logits), and RMS(got - want) <=
-2^-7 RMS(want).
+2^-7 RMS(want). K13/K14's int8 rows are held equal except for one step
+on at most 1e-3 of the elements, their scales to 1e-5 relative
+(``ops.quant_parity``: the kernels' sums and rsqrtf/expf/tanhf differ from
+PyTorch's in the last bits, which moves a value on a rounding boundary
+one step).
 """
 
 import pytest
 import torch
 
 from kvzip_tpu_torch.ops import (LAUNCHES, OUT_RTOL, SCORE_RTOL, flash, parity,
-                                 pool_decode, ragged_decode, reset_launches,
-                                 score_kernel)
+                                 pool_decode, quant_parity, ragged_decode,
+                                 reset_launches, score_kernel)
 
 pytestmark = pytest.mark.cuda
 D = 128
@@ -215,4 +220,83 @@ def test_quantized_wrappers_reject_wrong_dtypes(gen):
     with pytest.raises(TypeError, match="uint8"):
         w4a8_v2.w4a8_matmul_stacked_v2(
             x, torch.zeros((1, 256, 64), dtype=torch.int8, device="cuda"), s2, s2, 0)
+    assert sum(LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("H,Hkv", [(4, 2), (32, 8), (28, 4)])
+@pytest.mark.parametrize("ctx_len,sink", [(256, 37), (100, 37), (200, 64)])
+def test_windowed_attend_kernel(gen, H, Hkv, ctx_len, sink):
+    from kvzip_tpu_torch.ops import windowed_attend
+
+    T, s_ctx = 320, 256
+    q = _rn(gen, T, H, D)
+    keys, vals = _rn(gen, Hkv, sink + s_ctx + T, D), _rn(gen, Hkv, sink + s_ctx + T, D)
+    kw = dict(sink=sink, s_ctx=s_ctx, scale=D ** -0.5)
+    got = windowed_attend.windowed_attend(q, keys, vals, ctx_len, **kw)
+    want = windowed_attend.windowed_attend_plain(q.float(), keys.float(), vals.float(),
+                                                 ctx_len, **kw)
+    assert _ok(got, want) and LAUNCHES["windowed_attend"] == 1
+    if ctx_len > 64:  # one 64-key tile of the window left out must fail
+        drop = windowed_attend.windowed_attend_plain(q.float(), keys.float(), vals.float(),
+                                                     ctx_len - 64, **kw)
+        assert not parity(got, drop, OUT_RTOL)["ok"]
+
+
+def _hold_quant(got, want):
+    r = quant_parity(*got, *want)
+    assert r["ok"], r
+    s2 = want[1].clone()
+    s2[0] *= 2  # one row's scale doubled must fail
+    assert not quant_parity(*got, want[0], s2)["ok"]
+    return True
+
+
+@pytest.mark.parametrize("gemma", [False, True])
+@pytest.mark.parametrize("T,W", [(1, 4096), (16, 4096), (300, 512), (3, 32768)])
+def test_rmsnorm_quant_kernel(gen, gemma, T, W):
+    from kvzip_tpu_torch.ops import fused_act
+
+    x = _rn(gen, T, W) * 3
+    w = (1 + 0.2 * torch.randn(W, generator=gen)).to("cuda", torch.bfloat16)
+    got = fused_act.rmsnorm_quant(x, w, 1e-5, gemma=gemma)
+    want = fused_act.rmsnorm_quant_plain(x, w, 1e-5, gemma=gemma)
+    assert _hold_quant(got, want) and LAUNCHES["rmsnorm_quant"] == 1
+
+
+@pytest.mark.parametrize("act", ["silu", "gelu_pytorch_tanh"])
+@pytest.mark.parametrize("T,W", [(1, 14336), (16, 14336), (300, 1024), (2, 8)])
+def test_silu_mul_quant_kernel(gen, act, T, W):
+    from kvzip_tpu_torch.ops import fused_act
+
+    gate, up = _rn(gen, T, W) * 3, _rn(gen, T, W)
+    got = fused_act.silu_mul_quant(gate, up, act=act)
+    want = fused_act.silu_mul_quant_plain(gate, up, act=act)
+    assert _hold_quant(got, want) and LAUNCHES["silu_mul_quant"] == 1
+
+
+def test_new_wrappers_reject_wrong_dtypes_and_shapes(gen):
+    """K9, K13 and K14 check their operands before any launch: bf16 rows,
+    row widths the kernels take, K9's key count and window length."""
+    from kvzip_tpu_torch.ops import fused_act, windowed_attend
+
+    x = _rn(gen, 4, 256)
+    w = _rn(gen, 256)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused_act.rmsnorm_quant(x.float(), w, 1e-5)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fused_act.rmsnorm_quant(x[:, :252].contiguous(), w[:252].contiguous(), 1e-5)
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused_act.silu_mul_quant(x, x.half())
+    with pytest.raises(ValueError, match="rows"):
+        fused_act.silu_mul_quant(x, x[:2])
+    with pytest.raises(ValueError, match="at most"):
+        fused_act.silu_mul_quant(_rn(gen, 1, 32776), _rn(gen, 1, 32776))
+    q, keys = _rn(gen, 16, 4, D), _rn(gen, 2, 8 + 64 + 16, D)
+    with pytest.raises(TypeError, match="bfloat16"):
+        windowed_attend.windowed_attend(q, keys.float(), keys, 30, sink=8, s_ctx=64,
+                                        scale=D ** -0.5)
+    with pytest.raises(ValueError, match="bad shapes"):
+        windowed_attend.windowed_attend(q, keys, keys, 30, sink=8, s_ctx=48, scale=D ** -0.5)
+    with pytest.raises(ValueError, match="bad shapes"):
+        windowed_attend.windowed_attend(q, keys, keys, 0, sink=8, s_ctx=64, scale=D ** -0.5)
     assert sum(LAUNCHES.values()) == 0
