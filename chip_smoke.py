@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Card: prints ``nvidia-smi``'s name and power limit; fails without CUDA.
-2. Build: builds the CUDA kernels K1-K9, K13 and K14 from
+2. Build: builds the CUDA kernels K1-K11, K13 and K14 from
    ``kvzip_tpu_torch/csrc``.
 3. Kernel parity: each kernel against its plain PyTorch version (computed
    in float32 from the same inputs) at every shape its main path gives
@@ -16,7 +16,12 @@
    the library call's ``ms`` is device time: CUDA events around the replay
    of a CUDA graph of many calls (``graph_ms``); the event time of the
    same calls made back to back from Python, host gaps included, is logged
-   as ``host_ms``. Plain versions are timed back to back.
+   as ``host_ms``. Plain versions are timed back to back. The int8
+   attention (K7-q8, K11-q8) is held against its plain version's own s8
+   arithmetic, discounting the quantized-p steps that float32 rounding may
+   flip (the plain version's ``with_slack``).
+   K10/K11 at T = 1 and 24, one and two merged sequences, on an evicted
+   and on the full flat stack (``kernel_parity_flat``).
 4. bf16 main path at the full width of qwen2.5-7b (28 layers, random bf16
    weights from a seed) and a 16384-token context, through the engine's
    entry points: prefill, scoring, a greedy answer on the dense cache,
@@ -24,14 +29,26 @@
    on the real KV, ``allkept_check`` on the logits), prune(0.3, "pair"),
    three queries on the pool, and the full-pool baseline. The launch
    counters are zeroed just before and read just after; K1-K4 must have
-   run.
+   run. Then the legacy flat layout (``flat_decode="legacy"``) on a copy
+   of the same scored state (``flat_path``): the same kept rows, three
+   queries, the full flat baseline (``synthetic_full_flat_state``), live and
+   allocated KV bytes; K10 must have run and no pool kernel. The two
+   layouts are then held against each other: K10 against K3 layer by
+   layer on the real rows (``cross_layout_attention``) and teacher-forced
+   logits (``allkept_check`` between pool and flat).
 5. Quantized main path (the reference's flagship: int4 KV, W4A8 weights,
    int8 embedding and lm_head) at the same width and context, after the
    bf16 engine is freed: prefill, read-only int4 scoring, a dense int4
    answer, an all-rows-kept int4 pool held against K5 on the dense int4
    cache (``allkept_attention_int4``), prune(0.3, "pair"), three queries
    on the int4 pool and the full int4 pool baseline. Counters zeroed
-   before and read after; K2 and K5-K8 must have run.
+   before and read after; K2 and K5-K8 must have run. Then the int4 flat
+   layout on the same kept rows (K11), the same flat state with
+   ``attn_quant="int8"`` (K11-q8) and the pool with it (K7-q8), each its
+   own counted phase that must not run the other modes' or layout's
+   kernels, with the q8 answers' agreement with the exact ones; then K11
+   against K7 and both q8 kernels against their plain versions on the
+   real rows, with the relative RMS of q8 against exact attention.
 6. W8A8-KV4 path (QServe's W8A8-KV4 geometry, the upstream KVzip's own
    quantized model) at the full width of llama3.1-8b (32 layers, G = 4,
    random weights from a seed), after the qwen2.5-7b engines are freed:
@@ -49,6 +66,7 @@
 Any failure raises, and the script exits non-zero without the last line.
 """
 
+import copy
 import dataclasses
 import gc
 import json
@@ -130,6 +148,12 @@ def kernel_ms(fn, iters: int) -> dict:
     return dict(ms=graph_ms(fn, iters), host_ms=time_ms(fn, iters))
 
 
+def rel_rms(got, want) -> float:
+    """RMS(got - want) / RMS(want), in float32."""
+    g, w = got.float(), want.float()
+    return ((g - w).square().mean().sqrt() / w.square().mean().sqrt().clamp_min(1e-30)).item()
+
+
 def bound(flops: float, nbytes: float, peak_ops: float = PEAK_FLOPS):
     t_ops, t_bytes = flops / peak_ops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
@@ -138,12 +162,19 @@ def bound(flops: float, nbytes: float, peak_ops: float = PEAK_FLOPS):
 # ---------------------------------------------------------------- kernels
 def hold_parity(checks, name, shape, got, want, rtol, perturbed=None):
     """Record ``ops.parity`` of got against want (and, where given, whether
-    the same gate rejects a perturbed reference) under checks[name]."""
+    the same gate rejects a perturbed reference) under checks[name]. A q8
+    reference comes as (output, slack) from its plain version's
+    ``with_slack``: the gate then discounts the slack."""
     from kvzip_tpu_torch.ops import parity
 
-    r = dict(parity(got, want, rtol), shape=shape)
+    def gate(ref):
+        if isinstance(ref, tuple):
+            return parity(got, ref[0], rtol, ref[1])
+        return parity(got, ref, rtol)
+
+    r = dict(gate(want), shape=shape)
     if perturbed is not None:
-        p = parity(got, perturbed, rtol)
+        p = gate(perturbed)
         r.update(rejects_perturbed=not p["ok"], perturbed_rel_rms_err=p["rel_rms_err"])
     checks.setdefault(name, []).append(r)
 
@@ -522,6 +553,46 @@ def kernel_parity_int4(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap:
             plain_ms=time_ms(lambda: pool_decode.pool_decode_attend_int4_plain(
                 q, *pool, *meta, kt, vt, tail_len, 0, scale=scale), 5, 1),
             bound_ms=b[0], bound_by=b[1], library_ms=None))
+
+    # K7-q8 at the same shapes: held against the plain q8 version at the
+    # kernel's 64-row p tile; the relative RMS of q8 against exact logged
+    q8_cost = []
+    for T in (1, 4, 16):
+        q = rn(T, H, D)
+        for l in (0, L // 2, L - 1):
+            got = pool_decode.pool_decode_attend_int4(q, *pool, *meta, kt, vt, tail_len, l,
+                                                      scale=scale, max_rows=max_rows, q8=True)
+            want = pool_decode.pool_decode_attend_int4_plain(
+                q.float(), *pool, *meta, kt.float(), vt.float(), tail_len, l, scale=scale,
+                q8=True, with_slack=True)
+            drop = None
+            if T == 1 and l == 0:
+                drop = pool_decode.pool_decode_attend_int4_plain(
+                    q.float(), *pool, *meta_drop, kt.float(), vt.float(), tail_len, l,
+                    scale=scale, q8=True, with_slack=True)
+            hold("pool_decode_attend_int4_q8",
+                 f"q ({T},{H},{D}) layer {l} live rows {int(per_layer[l])} tail {tail_len}",
+                 got, want, OUT_RTOL, drop)
+            exact = pool_decode.pool_decode_attend_int4(q, *pool, *meta, kt, vt, tail_len, l,
+                                                        scale=scale, max_rows=max_rows)
+            q8_cost.append(rel_rms(got, exact))
+        if T != 1:
+            continue
+        keys = live + Hkv * (tail_len + T)
+        b = bound(4 * D * G * T * keys,
+                  2 * live * (Dp + 8) + 4 * live + 2 * 2 * Hkv * (tail_len + T) * D
+                  + 2 * 2 * T * H * D, PEAK_INT8_OPS)
+        out.append(dict(
+            name="pool_decode_attend_int4_q8", route="cuda",
+            source="kvzip_tpu_torch/csrc/pool_decode_int4.cu",
+            replaces="kvzip_tpu/ops/pool_decode.py:340",
+            **kernel_ms(lambda: pool_decode.pool_decode_attend_int4(
+                q, *pool, *meta, kt, vt, tail_len, next_layer(), scale=scale,
+                max_rows=max_rows, q8=True), 56),
+            plain_ms=time_ms(lambda: pool_decode.pool_decode_attend_int4_plain(
+                q, *pool, *meta, kt, vt, tail_len, 0, scale=scale, q8=True), 5, 1),
+            bound_ms=b[0], bound_by=b[1], library_ms=None))
+    log(phase="k7_q8_vs_exact", rel_rms=q8_cost)
     del pool, kq, vq, kt, vt
 
     # K8: the four W4A8 linears of qwen2.5-7b as 28-layer v2 stacks with
@@ -568,6 +639,130 @@ def kernel_parity_int4(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap:
         **{k: sum(t[k] for t in step) for k in ("ms", "host_ms", "plain_ms", "bound_ms")},
         bound_by="bytes" if all(t["bound_by"] == "bytes" for t in step) else "operations",
         library_ms=None, per_shape={f"{n} T {t}": v for (n, t), v in timed.items()}))
+    return verify_parity(out, checks)
+
+
+def kernel_parity_flat(cfg, ctx_tokens: int, sink: int, tail_cap: int):
+    """K10, K11 and K11-q8 against their plain versions at the shapes the
+    legacy flat layout gives them at qwen2.5-7b: T = 1 (a decode step) and
+    24 (a whole query, 168 query rows a kv head), n_seq = 1 and 2 (two
+    sequences merged, one tail length per (sequence, kv head)), on an
+    evicted flat stack (~30% of each head's rows kept, every layer padded
+    to the engine's r_pad for the largest layer) and on the full one (every
+    row kept, 98,304 rows a layer at 16k). The q8 holds discount two p steps
+    a row (``hold_parity``). At T = 1, n_seq = 1 on the evicted stack the
+    gate must reject a reference with the layer's first 64-row tile dropped.
+    Times: the kernels line carries T = 1, n_seq = 1, evicted; every shape's
+    time is logged. Timed launches cycle over the stack's layers (28 for
+    n_seq = 1, 4 for n_seq = 2), so each reads its rows from device memory.
+    Bound: the live rows, the tail, q and out over 3.35 TB/s (and, beside
+    it, ``padded_bound_ms``: every row of R_pad read)."""
+    import torch
+
+    from kvzip_tpu_torch.engine import _round_flat_rows
+    from kvzip_tpu_torch.ops import OUT_RTOL, flat_decode
+    from kvzip_tpu_torch.ops.quant import quantize_int4
+
+    L, H, Hkv, D = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G, Dp = H // Hkv, D // 2
+    scale = D ** -0.5
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    prefill_len = sink + ctx_tokens
+    tail_len = 40
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def stack(n_layers, n_seq, full):
+        """row_head of a flat stack and its live rows a (layer, seq)."""
+        if full:
+            rows_h = torch.full((n_layers, n_seq, Hkv), prefill_len, dtype=torch.int64)
+        else:
+            rows_h = torch.randint(int(0.2 * prefill_len), int(0.4 * prefill_len),
+                                   (n_layers, n_seq, Hkv),
+                                   generator=torch.Generator().manual_seed(SEED + 4))
+        r_pad = _round_flat_rows(int(rows_h.sum(-1).max()))
+        rh = torch.full((n_layers, n_seq * r_pad), -1, dtype=torch.int32)
+        for l in range(n_layers):
+            for sb in range(n_seq):
+                ids = torch.repeat_interleave(torch.arange(Hkv, dtype=torch.int32) + sb * Hkv,
+                                              rows_h[l, sb])
+                rh[l, sb * r_pad:sb * r_pad + len(ids)] = ids
+        return rh.to(dev), r_pad, float(rows_h.sum(-1).float().mean())
+
+    def quant(*shape):
+        p, s_, z = quantize_int4(rn(*shape, D), pack="split")
+        return p, s_[..., 0].float(), z[..., 0].float()
+
+    checks, timed = {}, {}
+    modes = (("flat_decode_attend", "bf16"), ("flat_decode_attend_int4", "int4"),
+             ("flat_decode_attend_int4_q8", "q8"))
+    for full in (False, True):
+        for n_seq in (1, 2):
+            n_layers = L if n_seq == 1 else 4
+            rh, r_pad, live = stack(n_layers, n_seq, full)
+            rows = n_seq * r_pad
+            kt, vt = rn(n_seq * Hkv, tail_cap, D), rn(n_seq * Hkv, tail_cap, D)
+            tl = (tail_len if n_seq == 1 else torch.randint(
+                0, tail_cap - 64, (n_seq * Hkv,), generator=gen, device=dev,
+                dtype=torch.int32))
+            k, v = rn(n_layers, rows, D), rn(n_layers, rows, D)
+            kv4 = (*quant(n_layers, rows), *quant(n_layers, rows))
+            layout = f"{'full' if full else 'evicted'} r_pad {r_pad} n_seq {n_seq}"
+            cycle = iter(range(10 ** 9))
+            for name, mode in modes:
+                def run(q, layer, r=rh):
+                    if mode == "bf16":
+                        return flat_decode.flat_decode_attend(q, k, v, r, kt, vt, tl, scale=scale,
+                                                              n_seq=n_seq, layer=layer)
+                    return flat_decode.flat_decode_attend_int4(
+                        q, *kv4, r, kt, vt, tl, scale=scale, q8=mode == "q8", n_seq=n_seq,
+                        layer=layer)
+
+                def plain(q, layer, r=rh):
+                    if mode == "bf16":
+                        return flat_decode.flat_decode_attend_plain(
+                            q.float(), k, v, r, kt, vt, tl, scale=scale, n_seq=n_seq,
+                            layer=layer)
+                    return flat_decode.flat_decode_attend_int4_plain(
+                        q.float(), *kv4, r, kt, vt, tl, scale=scale, q8=mode == "q8",
+                        n_seq=n_seq, layer=layer, with_slack=mode == "q8")
+
+                for T in (1, 24):
+                    q = rn(T, n_seq * H, D)
+                    drop = None
+                    if T == 1 and n_seq == 1 and not full:
+                        rh_drop = rh.clone()
+                        rh_drop[1, :64] = -1
+                        drop = plain(q, 1, rh_drop)
+                    hold_parity(checks, name, f"q ({T},{n_seq * H},{D}) {layout} layer 1",
+                                run(q, 1), plain(q, 1), OUT_RTOL, drop)
+                    row_bytes = 2 * D * 2 if mode == "bf16" else 2 * (Dp + 8)
+                    other = (2 * 2 * n_seq * Hkv * (tail_len + T) * D + 2 * 2 * T * n_seq * H * D)
+                    b = bound(4 * D * G * T * n_seq * (live + Hkv * (tail_len + T)),
+                              n_seq * live * row_bytes + other,
+                              PEAK_INT8_OPS if mode == "q8" else PEAK_FLOPS)
+                    padded = bound(0, rows * row_bytes + 4 * rows + other)
+                    r = dict(**kernel_ms(lambda: run(q, next(cycle) % n_layers),
+                                         56 if T == 1 and n_seq == 1 else 20),
+                             bound_ms=b[0], bound_by=b[1], padded_bound_ms=padded[0])
+                    if T == 1 and n_seq == 1 and not full:
+                        r["plain_ms"] = time_ms(lambda: plain(q, 0), 2, 1)
+                    timed.setdefault(name, {})[f"T {T} {layout}"] = r
+            del k, v, kv4, kt, vt, rh
+            torch.cuda.empty_cache()
+    out = []
+    for name, mode in modes:
+        head = next(v for key, v in timed[name].items() if key.startswith("T 1 evicted")
+                    and key.endswith("n_seq 1"))
+        out.append(dict(
+            name=name, route="cuda",
+            source=f"kvzip_tpu_torch/csrc/{'flat_decode.cu' if mode == 'bf16' else 'flat_decode_int4.cu'}",
+            replaces=f"kvzip_tpu/ops/flat_decode.py:{468 if mode == 'bf16' else 381}",
+            **{k_: head[k_] for k_ in ("ms", "host_ms", "plain_ms", "bound_ms", "bound_by",
+                                       "padded_bound_ms")},
+            library_ms=None, per_shape=timed[name]))
     return verify_parity(out, checks)
 
 
@@ -723,12 +918,15 @@ def teacher_forced(eng, state, seq, step: bool):
     return np.concatenate(out)
 
 
-def allkept_check(eng, dense, full, query, dense_ans):
+def allkept_check(eng, dense, full, query, dense_ans, full_eng=None,
+                  phase="allkept_check"):
     """An all-rows-kept pool holds the same KV as the dense cache, so its
     answer must be the dense answer. Both run in bf16 through different
     kernels (K3 against K1/K4), so logits agree only to bf16 rounding; the
     noise floor is measured as the difference between two equivalent
-    schedules on the dense cache (chunked against token by token).
+    schedules on the dense cache (chunked against token by token). The
+    same hold compares any two caches of the same rows: ``full`` decoded by
+    ``full_eng`` (the flat layout against the pool).
 
     Holds: (1) teacher-forced logits of the pool agree with the dense ones
     within twice that floor; (2) their argmax agrees wherever the dense
@@ -736,11 +934,12 @@ def allkept_check(eng, dense, full, query, dense_ans):
     answers are equal token for token up to the first such near-tie."""
     import numpy as np
 
-    full_ans = eng.generate_ids(query, full)
+    full_eng = full_eng or eng
+    full_ans = full_eng.generate_ids(query, full)
     seq = np.concatenate([query, dense_ans])
     l_dense = teacher_forced(eng, dense, seq, step=False)
     l_steps = teacher_forced(eng, dense, seq, step=True)
-    l_full = teacher_forced(eng, full, seq, step=False)
+    l_full = teacher_forced(full_eng, full, seq, step=False)
     for a in (l_dense, l_steps, l_full):
         if not np.isfinite(a).all():
             raise AssertionError("non-finite logits")
@@ -760,15 +959,15 @@ def allkept_check(eng, dense, full, query, dense_ans):
         argmax_agree=f"{int(agree.sum())}/{len(agree)}",
         greedy_equal=bool(np.array_equal(full_ans, dense_ans)),
         first_greedy_mismatch=first_mism, first_near_tie=first_near)
-    log(phase="allkept_check", **stats)
+    log(phase=phase, **stats)
     if diff > 2 * floor:
-        raise AssertionError(f"all-kept pool logits differ by {diff} > 2 x {floor}")
+        raise AssertionError(f"{phase}: logits differ by {diff} > 2 x {floor}")
     if not (agree | (gap <= diff)).all():
-        raise AssertionError("all-kept pool argmax differs at a clear margin")
+        raise AssertionError(f"{phase}: argmax differs at a clear margin")
     if first_mism is not None and first_mism < first_near:
         raise AssertionError(
-            f"all-kept answer {full_ans.tolist()} departs from the dense answer "
-            f"{dense_ans.tolist()} at {first_mism}, before any near-tie")
+            f"{phase}: answer {full_ans.tolist()} departs from {dense_ans.tolist()} at "
+            f"{first_mism}, before any near-tie")
     return stats
 
 
@@ -860,9 +1059,11 @@ def allkept_attention_int4(cache, pool, num_heads: int):
 
 
 # -------------------------------------------------------------- main paths
-def main_path(eng, ctx_ids, queries, quant: bool = False):
+def main_path(eng, ctx_ids, queries, quant: bool = False, keep: dict = None):
     """The engine's main path at the smoke configuration; ``quant`` takes
-    the int4 / W4A8 engine's branches (dense int4 cache, int4 pool)."""
+    the int4 / W4A8 engine's branches (dense int4 cache, int4 pool). With
+    ``keep``, a copy of the scored dense state (``keep["scored"]``), the
+    pruned pool state and its answers stay for the flat layout's phases."""
     import torch
 
     from kvzip_tpu_torch.pool import build_pool_int4_stepped, build_pool_stepped
@@ -876,6 +1077,9 @@ def main_path(eng, ctx_ids, queries, quant: bool = False):
             or not torch.isfinite(score).all() or not (score >= 0).all():
         raise AssertionError(f"bad scores: {tuple(score.shape)}")
     rep["kv_bytes_dense"] = int(st.cache.used_bytes())
+    if keep is not None:
+        keep["scored"] = dataclasses.replace(st, cache=copy.deepcopy(st.cache),
+                                             score=st.score.clone())
 
     dense_ans, rep["dense_generate_s"] = timed(lambda: eng.generate_ids(queries[0], st))
 
@@ -902,9 +1106,180 @@ def main_path(eng, ctx_ids, queries, quant: bool = False):
         raise AssertionError("the O(1) restore left rows in the tail")
     base = eng.synthetic_full_pool_state(st, eng.decode_budget, int4=quant)
     rep["full_ms_per_token"], _ = decode_ms_per_token(eng, base, queries)
+    rep["kv_bytes_allocated"] = pool_bytes(st.cache)
+    rep["full_kv_bytes_allocated"] = pool_bytes(base.cache)
     rep["dense_answer_tokens"] = dense_ans.tolist()
     rep["answer_tokens"] = [a.tolist() for a in answers]
+    if keep is not None:
+        keep.update(pool=st, answers=answers)
     return rep
+
+
+def pool_bytes(pool) -> int:
+    """Bytes a pool allocates for K and V: every layer's padded segment
+    (packed rows and float32 scales and zeros for int4) and the tails."""
+    ctx = sum(getattr(pool, f).numel() * getattr(pool, f).element_size()
+              for f in ("k_pool", "v_pool", "k_pool_q", "v_pool_q", "k_pool_s", "k_pool_z",
+                        "v_pool_s", "v_pool_z") if hasattr(pool, f))
+    return ctx + 2 * pool.k_tail.numel() * pool.k_tail.element_size()
+
+
+def flat_path(feng, keep, queries, quant: bool):
+    """The legacy flat layout on the same kept rows as the pool: the scored
+    copy (``keep["scored"]``) pruned by ``feng`` (``flat_decode="legacy"``;
+    the same scores give the same keep mask, asserted by the lengths), then
+    decode ms/token over it and over the full flat layout
+    (``synthetic_full_flat_state``), live and allocated KV bytes."""
+    import torch
+
+    st = keep.pop("scored")
+    pool = keep["pool"].cache
+    (_, ratio), secs = timed(lambda: feng.prune(st, 0.3, "pair"))
+    rep = dict(prune_s=secs, kept_ratio=ratio)
+    if not torch.equal(st.cache.lengths, pool.lengths):
+        raise AssertionError("the flat layout kept other rows than the pool")
+    rep.update(r_pad=st.cache.capacity, kv_bytes_pruned=int(st.cache.used_bytes()),
+               kv_bytes_allocated=st.cache.mem_bytes())
+    rep["evicted_ms_per_token"], answers = decode_ms_per_token(feng, st, queries)
+    if st.cache.tail_len != 0:
+        raise AssertionError("the O(1) restore left rows in the flat tail")
+    base = feng.synthetic_full_flat_state(st, quant, feng.decode_budget)
+    rep["full_ms_per_token"], _ = decode_ms_per_token(feng, base, queries)
+    rep.update(full_r_pad=base.cache.capacity, full_kv_bytes_allocated=base.cache.mem_bytes(),
+               answer_tokens=[a.tolist() for a in answers])
+    keep.update(flat=st, flat_answers=answers)
+    return rep
+
+
+def q8_path(qeng, state, queries, exact_answers, full_state):
+    """Decode with ``attn_quant="int8"`` on an int4 state (pool or flat):
+    ms/token over it and over its full layout, and how far its greedy
+    answers follow the exact mode's on the same queries."""
+    import numpy as np
+
+    rep = {}
+    rep["evicted_ms_per_token"], answers = decode_ms_per_token(qeng, state, queries)
+    rep["full_ms_per_token"], _ = decode_ms_per_token(qeng, full_state(), queries)
+    same, first = [], []
+    for a, b in zip(answers, exact_answers):
+        n = min(len(a), len(b))
+        eq = a[:n] == b[:n]
+        same.append(float(eq.mean()) if n else 1.0)
+        first.append(int(np.argmin(eq)) if not eq.all() else None)
+    rep.update(answer_tokens=[a.tolist() for a in answers], token_agreement=same,
+               first_mismatch=first)
+    return rep
+
+
+def q8_logits(eng, qeng, state, queries, answers, phase):
+    """Teacher-forced logits of the exact mode (``eng``) and the int8
+    attention (``qeng``) on each query followed by the exact mode's answer:
+    the share of answer positions where their argmax agrees, and the
+    largest logit difference beside the logits' size. Launches are not
+    counted."""
+    import numpy as np
+
+    from kvzip_tpu_torch.ops import LAUNCHES
+
+    saved = dict(LAUNCHES)
+    agree, diff, absmax = [], 0.0, 0.0
+    for qids, ans in zip(queries, answers):
+        seq = np.concatenate([qids, ans])
+        le = teacher_forced(eng, state, seq, step=False)
+        lq = teacher_forced(qeng, state, seq, step=False)
+        pos = slice(len(qids) - 1, len(seq) - 1)  # the predictions of the answer tokens
+        agree.append(float((le[pos].argmax(-1) == lq[pos].argmax(-1)).mean()))
+        diff = max(diff, float(np.abs(le - lq).max()))
+        absmax = max(absmax, float(np.abs(le).max()))
+    LAUNCHES.update(saved)
+    stats = dict(argmax_agreement=agree, max_logit_diff=diff, logit_absmax=absmax)
+    log(phase=phase, **stats)
+    return stats
+
+
+def cross_layout_attention(pool, flat, num_heads: int, int4: bool):
+    """Attention on the flat layout against the pool, layer by layer on the
+    same kept rows, the same q and the same T new rows written at the start
+    of a copy of each layout's tail: K10 against K3 (or K11 against K7),
+    each held with ``ops.parity`` against the pool's float32 plain version.
+    For int4 also the int8 mode's cost: K11-q8 and K7-q8 held against their
+    plain q8 versions, and the relative RMS of their outputs against the
+    exact kernels'. Launches are not counted."""
+    import torch
+
+    from kvzip_tpu_torch.ops import LAUNCHES, OUT_RTOL, flat_decode, parity, pool_decode
+
+    saved = dict(LAUNCHES)
+    L, Hkv, Tcap, D = pool.k_tail.shape
+    scale = D ** -0.5
+    dev = pool.row_head.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    pk, pv = pool.k_tail.clone(), pool.v_tail.clone()
+    fk, fv = flat.k_tail.clone(), flat.v_tail.clone()
+    if int4:
+        pargs = (pool.k_pool_q, pool.k_pool_s, pool.k_pool_z, pool.v_pool_q, pool.v_pool_s,
+                 pool.v_pool_z)
+        fargs = (flat.k_flat_q, flat.k_flat_s, flat.k_flat_z, flat.v_flat_q, flat.v_flat_s,
+                 flat.v_flat_z)
+    else:
+        pargs, fargs = (pool.k_pool, pool.v_pool), (flat.k_flat, flat.v_flat)
+    meta = (pool.row_head, pool.layer_off, pool.layer_rows)
+    worst = dict(flat_vs_plain=0.0, pool_vs_plain=0.0)
+    stats = dict(max_flat_minus_pool=0.0)
+    if int4:
+        worst.update(flat_q8_vs_plain=0.0, pool_q8_vs_plain=0.0)
+        stats.update(flat_q8_rel_rms=[], pool_q8_rel_rms=[])
+    for T in (1, 16):
+        for l in range(L):
+            q = torch.randn(T, num_heads, D, generator=gen, device=dev).to(torch.bfloat16)
+            kn = torch.randn(Hkv, T, D, generator=gen, device=dev).to(torch.bfloat16)
+            vn = torch.randn(Hkv, T, D, generator=gen, device=dev).to(torch.bfloat16)
+            pk[l, :, :T], pv[l, :, :T], fk[l, :, :T], fv[l, :, :T] = kn, vn, kn, vn
+            if int4:
+                want = pool_decode.pool_decode_attend_int4_plain(
+                    q.float(), *pargs, *meta, pk.float(), pv.float(), 0, l, scale=scale)
+                got_p = pool_decode.pool_decode_attend_int4(
+                    q, *pargs, *meta, pk, pv, 0, l, scale=scale, max_rows=pool.max_rows)
+                got_f = flat_decode.flat_decode_attend_int4(
+                    q, *fargs, flat.row_head, fk[l], fv[l], 0, scale=scale, layer=l)
+            else:
+                want = pool_decode.pool_decode_attend_plain(
+                    q.float(), *pargs, *meta, pk.float(), pv.float(), 0, l, scale=scale)
+                got_p = pool_decode.pool_decode_attend(
+                    q, *pargs, *meta, pk, pv, 0, l, scale=scale, max_rows=pool.max_rows)
+                got_f = flat_decode.flat_decode_attend(
+                    q, *fargs, flat.row_head, fk[l], fv[l], 0, scale=scale, layer=l)
+            checks = [("flat_vs_plain", got_f, want, None), ("pool_vs_plain", got_p, want, None)]
+            if int4:
+                want8, slack8 = pool_decode.pool_decode_attend_int4_plain(
+                    q.float(), *pargs, *meta, pk.float(), pv.float(), 0, l, scale=scale,
+                    q8=True, with_slack=True)
+                got_p8 = pool_decode.pool_decode_attend_int4(
+                    q, *pargs, *meta, pk, pv, 0, l, scale=scale, max_rows=pool.max_rows,
+                    q8=True)
+                got_f8 = flat_decode.flat_decode_attend_int4(
+                    q, *fargs, flat.row_head, fk[l], fv[l], 0, scale=scale, q8=True, layer=l)
+                checks += [("pool_q8_vs_plain", got_p8, want8, slack8)]
+                # the flat layout tiles its segment from row 0 of the layer,
+                # the pool from layer_off: the same rows, the same tiles
+                checks += [("flat_q8_vs_plain", got_f8, want8, slack8)]
+                stats["pool_q8_rel_rms"].append(rel_rms(got_p8, got_p))
+                stats["flat_q8_rel_rms"].append(rel_rms(got_f8, got_f))
+            for key, got, ref, slack in checks:
+                r = parity(got, ref, OUT_RTOL, slack)
+                if not r["ok"]:
+                    raise AssertionError(f"cross-layout attention T={T} layer {l} {key}: {r}")
+                worst[key] = max(worst[key], r["worst_to_tol"])
+            stats["max_flat_minus_pool"] = max(stats["max_flat_minus_pool"],
+                                               (got_f.float() - got_p.float()).abs().max().item())
+    LAUNCHES.update(saved)
+    for key in ("pool_q8_rel_rms", "flat_q8_rel_rms"):
+        if key in stats:
+            v = stats.pop(key)
+            stats[key] = dict(mean=sum(v) / len(v), max=max(v))
+    stats["worst_to_tol"] = worst
+    log(phase="cross_layout_attention", int4=int4, layers=L, T=[1, 16], **stats)
+    return stats
 
 
 def windowed_pass(weng, eng, ctx_ids):
@@ -983,34 +1358,57 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels = kernel_parity(cfg, CTX, sink, capacity, eng.decode_budget)
     kernels_q = kernel_parity_int4(cfg, CTX, sink, capacity, eng.decode_budget)
+    kernels_f = kernel_parity_flat(cfg, CTX, sink, eng.decode_budget)
     log(phase="kernel_parity", seconds=time.perf_counter() - t0,
         timing_details=[{k: v for k, v in r.items()
                          if k in ("name", "ms", "host_ms", "library_ms", "decode_ms",
-                                  "decode_bound_ms", "per_shape")}
-                        for r in kernels + kernels_q])
+                                  "decode_bound_ms", "padded_bound_ms", "per_shape")}
+                        for r in kernels + kernels_q + kernels_f])
 
-    def counted(tag, engine, kernel_names, path, *args, **kw):
+    def counted(tag, engine, kernel_names, path, *args, absent=(), **kw):
         """One path between a counter reset and a read; every kernel of the
-        path must have launched."""
+        path must have launched, and none of ``absent``."""
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
         rep = path(engine, *args, **kw)
-        launches = {n: LAUNCHES[n] for n in kernel_names}
+        launches = {n: LAUNCHES[n] for n in (*kernel_names, *absent)}
         log(phase=tag, model=engine.name, layers=engine.config.num_layers, ctx=CTX, **rep,
             launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-        missing = [n for n, c in launches.items() if c == 0]
+        missing = [n for n in kernel_names if launches[n] == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the {tag}: {missing}")
-        return launches
+        stray = [n for n in absent if launches[n]]
+        if stray:
+            raise AssertionError(f"kernels of another layout or mode ran on the {tag}: {stray}")
+        return {n: launches[n] for n in kernel_names}
 
     def run(tag, engine, kernel_names, **kw):
         return counted(tag, engine, kernel_names, main_path, ctx_ids, queries, **kw)
 
+    def variant(engine, **options):
+        """The same engine (parameters, tokenizer) with other options."""
+        e = copy.copy(engine)
+        for k, v in options.items():
+            setattr(e, k, v)
+        return e
+
+    pool_kernels = ("pool_decode_attend", "pool_decode_attend_int4",
+                    "pool_decode_attend_int4_q8")
+    flat_kernels = ("flat_decode_attend", "flat_decode_attend_int4",
+                    "flat_decode_attend_int4_q8")
+    keep = {}
     launches = run("main_path", eng, ("flash_attend", "fused_scores",
-                                      "ragged_decode_attend", "pool_decode_attend"))
-    for r in kernels:
-        r["launches"] = launches[r["name"]]
-    del eng
+                                      "ragged_decode_attend", "pool_decode_attend"),
+                   absent=flat_kernels, keep=keep)
+    feng = variant(eng, flat_decode="legacy")
+    launches.update(counted("flat_path", feng, ("flat_decode_attend",), flat_path, keep,
+                            queries, False, absent=pool_kernels))
+    cross_layout_attention(keep["pool"].cache, keep["flat"].cache, cfg.num_heads, int4=False)
+    allkept_check(eng, keep["pool"], keep["flat"], queries[0], keep["answers"][0],
+                  full_eng=feng, phase="cross_layout_logits")
+    for r in kernels + kernels_f:
+        r["launches"] = launches.get(r["name"], 0)
+    del eng, feng, keep
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1019,13 +1417,38 @@ def main() -> int:
                  max_new_tokens=NEW_TOKENS, seed=SEED, **QUANT)
     torch.cuda.synchronize()
     log(phase="init_quant", seconds=time.perf_counter() - t0, **QUANT)
+    keep = {}
     launches = run("main_path_quant", eng,
                    ("fused_scores", "flash_attend_int4", "flash_attend_int4_extra",
-                    "pool_decode_attend_int4", "w4a8_matmul_stacked_v2"), quant=True)
-    for r in kernels_q:
-        r["launches"] = launches[r["name"]]
+                    "pool_decode_attend_int4", "w4a8_matmul_stacked_v2"),
+                   absent=("pool_decode_attend_int4_q8", *flat_kernels), quant=True, keep=keep)
+    feng = variant(eng, flat_decode="legacy")
+    launches.update(counted("flat_path_quant", feng, ("flat_decode_attend_int4",), flat_path,
+                            keep, queries, True,
+                            absent=("flat_decode_attend_int4_q8", *pool_kernels)))
+    pool_st, flat_st = keep["pool"], keep["flat"]
+    qfeng = variant(feng, attn_quant="int8")
+    launches.update(counted(
+        "flat_path_quant_q8", qfeng, ("flat_decode_attend_int4_q8",), q8_path, flat_st,
+        queries, keep["flat_answers"],
+        lambda: qfeng.synthetic_full_flat_state(flat_st, True, qfeng.decode_budget),
+        absent=("flat_decode_attend_int4", *pool_kernels)))
+    qpeng = variant(eng, attn_quant="int8")
+    launches.update(counted(
+        "pool_path_quant_q8", qpeng, ("pool_decode_attend_int4_q8",), q8_path, pool_st,
+        queries, keep["answers"],
+        lambda: qpeng.synthetic_full_pool_state(pool_st, qpeng.decode_budget, int4=True),
+        absent=("pool_decode_attend_int4", *flat_kernels)))
+    q8_logits(feng, qfeng, flat_st, queries, keep["flat_answers"], "q8_logits_flat")
+    q8_logits(eng, qpeng, pool_st, queries, keep["answers"], "q8_logits_pool")
+    cross_layout_attention(pool_st.cache, flat_st.cache, cfg.num_heads, int4=True)
+    allkept_check(eng, pool_st, flat_st, queries[0], keep["answers"][0], full_eng=feng,
+                  phase="cross_layout_logits_quant")
+    for r in kernels_q + kernels_f:
+        if r["name"] in launches:
+            r["launches"] = launches[r["name"]]
     kernels += kernels_q
-    del eng
+    del eng, feng, qfeng, qpeng, keep, pool_st, flat_st
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1057,7 +1480,7 @@ def main() -> int:
                             eng, ctx_ids))
     for r in kernels_w8:
         r["launches"] = launches[r["name"]]
-    kernels += kernels_w8
+    kernels += kernels_w8 + kernels_f
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "rms_want",
             "worst_to_tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

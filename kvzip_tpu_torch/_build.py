@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (K1-K9, K13, K14).
+"""Build and load the port's CUDA kernels (K1-K11, K13, K14).
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, ``build/lib<name>-<hash>.so``, loaded through
@@ -23,7 +23,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD = os.path.join(_HERE, "build")
 KERNELS = ("flash", "score", "ragged_decode", "pool_decode", "flash_int4",
-           "pool_decode_int4", "w4a8", "windowed_attend", "fused_act")
+           "pool_decode_int4", "w4a8", "windowed_attend", "fused_act", "flat_decode",
+           "flat_decode_int4")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

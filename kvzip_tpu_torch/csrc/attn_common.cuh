@@ -1,4 +1,4 @@
-// Shared device code of the attention kernels (K1-K4): bf16 mma.sync tiles
+// Shared device code of the attention kernels (K1-K4, K10): bf16 mma.sync tiles
 // with fp32 accumulation, cp.async tile loads and the fp32 online softmax.
 //
 // Fragment layouts follow PTX mma.m16n8k16 (row.col): a lane holds rows
@@ -136,13 +136,29 @@ struct Online {
   // overwritten with the probabilities. Keeps the reference's guards: a row
   // that has seen no key keeps m = -inf, l = 0 and acc = 0.
   __device__ __forceinline__ void update(float s[NT_K][4], const bf16* Vs, int gid, int tig) {
+    float alpha[2];
+    probs(s, alpha);
+#pragma unroll
+    for (int nt = 0; nt < NT_D; ++nt) {
+      acc[nt][0] *= alpha[0];
+      acc[nt][1] *= alpha[0];
+      acc[nt][2] *= alpha[1];
+      acc[nt][3] *= alpha[1];
+    }
+    pv_tile(acc, s, Vs, gid, tig);
+  }
+
+  // The softmax half of update(): m and l advance, s becomes the
+  // probabilities, and alpha receives the factor by which the caller
+  // rescales acc before adding this tile's values.
+  __device__ __forceinline__ void probs(float s[NT_K][4], float alpha[2]) {
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
     for (int nt = 0; nt < NT_K; ++nt) {
       mx[0] = fmaxf(mx[0], fmaxf(s[nt][0], s[nt][1]));
       mx[1] = fmaxf(mx[1], fmaxf(s[nt][2], s[nt][3]));
     }
-    float alpha[2], mn[2], rs[2] = {0.f, 0.f};
+    float mn[2], rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       mn[i] = fmaxf(m[i], quad_max(mx[i]));
@@ -163,14 +179,6 @@ struct Online {
       l[i] = l[i] * alpha[i] + quad_sum(rs[i]);
       m[i] = mn[i];
     }
-#pragma unroll
-    for (int nt = 0; nt < NT_D; ++nt) {
-      acc[nt][0] *= alpha[0];
-      acc[nt][1] *= alpha[0];
-      acc[nt][2] *= alpha[1];
-      acc[nt][3] *= alpha[1];
-    }
-    pv_tile(acc, s, Vs, gid, tig);
   }
 };
 

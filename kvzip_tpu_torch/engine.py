@@ -1,11 +1,13 @@
 """KVzip engine of the port: prefill -> reconstruction scoring -> prune ->
-decode over the pool.
+decode over the pool (or the legacy flat layout).
 
 Port of the ``Engine``/``KVState`` main path of ``kvzip_tpu/engine.py``
 (evict path; bf16 or float32 weights and KV, with the quantized options
 ``kv_quant="int4"``, ``weight_quant="w8a8"`` or ``"w4a8"`` and
 ``embed_quant="int8"``, the fused W8A8 activation quantization
-``act_fused="pallas"`` and the windowed scoring ``scoring_attend="window"``).
+``act_fused="pallas"``, the windowed scoring ``scoring_attend="window"``,
+the legacy flat decode layout ``flat_decode="legacy"`` and the int8
+attention ``attn_quant="int8"``).
 PyTorch runs eagerly: the chunk loop, the layer loop and the decode loop
 are Python loops, caches are updated in place, and the
 ``update_cache=False`` semantics are O(1) counter restores as in the
@@ -13,8 +15,10 @@ reference.
 
 Device rule: on a CUDA device every attention op, every W4A8 linear below
 512 rows and every fused activation quantization launches its kernel
-(K1-K9, K13, K14); on the CPU the same calls run the plain PyTorch
-versions. Both devices build the pool at prune time.
+(K1-K11, K13, K14); on the CPU the same calls run the plain PyTorch
+versions. Both devices build the pool (or the flat layout) at prune time,
+and both honour ``attn_quant`` (the reference ignores it on the CPU, where
+its kernels run in interpret mode).
 """
 
 from __future__ import annotations
@@ -27,8 +31,10 @@ import torch
 
 from kvzip_tpu_torch import prune as prune_lib
 from kvzip_tpu_torch import template as template_lib
-from kvzip_tpu_torch.cache import (Int4KVCache, KVCache, init_cache,
-                                   init_int4_cache, restore, snapshot)
+from kvzip_tpu_torch.cache import (FlatInt4KV, FlatKV, Int4KVCache, KVCache,
+                                   build_flat, build_flat_int4, build_flat_int4_stepped,
+                                   init_cache, init_int4_cache, refold_flat, restore,
+                                   snapshot, synthetic_full_flat)
 from kvzip_tpu_torch.config import ModelConfig, resolve_config
 from kvzip_tpu_torch.models.params import prepare_params
 from kvzip_tpu_torch.models.transformer import check_supported, forward
@@ -55,11 +61,20 @@ def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
+def _round_flat_rows(n: int) -> int:
+    """Flat rows per layer (the reference's r_pad bucket): a multiple of
+    8192 up to 65,536 rows, of 32,768 beyond."""
+    return _round_up(n, 8192 if n <= 65536 else 32768)
+
+
+DECODE_CACHES = (PoolKV, PoolInt4KV, FlatKV, FlatInt4KV)
+
+
 @dataclasses.dataclass
 class KVState:
     """One context's cache and its bookkeeping."""
 
-    cache: Union[KVCache, Int4KVCache, PoolKV, PoolInt4KV]
+    cache: Union[KVCache, Int4KVCache, PoolKV, PoolInt4KV, FlatKV, FlatInt4KV]
     kv_type: str
     sink: int                      # system-prompt rows, never evicted
     ctx_len: int
@@ -68,7 +83,7 @@ class KVState:
     prefill_ids: Optional[np.ndarray] = None
     ctx_ids: Optional[np.ndarray] = None
     pruned: bool = False
-    refolds: int = 0               # tail folds into the pool so far
+    refolds: int = 0               # tail folds into the pool / flat rows so far
     _snap: Optional[dict] = None
 
     def snapshot(self):
@@ -89,11 +104,17 @@ class Engine:
                  score_chunk_size: int = 2000, kv_quant: str = "none",
                  weight_quant: str = "none", embed_quant: str = "none",
                  act_fused: str = "xla", scoring_attend: str = "full",
+                 flat_decode: str = "auto", attn_quant: str = "none",
                  seed: int = 0):
         """``act_fused``: "xla" (the W8A8 norm, activation and quantization
         as separate ops) or "pallas" (fused, K13 and K14; the values keep
         the reference's names). ``scoring_attend``: "full" (exact scoring)
-        or "window" (the O(ctx * window) approximation through K9)."""
+        or "window" (the O(ctx * window) approximation through K9).
+        ``flat_decode``: the decode layout the prune builds, "auto" or "on"
+        the pool, "legacy" the reference's round-3 flat layout (K10/K11);
+        "off" (the dense compaction) is not ported. ``attn_quant``: "none"
+        or "int8", the int8 attention (K7/K11 ``q8``) on an int4 pool or
+        flat cache."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -106,6 +127,16 @@ class Engine:
             raise ValueError(f"kv_quant: {kv_quant!r}")
         if act_fused not in ("xla", "pallas"):
             raise ValueError(f"act_fused: {act_fused!r}")
+        if flat_decode not in ("auto", "on", "legacy", "off"):
+            raise ValueError(f"flat_decode: {flat_decode!r}")
+        if flat_decode == "off":
+            raise NotImplementedError(
+                "flat_decode='off' (the dense evict compaction, `compact`) and the "
+                "retain path are not ported yet")
+        if attn_quant not in ("none", "int8"):
+            raise ValueError(f"attn_quant: {attn_quant!r}")
+        self.flat_decode = flat_decode
+        self.attn_quant = attn_quant
         self.config = config or resolve_config(model_name)
         if act_fused == "pallas":
             self.config = dataclasses.replace(self.config, fused_act=True)
@@ -163,6 +194,11 @@ class Engine:
                                self.postfix_ids])
 
     # --------------------------------------------------------------- forward
+    def _q8(self, state: KVState) -> bool:
+        """int8 attention applies to an int4 pool or flat cache only (the
+        reference's ``_impl`` choice of "flash_q8")."""
+        return self.attn_quant == "int8" and isinstance(state.cache, (PoolInt4KV, FlatInt4KV))
+
     def _ids(self, ids: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
 
@@ -170,8 +206,8 @@ class Engine:
                         collect: str = "none") -> Optional[torch.Tensor]:
         """Run ids through the model on the chunk ladder; maybe return
         logits ("last" or "all")."""
-        is_pool = isinstance(state.cache, (PoolKV, PoolInt4KV))
-        ladder = POOL_LADDER if is_pool else CHUNK_LADDER
+        ladder = POOL_LADDER if isinstance(state.cache, DECODE_CACHES) else CHUNK_LADDER
+        q8 = self._q8(state)
         parts = []
         pos = 0
         for size in ladder_split(len(ids), ladder):
@@ -180,7 +216,7 @@ class Engine:
             want = collect if collect == "all" else (
                 "last" if pos == len(ids) and collect == "last" else "none")
             res = forward(self.params, self.config, self._ids(chunk),
-                          state.cache, collect_logits=want, sink=state.sink)
+                          state.cache, collect_logits=want, sink=state.sink, attn_q8=q8)
             if res.logits is not None:
                 parts.append(res.logits)
         if collect == "all":
@@ -286,10 +322,11 @@ class Engine:
     # ----------------------------------------------------------------- prune
     def prune(self, state: KVState, ratio: float, level: str = "pair"
               ) -> Tuple[float, float]:
-        """Evict to the pool layout; returns (threshold, true_ratio).
+        """Evict to the pool layout (the flat layout with
+        ``flat_decode="legacy"``); returns (threshold, true_ratio).
 
         One-shot, as in the reference: the dense cache is compacted."""
-        if isinstance(state.cache, (PoolKV, PoolInt4KV)) or state.pruned:
+        if isinstance(state.cache, DECODE_CACHES) or state.pruned:
             raise RuntimeError(
                 "evict-path prune is one-shot (the cache was physically "
                 "compacted)")
@@ -299,7 +336,18 @@ class Engine:
             state.score, ratio, level, method="histogram")
         state.score = None
         dense = state.cache
-        if isinstance(dense, Int4KVCache):
+        if self.flat_decode == "legacy":
+            # the reference's round-3 layout: every layer padded to the
+            # largest one's kept rows (sink included)
+            per_layer = keep.sum(dim=(1, 2))
+            r_pad = _round_flat_rows(int(per_layer.max())
+                                     + state.sink * self.config.num_kv_heads)
+            if isinstance(dense, Int4KVCache):
+                state.cache = build_flat_int4_stepped(dense, keep, state.sink, r_pad,
+                                                      self.decode_budget, self.dtype)
+            else:
+                state.cache = build_flat(dense, keep, state.sink, r_pad, self.decode_budget)
+        elif isinstance(dense, Int4KVCache):
             state.cache = build_pool_int4_stepped(dense, keep, state.sink,
                                                   self.decode_budget, self.dtype)
         else:
@@ -309,6 +357,41 @@ class Engine:
         state.pruned = True
         state.snapshot()
         return thres, true_ratio
+
+    def flatten_full(self, state: KVState) -> KVState:
+        """The flat layout of the FULL dense cache (every context row kept):
+        the full-cache decode baseline through the same kernel (K10 or K11)
+        as the evicted flat cache. Returns a new state; the input state and
+        its dense cache are left intact."""
+        if isinstance(state.cache, DECODE_CACHES):
+            raise RuntimeError("cache is already a decode layout")
+        L, H = self.config.num_layers, self.config.num_kv_heads
+        keep = torch.ones((L, H, state.ctx_len), dtype=torch.bool, device=self.device)
+        r_pad = _round_flat_rows(H * (state.ctx_len + state.sink))
+        if isinstance(state.cache, Int4KVCache):
+            cache = build_flat_int4(state.cache, keep, state.sink, r_pad,
+                                    self.decode_budget, self.dtype)
+        else:
+            cache = build_flat(state.cache, keep, state.sink, r_pad, self.decode_budget)
+        new_state = dataclasses.replace(state, cache=cache, pruned=True)
+        new_state.snapshot()
+        return new_state
+
+    def synthetic_full_flat_state(self, state: KVState, flat_int4: bool,
+                                  tail_cap: int) -> KVState:
+        """A full-occupancy flat cache (int4 with ``flat_int4``) with the
+        live rows ``flatten_full(state)`` would give, every layer padded to
+        their r_pad bucket: the full-cache decode baseline once the dense
+        cache is gone."""
+        cfg = self.config
+        per_head = state.ctx_len + state.sink
+        cache = synthetic_full_flat(
+            cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, per_head,
+            _round_flat_rows(cfg.num_kv_heads * per_head), tail_cap, self.dtype,
+            self.device, int4=flat_int4)
+        st = dataclasses.replace(state, cache=cache, pruned=True)
+        st.snapshot()
+        return st
 
     def synthetic_full_pool_state(self, state: KVState, tail_cap: int,
                                   int4: bool = False) -> KVState:
@@ -328,7 +411,7 @@ class Engine:
     def _check_capacity(self, state: KVState, need: int):
         """Fail loudly instead of writing past the cache."""
         cache = state.cache
-        if isinstance(cache, (PoolKV, PoolInt4KV)):
+        if isinstance(cache, DECODE_CACHES):
             cap, cur = cache.k_tail.shape[2], cache.tail_len
             if cur + need > cap:
                 raise ValueError(
@@ -343,13 +426,17 @@ class Engine:
                     f"capacity is {cache.capacity}; raise decode_budget")
 
     def _maybe_refold(self, state: KVState, need: int) -> bool:
-        """Fold the committed tail into the pool when the next turn would
-        overflow it; returns whether it did."""
+        """Fold the committed tail into the pool or the flat rows when the
+        next turn would overflow it; returns whether it did."""
         cache = state.cache
-        if not isinstance(cache, (PoolKV, PoolInt4KV)) or \
+        if not isinstance(cache, DECODE_CACHES) or \
                 cache.tail_len + need <= cache.k_tail.shape[2]:
             return False
-        state.cache = refold_pool(cache)
+        if isinstance(cache, (FlatKV, FlatInt4KV)):
+            rows = int((cache.lengths + cache.tail_len).sum(dim=-1).max())
+            state.cache = refold_flat(cache, _round_flat_rows(rows))
+        else:
+            state.cache = refold_pool(cache)
         state.refolds += 1
         state.snapshot()
         return True
@@ -381,9 +468,10 @@ class Engine:
         logits = self._forward_chunks(query_ids.astype(np.int32), state, "last")
         tokens = [int(torch.argmax(logits[-1]))]
         done = tokens[-1] in self.eos_ids
+        q8 = self._q8(state)
         while not done and len(tokens) < max_new:
             res = forward(self.params, self.config, self._ids(tokens[-1:]),
-                          state.cache, collect_logits="last", sink=state.sink)
+                          state.cache, collect_logits="last", sink=state.sink, attn_q8=q8)
             tokens.append(int(torch.argmax(res.logits[-1])))
             done = tokens[-1] in self.eos_ids
         if done:

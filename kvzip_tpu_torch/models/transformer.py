@@ -24,6 +24,12 @@ Dispatch, as in the reference:
 - pool cache: K3 (``pool_decode_attend``) or, for an int4 pool, K7
   (``pool_decode_attend_int4``), after the T new rows are written into the
   full (L, Hkv, Tcap, D) tail stacks at ``tail_len``;
+- flat cache (``flat_decode="legacy"``): the same uniform tail append, then
+  K10 (``flat_decode_attend``) or, for int4 rows, K11
+  (``flat_decode_attend_int4``) on the stacked flat arrays and the layer's
+  tail, at every T;
+- ``attn_q8`` (``attn_quant="int8"``): K7 and K11 in their int8-attention
+  mode (``q8``);
 - W4A8 weights (fused ``wqkv``, ``wo``, ``w_gateup``, ``w_down``) go
   through ``w4a8_linear_stacked`` (K8 below 512 rows);
 - W8A8 weights (``{"q", "s"}``): q/k/v share one activation quantization
@@ -40,11 +46,13 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from kvzip_tpu_torch.cache import Int4KVCache, append_layer, append_layer_int4
+from kvzip_tpu_torch.cache import (FlatInt4KV, FlatKV, Int4KVCache, append_layer,
+                                   append_layer_int4)
 from kvzip_tpu_torch.config import ModelConfig
 from kvzip_tpu_torch.models.rope import apply_rope, rope_cos_sin
 from kvzip_tpu_torch.ops.flash import flash_attend
 from kvzip_tpu_torch.ops.flash_int4 import flash_attend_int4, flash_attend_int4_extra
+from kvzip_tpu_torch.ops.flat_decode import flat_decode_attend, flat_decode_attend_int4
 from kvzip_tpu_torch.ops.fused_act import rmsnorm_quant, silu_mul_quant
 from kvzip_tpu_torch.ops.pool_decode import pool_decode_attend, pool_decode_attend_int4
 from kvzip_tpu_torch.ops.quant import (dequantize_int4, embed_lookup, head_logits,
@@ -144,29 +152,32 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
             collect_logits: str = "none", scoring: bool = False,
             score_start: int = 0, score_len: int = 0, score_qlen: int = 0,
             score_width: int = 0, sink: int = 0,
-            scoring_attend: str = "full") -> ForwardResult:
+            scoring_attend: str = "full", attn_q8: bool = False) -> ForwardResult:
     """Run ids (T,) through the model, appending their KV to ``cache`` in
-    place (``lengths``/``seen``, or ``tail_len``/``seen`` for a pool).
+    place (``lengths``/``seen``, or ``tail_len``/``seen`` for a pool or a
+    flat cache).
 
     ``collect_logits``: "none" | "last" | "all". ``scoring``: the KVzip
     repeat pass on a dense cache; ``score_start`` is the cache row of the
     scored ctx window, ``score_len`` its true length, ``score_qlen`` the
     true number of repeat queries. ``scoring_attend``: "full" (the exact
     pass over the whole cache) or "window" (K9 over [sink | window |
-    repeat] only).
+    repeat] only). ``attn_q8``: int8 attention on an int4 pool or flat
+    cache (K7/K11 with ``q8``).
     """
     T = ids.shape[0]
     L, H, Hkv, Dh = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     scale = cfg.query_scale if cfg.query_scale is not None else Dh ** -0.5
+    is_flat = isinstance(cache, (FlatKV, FlatInt4KV))
     is_pool = isinstance(cache, (PoolKV, PoolInt4KV))
     is_int4 = isinstance(cache, Int4KVCache)
-    if scoring and is_pool:
-        raise ValueError("scoring runs before the prune; a pool is decode-only")
+    if scoring and (is_pool or is_flat):
+        raise ValueError("scoring runs before the prune; a pool or flat cache is decode-only")
     if scoring_attend not in ("full", "window"):
         raise ValueError(f"scoring_attend: {scoring_attend!r}")
     window = scoring and scoring_attend == "window"
-    if is_pool and cache.tail_len + T > cache.k_tail.shape[2]:
-        raise ValueError("pool tail overflow")
+    if (is_pool or is_flat) and cache.tail_len + T > cache.k_tail.shape[2]:
+        raise ValueError("pool tail overflow" if is_pool else "flat tail overflow")
     emb = params["embed"]
     dtype = emb["s"].dtype if isinstance(emb, dict) else emb.dtype
 
@@ -195,7 +206,21 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
         k = apply_rope(k.reshape(T, Hkv, Dh), cos, sin)
         v = v.reshape(T, Hkv, Dh)
 
-        if is_pool:
+        if is_flat:
+            # uniform tail append at tail_len (all heads advance together)
+            t0 = cache.tail_len
+            cache.k_tail[l, :, t0:t0 + T] = k.transpose(0, 1)
+            cache.v_tail[l, :, t0:t0 + T] = v.transpose(0, 1)
+            tail = (cache.k_tail[l], cache.v_tail[l], t0)
+            if isinstance(cache, FlatInt4KV):
+                attn = flat_decode_attend_int4(
+                    q, cache.k_flat_q, cache.k_flat_s, cache.k_flat_z, cache.v_flat_q,
+                    cache.v_flat_s, cache.v_flat_z, cache.row_head, *tail, scale=scale,
+                    q8=attn_q8, layer=l)
+            else:
+                attn = flat_decode_attend(q, cache.k_flat, cache.v_flat, cache.row_head,
+                                          *tail, scale=scale, layer=l)
+        elif is_pool:
             t0 = cache.tail_len
             cache.k_tail[l, :, t0:t0 + T] = k.transpose(0, 1)
             cache.v_tail[l, :, t0:t0 + T] = v.transpose(0, 1)
@@ -205,7 +230,7 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
                 attn = pool_decode_attend_int4(
                     q, cache.k_pool_q, cache.k_pool_s, cache.k_pool_z,
                     cache.v_pool_q, cache.v_pool_s, cache.v_pool_z, *meta,
-                    scale=scale, max_rows=cache.max_rows)
+                    scale=scale, max_rows=cache.max_rows, q8=attn_q8)
             else:
                 attn = pool_decode_attend(q, cache.k_pool, cache.v_pool, *meta,
                                           scale=scale, max_rows=cache.max_rows)
@@ -278,7 +303,7 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
         else:
             x = x + _lin(_act(gate, cfg.hidden_act) * up, lp["w_down"])
 
-    if is_pool:
+    if is_pool or is_flat:
         cache.tail_len += T
         cache.seen += T
     elif not (is_int4 and scoring):  # int4 scoring appended nothing

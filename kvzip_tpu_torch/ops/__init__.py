@@ -3,7 +3,8 @@ each kernel wrapper beside its plain version.
 
 A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
 tensors it launches its hand-written kernel (``csrc/``) or raises. Every
-kernel launch adds one to ``LAUNCHES[<wrapper name>]``, so a run can show
+kernel launch adds one to ``LAUNCHES[<wrapper name>]`` (``<wrapper
+name>_q8`` for the int8-attention mode of K7 and K11), so a run can show
 which kernels its path went through.
 """
 
@@ -15,7 +16,9 @@ LAUNCHES = {"flash_attend": 0, "fused_scores": 0, "ragged_decode_attend": 0,
             "pool_decode_attend": 0, "flash_attend_int4": 0,
             "flash_attend_int4_extra": 0, "pool_decode_attend_int4": 0,
             "w4a8_matmul_stacked_v2": 0, "windowed_attend": 0,
-            "rmsnorm_quant": 0, "silu_mul_quant": 0}
+            "rmsnorm_quant": 0, "silu_mul_quant": 0,
+            "pool_decode_attend_int4_q8": 0, "flat_decode_attend": 0,
+            "flat_decode_attend_int4": 0, "flat_decode_attend_int4_q8": 0}
 
 
 def reset_launches() -> None:
@@ -72,13 +75,19 @@ ATOL_SHARE = 0.02       # of RMS(want): accumulation order, bf16 p's error tail
 RMS_SHARE = 2.0 ** -7   # RMS(got - want) <= RMS_SHARE * RMS(want)
 
 
-def parity(got: torch.Tensor, want: torch.Tensor, rtol: float) -> dict:
+def parity(got: torch.Tensor, want: torch.Tensor, rtol: float,
+           slack: torch.Tensor = None) -> dict:
     """Elementwise ``|got - want| <= rtol |want| + ATOL_SHARE RMS(want)``
     (``worst_to_tol`` is the largest ratio of the two sides) and an error
     RMS at most ``RMS_SHARE`` of the reference's, which catches an error
-    spread thin over every element (a wrong normaliser, a dropped split)."""
+    spread thin over every element (a wrong normaliser, a dropped split).
+    ``slack`` (broadcast to got's shape) is a difference the comparison
+    discounts from each element first: in the int8-attention mode, the
+    quantized-p steps that may flip (``attention.attend_int4_q8``)."""
     w = want.float()
     err = (got.float() - w).abs()
+    if slack is not None:
+        err = (err - slack.float()).clamp_min(0)
     rms = w.square().mean().sqrt().item()
     worst = (err / (rtol * w.abs() + ATOL_SHARE * rms + 1e-30)).max().item()
     rel_rms = err.square().mean().sqrt().item() / max(rms, 1e-30)

@@ -2,7 +2,8 @@
 
 The plain versions of kernels K1, K2, K4, K5/K6 and K9 (``ops/flash.py``,
 ``ops/score_kernel.py``, ``ops/ragged_decode.py``, ``ops/flash_int4.py``,
-``ops/windowed_attend.py``) and the CPU path of the port. Masking rule: key row ``j`` of kv head ``h`` is visible to query ``i``
+``ops/windowed_attend.py``), the int8-attention arithmetic of K7 and K11
+(``attend_int4_q8``) and the CPU path of the port. Masking rule: key row ``j`` of kv head ``h`` is visible to query ``i``
 (0-based within the new block) iff ``j < base_lens[h] + i + 1`` — the new
 rows were appended at ``base_lens[h]``. Everything is computed in float32;
 a row that sees no key gives 0.
@@ -110,6 +111,130 @@ def attend_blockwise_int4(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
 
     return _attend_heads(q, rows, kq.shape[1], base_lens, scale=scale,
                          kv_block=kv_block)
+
+
+def head_rows(q: torch.Tensor, h: int, G: int) -> torch.Tensor:
+    """The float32 query rows of kv head h from q (T, H, D), ordered as the
+    decode kernels pack them: row g * T + i is query i of head h * G + g."""
+    T, _, D = q.shape
+    return q[:, h * G:(h + 1) * G].float().transpose(0, 1).reshape(G * T, D)
+
+
+def put_head_rows(out: torch.Tensor, h: int, G: int, rows: torch.Tensor) -> None:
+    """Write :func:`head_rows`-ordered rows (G * T, D) back into out (T, H, D)."""
+    T, _, D = out.shape
+    out[:, h * G:(h + 1) * G] = rows.reshape(G, T, D).transpose(0, 1)
+
+
+def attend_rows(qr: torch.Tensor, k_rows: torch.Tensor, v_rows: torch.Tensor,
+                kt: torch.Tensor, vt: torch.Tensor, tail_ok: torch.Tensor, *,
+                scale: float) -> torch.Tensor:
+    """Exact attention of one kv head's query rows qr (R, D) over its
+    context rows k/v_rows (n, D), all visible, and its tail kt/vt (m, D)
+    under the mask tail_ok (R, m), in float32: the plain decode attention of
+    the pool (K3/K7) and the flat layout (K10/K11), so the two give the same
+    bits for the same rows."""
+    s = torch.cat([qr @ k_rows.float().T,
+                   (qr @ kt.float().T).masked_fill(~tail_ok, NEG_INF)], dim=-1) * scale
+    return softmax_guarded(s) @ torch.cat([v_rows.float(), vt.float()], dim=0)
+
+
+Q8_TILE = 64  # keys over which K7/K11 quantize p in q8 mode (their key tile)
+# How far a kernel's float32 p (and its tile maximum) may stray from the
+# plain version's, relative: the exponent's argument differs in its last
+# bits (another summation order of sum(q), fused multiply-adds, a running
+# maximum), which moves p by ~1e-6 of itself; 2^-18 leaves a margin of ~8.
+Q8_P_RTOL = 2.0 ** -18
+
+
+def _per127(x: torch.Tensor) -> torch.Tensor:
+    """x / 127 + 1e-20 with IEEE division, as the kernels compute it:
+    PyTorch divides a CUDA tensor by a Python number as a product with the
+    reciprocal, which differs in the last bit, and a scale one bit off
+    rounds some s8 values the other way."""
+    return torch.div(x, torch.full_like(x, 127.0)) + 1e-20
+
+
+def _quantize_rows_s8(x: torch.Tensor):
+    """Per-row symmetric s8 of the reference's q8 mode: scale amax / 127 +
+    1e-20, round half to even (returned as float values)."""
+    s = _per127(x.abs().amax(dim=-1, keepdim=True))
+    return torch.round(x / s), s
+
+
+def attend_int4_q8(qr: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
+                   kz: torch.Tensor, vq: torch.Tensor, vs: torch.Tensor,
+                   vz: torch.Tensor, visible: torch.Tensor, kt: torch.Tensor,
+                   vt: torch.Tensor, tail_ok: torch.Tensor, *, scale: float,
+                   block: int = Q8_TILE, with_slack: bool = False):
+    """Int8 attention (the reference's ``q8=True``) of one kv head's query
+    rows qr (R, D) over a segment of int4 rows and a tail.
+
+    kq/vq (n, D//2) split-packed uint8 and ks/kz/vs/vz (n,) float32 are the
+    segment's rows from its row 0, ``visible`` (n,) which of them the head
+    sees; kt/vt (m, D) the tail rows and ``tail_ok`` (R, m) their mask. The
+    scores run as s8 dots of the per-row quantized q_hi = q[:D/2] / 16 and
+    q_lo = q[D/2:] - q_hi against the bytes (``b ^ 0x80`` is ``b - 128``)
+    and the low nibbles; p * v_scale is quantized per row over tiles of
+    ``block`` rows aligned to the segment's row 0, as the kernels' key tiles
+    are, and dotted with the bytes in s8. The integer sums are exact (float64
+    here); everything else is float32, with one softmax maximum per row
+    where the kernels keep a running one. Returns (R, D) float32, and with
+    ``with_slack`` also how far a kernel's output may stray from it through
+    quantized-p steps that flip (R, D): a kernel computes p to float32
+    rounding, so a p * v_scale / ps_s that lies within 2 * 127 *
+    ``Q8_P_RTOL`` of a .5 boundary may round the other way there, moving
+    its row's output by ps_s * nibble / l; the slack sums that over every
+    such p, and a parity gate discounts it (``ops.parity``'s ``slack``)."""
+    D = qr.shape[1]
+    half = D // 2
+    qsum = qr.sum(dim=-1, keepdim=True)
+    q_hi = qr[:, :half] * (1.0 / 16.0)
+    q_lo = qr[:, half:] - q_hi
+    qh8, qh_s = _quantize_rows_s8(q_hi)
+    ql8, ql_s = _quantize_rows_s8(q_lo)
+    n = kq.shape[0]
+    nt = max(-(-n // block), 1)  # an empty segment still gets one (masked) tile
+    pad = nt * block - n
+
+    def padded(a, value=0):
+        return torch.nn.functional.pad(a, (0, 0) * (a.dim() - 1) + (0, pad), value=value)
+
+    kq, vq, ks, kz, vs, vz = (padded(a) for a in (kq, vq, ks, kz, vs, vz))
+    visible = padded(visible, False)
+    kb, klo = kq.double() - 128.0, (kq & 15).double()
+    a = (qh8.double() @ kb.T).float()
+    m_lo = (ql8.double() @ klo.T).float()
+    qn = qh_s * (a + 128.0 * qh8.sum(dim=-1, keepdim=True)) + ql_s * m_lo
+    s = ((qn * ks + qsum * kz) * scale).masked_fill(~visible, NEG_INF)
+    st = (qr @ kt.float().T * scale).masked_fill(~tail_ok, NEG_INF)
+    m = torch.maximum(s.amax(dim=-1, keepdim=True), st.amax(dim=-1, keepdim=True))
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.where(torch.isfinite(s), torch.exp(s - m), torch.zeros_like(s))
+    pt = torch.where(torch.isfinite(st), torch.exp(st - m), torch.zeros_like(st))
+    R = qr.shape[0]
+    ps = (p * vs).reshape(R, nt, block)
+    ps_s = _per127(ps.amax(dim=-1, keepdim=True))                # (R, nt, 1)
+    pp = torch.round(ps / ps_s)
+    psum = pp.sum(dim=-1, keepdim=True)
+    vb = (vq.double() - 128.0).reshape(nt, block, half)
+    vlo = (vq & 15).double().reshape(nt, block, half)
+    m1i = torch.einsum("rtb,tbd->rtd", pp.double(), vb).float()
+    m2i = torch.einsum("rtb,tbd->rtd", pp.double(), vlo).float()
+    m1 = ps_s * (m1i + 128.0 * psum)
+    m2 = ps_s * m2i
+    pz = (p * vz).reshape(R, nt, block).sum(dim=-1, keepdim=True)
+    upd = torch.cat([(m1 - m2) * (1.0 / 16.0), m2], dim=-1) + pz  # (R, nt, D)
+    acc = upd.sum(dim=1) + pt @ vt.float()
+    l = p.sum(dim=-1, keepdim=True) + pt.sum(dim=-1, keepdim=True)
+    out = acc / l.clamp_min(1e-37)
+    if not with_slack:
+        return out
+    r = ps / ps_s
+    near = (r - r.floor() - 0.5).abs() < 2 * 127 * Q8_P_RTOL
+    w = (near * ps_s).reshape(R, nt * block) / l.clamp_min(1e-37)
+    nib = torch.cat([vq >> 4, vq & 15], dim=-1).float()
+    return out, w @ nib
 
 
 def reconstruction_scores(q: torch.Tensor, k_sink: torch.Tensor,

@@ -2,7 +2,8 @@
 
 Port of ``kvzip_tpu/ops/pool_decode.py::pool_decode_attend`` (K3, bf16
 pool, ``csrc/pool_decode.cu``) and ``::pool_decode_attend_int4`` (K7, int4
-pool, ``csrc/pool_decode_int4.cu``): flash-decoding over the layer's pool
+pool, exact or the int8-attention ``q8`` mode, ``csrc/pool_decode_int4.cu``):
+flash-decoding over the layer's pool
 segment plus one split for the bf16 tail, then a merge. The port stores the
 pool row-major: K and V are both (P, D), or (P, D//2) packed int4 rows with
 float32 per-row scales and zeros (P,).
@@ -17,12 +18,13 @@ import torch
 from kvzip_tpu_torch import _build
 from kvzip_tpu_torch.ops import (LAUNCHES, attention, check_kernel_args,
                                  on_cuda, stream_ptr)
+from kvzip_tpu_torch.ops.attention import Q8_TILE, attend_int4_q8
 from kvzip_tpu_torch.ops.quant import dequantize_int4
 from kvzip_tpu_torch.ops.ragged_decode import split_size
 
 _ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                        ctypes.c_void_p]
-_ARGS_INT4 = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 8 + [ctypes.c_float,
+_ARGS_INT4 = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 + [ctypes.c_float,
                                                             ctypes.c_void_p]
 
 
@@ -38,10 +40,31 @@ def pool_decode_attend_plain(q, k_pool, v_pool, row_head, layer_off,
 def pool_decode_attend_int4_plain(q, k_pool_q, k_pool_s, k_pool_z, v_pool_q,
                                   v_pool_s, v_pool_z, row_head, layer_off,
                                   layer_rows, k_tail, v_tail, tail_len, layer,
-                                  *, scale):
-    """The layer's pool rows dequantized in float32, then K3's plain
-    attention."""
+                                  *, scale, q8=False, block=Q8_TILE, with_slack=False):
+    """Exact: the layer's pool rows dequantized in float32, then K3's plain
+    attention. ``q8``: ``attention.attend_int4_q8`` over the layer's
+    segment, p quantized per ``block`` rows from ``layer_off``; with
+    ``with_slack`` it also returns the output's q8 slack (T, H, D)."""
+    if with_slack and not q8:
+        raise ValueError("with_slack is the q8 mode's")
     off, n = int(layer_off[layer]), int(layer_rows[layer])
+    seg = (k_pool_q, k_pool_s, k_pool_z, v_pool_q, v_pool_s, v_pool_z)
+    if q8:
+        T, H, D = q.shape
+        Hkv, Tcap = k_tail.shape[1], k_tail.shape[2]
+        G = H // Hkv
+        kq, ks, kz, vq, vs, vz = (a[off:off + n] for a in seg)
+        tail_ok = attention.causal_mask(tail_len, 0, T, Tcap, q.device).repeat(G, 1)
+        out = torch.empty((T, H, D), dtype=torch.float32, device=q.device)
+        slack = torch.zeros((T, H, D), dtype=torch.float32, device=q.device)
+        for h in range(Hkv):
+            o, sl = attend_int4_q8(attention.head_rows(q, h, G), kq, ks.float(), kz.float(),
+                                   vq, vs.float(), vz.float(), row_head[off:off + n] == h,
+                                   k_tail[layer, h], v_tail[layer, h], tail_ok, scale=scale,
+                                   block=block, with_slack=True)
+            attention.put_head_rows(out, h, G, o)
+            attention.put_head_rows(slack, h, G, sl)
+        return (out.to(q.dtype), slack) if with_slack else out.to(q.dtype)
     kp, vp = (dequantize_int4(p[off:off + n], s[off:off + n, None],
                               z[off:off + n, None], torch.float32, pack="split")
               for p, s, z in ((k_pool_q, k_pool_s, k_pool_z),
@@ -52,22 +75,19 @@ def pool_decode_attend_int4_plain(q, k_pool_q, k_pool_s, k_pool_z, v_pool_q,
 
 def _pool_layer_plain(q, kp, vp, rh, k_tail, v_tail, tail_len, layer, *,
                       scale):
-    """Attention of q over one layer's pool rows kp/vp (n, D) float32 with
-    their kv heads rh (n,), and the layer's tail."""
+    """Attention of q over one layer's pool rows kp/vp (n, D) with their kv
+    heads rh (n,), and the layer's tail."""
     T, H, D = q.shape
     Hkv, Tcap = k_tail.shape[1], k_tail.shape[2]
     G = H // Hkv
-    tail_ok = attention.causal_mask(tail_len, 0, T, Tcap, q.device)
-    out = torch.empty((Hkv, G, T, D), dtype=torch.float32, device=q.device)
+    tail_ok = attention.causal_mask(tail_len, 0, T, Tcap, q.device).repeat(G, 1)
+    out = torch.empty((T, H, D), dtype=torch.float32, device=q.device)
     for h in range(Hkv):
-        qh = q[:, h * G:(h + 1) * G].float().transpose(0, 1)        # (G, T, D)
-        s_pool = (qh @ kp.T * scale).masked_fill((rh != h)[None, None],
-                                                 attention.NEG_INF)
-        s_tail = (qh @ k_tail[layer, h].float().T * scale).masked_fill(
-            ~tail_ok, attention.NEG_INF)
-        p = attention.softmax_guarded(torch.cat([s_pool, s_tail], dim=-1))
-        out[h] = p @ torch.cat([vp, v_tail[layer, h].float()], dim=0)
-    return out.permute(2, 0, 1, 3).reshape(T, H, D).to(q.dtype)
+        mine = rh == h
+        attention.put_head_rows(out, h, G, attention.attend_rows(
+            attention.head_rows(q, h, G), kp[mine], vp[mine], k_tail[layer, h],
+            v_tail[layer, h], tail_ok, scale=scale))
+    return out.to(q.dtype)
 
 
 def pool_decode_attend(q: torch.Tensor, k_pool: torch.Tensor,
@@ -126,14 +146,15 @@ def pool_decode_attend_int4(q: torch.Tensor, k_pool_q: torch.Tensor,
                             layer_off: torch.Tensor, layer_rows: torch.Tensor,
                             k_tail: torch.Tensor, v_tail: torch.Tensor,
                             tail_len: int, layer: int, *, scale: float,
-                            max_rows: int) -> torch.Tensor:
+                            max_rows: int, q8: bool = False) -> torch.Tensor:
     """As :func:`pool_decode_attend` over an int4 pool: k_pool_q/v_pool_q
-    (P, D//2) uint8 split-packed, k/v_pool_s/z (P,) float32 -> (T, H, D)."""
+    (P, D//2) uint8 split-packed, k/v_pool_s/z (P,) float32 -> (T, H, D).
+    ``q8``: the int8-attention mode (``attention.attend_int4_q8``)."""
     pool = (k_pool_q, k_pool_s, k_pool_z, v_pool_q, v_pool_s, v_pool_z)
     meta = (row_head, layer_off, layer_rows)
     if not on_cuda(q, *pool, *meta, k_tail, v_tail):
         return pool_decode_attend_int4_plain(q, *pool, *meta, k_tail, v_tail,
-                                             tail_len, layer, scale=scale)
+                                             tail_len, layer, scale=scale, q8=q8)
     check_kernel_args("pool_decode_attend_int4",
                       dict(q=q, k_tail=k_tail, v_tail=v_tail),
                       dict(row_head=row_head, layer_off=layer_off,
@@ -164,7 +185,7 @@ def pool_decode_attend_int4(q: torch.Tensor, k_pool_q: torch.Tensor,
         fn = _build.kernel("pool_decode_int4", "kvz_pool_decode_int4", _ARGS_INT4)
         _build.check(fn(*[a.data_ptr() for a in (q, *pool, *meta, k_tail, v_tail,
                                                  out, part_acc, part_ml)],
-                        T, H, Hkv, Tcap, layer, tail_len, ch, s_pool, scale,
+                        T, H, Hkv, Tcap, layer, tail_len, ch, s_pool, int(q8), scale,
                         stream_ptr(q.device)), "pool_decode_attend_int4")
-    LAUNCHES["pool_decode_attend_int4"] += 1
+    LAUNCHES["pool_decode_attend_int4_q8" if q8 else "pool_decode_attend_int4"] += 1
     return out

@@ -30,6 +30,19 @@ CTX = ("The archive keeps its ledgers in the north tower. " * 12
 QUERY = "What is the password?"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU tests run with one torch thread a module: the test
+    runner's workers share the machine's cores, and each worker's torch
+    thread pool sized to all of them multiplies its time by several (a
+    timed run of the engine files: 218 s with the default threads, 77 s
+    with one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class IdTokenizer(ByteTokenizer):
     """Bytes in, token ids out: decode prints every id, so two answers
     compare token for token."""

@@ -45,7 +45,7 @@ from kvzip_tpu_torch.engine import Engine
 from kvzip_tpu_torch.models.params import params_from_jax
 from kvzip_tpu_torch.pool import PoolInt4KV, refold_pool
 
-from test_torch_engine import CTX, IdTokenizer
+from test_torch_engine import CTX, IdTokenizer, one_torch_thread  # noqa: F401
 
 QUANT = dict(kv_quant="int4", weight_quant="w4a8", embed_quant="int8")
 

@@ -39,7 +39,7 @@ from kvzip_tpu_torch.cache import Int4KVCache, KVCache
 from kvzip_tpu_torch.engine import Engine
 from kvzip_tpu_torch.models.params import params_from_jax
 
-from test_torch_engine import CTX, IdTokenizer
+from test_torch_engine import CTX, IdTokenizer, one_torch_thread  # noqa: F401
 from test_torch_engine_quant import QUERY_Q, _carry_dense
 
 CTX_Q = CTX[:700]

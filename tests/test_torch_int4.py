@@ -25,6 +25,8 @@ from kvzip_tpu_torch import cache
 from kvzip_tpu_torch.ops import flash_int4, pool_decode
 from kvzip_tpu_torch.ops.quant import quantize_int4
 
+from test_torch_engine import one_torch_thread  # noqa: F401
+
 D = 128
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -1,5 +1,5 @@
-"""On the card: each CUDA kernel (K1-K9, K13, K14) against its plain
-version, on the same bf16 inputs (int4 rows with bf16 or float32 scales
+"""On the card: each CUDA kernel (K1-K11, K13, K14; K7 and K11 also in
+their int8-attention mode) against its plain version, on the same bf16 inputs (int4 rows with bf16 or float32 scales
 for K5-K7, int4 weights with bf16 scales for K8), the plain version
 computed in float32.
 
@@ -10,7 +10,14 @@ size: elementwise |got - want| <= rtol |want| + 0.02 RMS(want), with rtol
 2^-7 on attention outputs (bf16 probabilities in the p.v product, bf16
 output; K5-K7 also round their dequantized values to bf16, K8 its
 output) and 2^-4 on scores (bf16-rounded logits), and RMS(got - want) <=
-2^-7 RMS(want). K13/K14's int8 rows are held equal except for one step
+2^-7 RMS(want). In the int8-attention mode the plain version repeats the
+kernel's s8 arithmetic at its 64-row p tile and the integer sums are
+exact, but a quantized p lying at a .5 boundary may round one step the
+other way in the kernel's float32: the same gate holds it after
+discounting the slack such flips could cause (``parity``'s ``slack``,
+from the plain version's ``with_slack``), and a reference with one tile
+dropped must fail.
+K13/K14's int8 rows are held equal except for one step
 on at most 1e-3 of the elements, their scales to 1e-5 relative
 (``ops.quant_parity``: the kernels' sums and rsqrtf/expf/tanhf differ from
 PyTorch's in the last bits, which moves a value on a rounding boundary
@@ -40,10 +47,11 @@ def _rn(gen, *shape):
     return torch.randn(*shape, generator=gen).to("cuda", torch.bfloat16)
 
 
-def _ok(got, want, rtol=OUT_RTOL):
-    r = parity(got, want, rtol)
+def _ok(got, want, rtol=OUT_RTOL, slack=None):
+    r = parity(got, want, rtol, slack)
     assert r["ok"], r
     return True
+
 
 
 @pytest.mark.parametrize("H,Hkv", [(4, 2), (28, 4)])
@@ -299,4 +307,127 @@ def test_new_wrappers_reject_wrong_dtypes_and_shapes(gen):
         windowed_attend.windowed_attend(q, keys, keys, 30, sink=8, s_ctx=48, scale=D ** -0.5)
     with pytest.raises(ValueError, match="bad shapes"):
         windowed_attend.windowed_attend(q, keys, keys, 0, sink=8, s_ctx=64, scale=D ** -0.5)
+    assert sum(LAUNCHES.values()) == 0
+
+
+def _flat_rows(gen, L, n_seq, Hkv, R_seg):
+    """row_head of a flat stack: per layer and sequence each kv head's rows
+    head-major from the segment's start (global ids), then padding."""
+    rh = torch.full((L, n_seq * R_seg), -1, dtype=torch.int32)
+    for l in range(L):
+        for sb in range(n_seq):
+            counts = torch.randint(64, R_seg // Hkv, (Hkv,), generator=gen)
+            ids = torch.repeat_interleave(torch.arange(Hkv, dtype=torch.int32) + sb * Hkv,
+                                          counts)
+            rh[l, sb * R_seg:sb * R_seg + len(ids)] = ids
+    return rh.cuda()
+
+
+@pytest.mark.parametrize("H,Hkv", [(4, 2), (28, 4)])
+@pytest.mark.parametrize("n_seq,T", [(1, 1), (1, 24), (2, 4)])
+@pytest.mark.parametrize("kind", ["bf16", "int4", "int4_q8"])
+def test_flat_decode_kernels(gen, H, Hkv, n_seq, T, kind):
+    """K10 (bf16), K11 and K11-q8 on a stacked flat cache, every layer, a
+    per-head tail length for merged batches; one 64-row tile dropped from
+    the reference must fail."""
+    from kvzip_tpu_torch.ops import flat_decode
+
+    L, R_seg, Tcap = 2, 1024, 64
+    rh = _flat_rows(gen, L, n_seq, Hkv, R_seg)
+    q = _rn(gen, T, n_seq * H, D)
+    kt, vt = _rn(gen, n_seq * Hkv, Tcap, D), _rn(gen, n_seq * Hkv, Tcap, D)
+    tl = (torch.randint(0, Tcap - T, (n_seq * Hkv,), generator=gen, dtype=torch.int32).cuda()
+          if n_seq > 1 else 7)
+    kw = dict(scale=D ** -0.5, n_seq=n_seq)
+    if kind == "bf16":
+        k, v = _rn(gen, L, n_seq * R_seg, D), _rn(gen, L, n_seq * R_seg, D)
+        run = lambda r, layer: flat_decode.flat_decode_attend(q, k, v, r, kt, vt, tl,
+                                                              layer=layer, **kw)
+        ref = lambda r, layer: (flat_decode.flat_decode_attend_plain(
+            q.float(), k.float(), v.float(), r, kt.float(), vt.float(), tl, layer=layer,
+            **kw), None)
+        name = "flat_decode_attend"
+    else:
+        q8 = kind == "int4_q8"
+        kq, ks, kz = _quant(gen, L, n_seq * R_seg)
+        vq, vs, vz = _quant(gen, L, n_seq * R_seg)
+        flat = (kq, ks.float(), kz.float(), vq, vs.float(), vz.float())
+        run = lambda r, layer: flat_decode.flat_decode_attend_int4(
+            q, *flat, r, kt, vt, tl, q8=q8, layer=layer, **kw)
+
+        def ref(r, layer):
+            out = flat_decode.flat_decode_attend_int4_plain(
+                q.float(), *flat, r, kt.float(), vt.float(), tl, q8=q8, layer=layer,
+                with_slack=q8, **kw)
+            return out if q8 else (out, None)
+        name = "flat_decode_attend_int4_q8" if q8 else "flat_decode_attend_int4"
+    for layer in range(L):
+        got = run(rh, layer)
+        want, slack = ref(rh, layer)
+        assert _ok(got, want, slack=slack)
+    rh_drop = rh.clone()
+    rh_drop[L - 1, :64] = -1
+    drop, slack = ref(rh_drop, L - 1)
+    assert not parity(got, drop, OUT_RTOL, slack)["ok"]
+    assert LAUNCHES[name] == L and sum(LAUNCHES.values()) == L
+
+
+@pytest.mark.parametrize("H,Hkv", [(4, 2), (28, 4)])
+@pytest.mark.parametrize("T", [1, 4, 16])
+def test_pool_decode_int4_q8_kernel(gen, H, Hkv, T):
+    L, Tcap, tail_len = 3, 64, 7
+    rows, off, P = [300, 0, 129], [0, 384, 512], 768
+    rh = torch.full((P,), -1, dtype=torch.int32)
+    for o, r in zip(off, rows):
+        rh[o:o + r] = torch.randint(0, Hkv, (r,), generator=gen,
+                                    dtype=torch.int32).sort().values
+    kq, ks, kz = _quant(gen, P)
+    vq, vs, vz = _quant(gen, P)
+    pool = (kq, ks.float(), kz.float(), vq, vs.float(), vz.float())
+    q, kt, vt = _rn(gen, T, H, D), _rn(gen, L, Hkv, Tcap, D), _rn(gen, L, Hkv, Tcap, D)
+    geo = (torch.tensor(off, dtype=torch.int32, device="cuda"),
+           torch.tensor(rows, dtype=torch.int32, device="cuda"))
+    for layer in range(L):
+        got = pool_decode.pool_decode_attend_int4(
+            q, *pool, rh.cuda(), *geo, kt, vt, tail_len, layer, scale=D ** -0.5, max_rows=384,
+            q8=True)
+        want, slack = pool_decode.pool_decode_attend_int4_plain(
+            q.float(), *pool, rh.cuda(), *geo, kt.float(), vt.float(), tail_len, layer,
+            scale=D ** -0.5, q8=True, with_slack=True)
+        assert _ok(got, want, slack=slack)
+    rh_drop = rh.clone()
+    rh_drop[:64] = -1
+    drop, slack = pool_decode.pool_decode_attend_int4_plain(
+        q.float(), *pool, rh_drop.cuda(), *geo, kt.float(), vt.float(), tail_len, 0,
+        scale=D ** -0.5, q8=True, with_slack=True)
+    got0 = pool_decode.pool_decode_attend_int4(
+        q, *pool, rh.cuda(), *geo, kt, vt, tail_len, 0, scale=D ** -0.5, max_rows=384, q8=True)
+    assert not parity(got0, drop, OUT_RTOL, slack)["ok"]
+    assert LAUNCHES["pool_decode_attend_int4_q8"] == L + 1
+    assert LAUNCHES["pool_decode_attend_int4"] == 0
+
+
+def test_flat_wrappers_reject_wrong_dtypes_and_shapes(gen):
+    """K10 and K11 check their operands before any launch."""
+    from kvzip_tpu_torch.ops import flat_decode
+
+    q = _rn(gen, 1, 4, D)
+    k = _rn(gen, 2, 128, D)
+    rh = torch.zeros((2, 128), dtype=torch.int32, device="cuda")
+    kt = _rn(gen, 2, 16, D)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flat_decode.flat_decode_attend(q, k.float(), k, rh, kt, kt, 0, scale=1.0, layer=0)
+    with pytest.raises(ValueError, match="bad shapes"):
+        flat_decode.flat_decode_attend(q, k, k, rh[:, :64].contiguous(), kt, kt, 0, scale=1.0,
+                                       layer=0)
+    with pytest.raises(ValueError, match="tail_len"):
+        flat_decode.flat_decode_attend(q, k, k, rh, kt, kt, 16, scale=1.0, layer=0)
+    kq, ks, kz = _quant(gen, 2, 128)
+    with pytest.raises(TypeError, match="float32"):
+        flat_decode.flat_decode_attend_int4(q, kq, ks, kz, kq, ks, kz, rh, kt, kt, 0,
+                                            scale=1.0, layer=0)
+    with pytest.raises(ValueError, match="tail_len"):
+        flat_decode.flat_decode_attend_int4(
+            q, kq, ks.float(), kz.float(), kq, ks.float(), kz.float(), rh, kt, kt,
+            torch.zeros((3,), dtype=torch.int32, device="cuda"), scale=1.0, layer=0)
     assert sum(LAUNCHES.values()) == 0

@@ -25,6 +25,8 @@ from kvzip_tpu_torch.models import rope
 from kvzip_tpu_torch.models.params import init_params, params_from_jax
 from kvzip_tpu_torch.models.transformer import forward, rms_norm
 
+from test_torch_engine import one_torch_thread  # noqa: F401
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

@@ -17,6 +17,8 @@ from kvzip_tpu.ops import ragged_decode as jragged
 from kvzip_tpu.ops import score_kernel as jscore
 from kvzip_tpu_torch.ops import flash, pool_decode, ragged_decode, score_kernel
 
+from test_torch_engine import one_torch_thread  # noqa: F401
+
 D = 128
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -9,6 +9,8 @@ import torch
 from kvzip_tpu import prune as jprune
 from kvzip_tpu_torch import prune
 
+from test_torch_engine import one_torch_thread  # noqa: F401
+
 
 def _scores(kind: str) -> np.ndarray:
     rng = np.random.default_rng(3)

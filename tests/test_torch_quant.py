@@ -19,6 +19,8 @@ from kvzip_tpu.ops import w4a8 as jw4a8
 from kvzip_tpu.ops import w4a8_v2 as jw4a8_v2
 from kvzip_tpu_torch.ops import LAUNCHES, quant, w4a8, w4a8_v2
 
+from test_torch_engine import one_torch_thread  # noqa: F401
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

@@ -31,6 +31,8 @@ from kvzip_tpu_torch import config as tconfig
 from kvzip_tpu_torch.models.params import init_params_w8a8, params_from_jax, prepare_params
 from kvzip_tpu_torch.ops import fused_act, quant, quant_parity
 
+from test_torch_engine import one_torch_thread  # noqa: F401
+
 
 def _rng(seed=0):
     return np.random.default_rng(seed)

@@ -31,7 +31,7 @@ from kvzip_tpu_torch.engine import Engine
 from kvzip_tpu_torch.models.params import params_from_jax
 from kvzip_tpu_torch.ops import attention, windowed_attend
 
-from test_torch_engine import IdTokenizer
+from test_torch_engine import IdTokenizer, one_torch_thread  # noqa: F401
 
 CTX_SHORT = "The survey ship Halcyon logged anomaly 4417 near the trench. " * 6
 CTX_LONG = "Sector logs mention the frigate Peregrine and beacon 7731. " * 14
