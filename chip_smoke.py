@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 1. Card: prints ``nvidia-smi``'s name and power limit; fails without CUDA.
-2. Build: builds the CUDA kernels K1-K11, K13 and K14 from
-   ``kvzip_tpu_torch/csrc``.
+2. Build: builds the CUDA kernels K1-K14 from ``kvzip_tpu_torch/csrc``
+   (twelve sources, one ``nvcc`` each, all started together).
 3. Kernel parity: each kernel against its plain PyTorch version (computed
    in float32 from the same inputs) at every shape its main path gives
    it, through ``kvzip_tpu_torch.ops.parity`` (tolerances relative to the
@@ -21,7 +21,11 @@
    arithmetic, discounting the quantized-p steps that float32 rounding may
    flip (the plain version's ``with_slack``).
    K10/K11 at T = 1 and 24, one and two merged sequences, on an evicted
-   and on the full flat stack (``kernel_parity_flat``).
+   and on the full flat stack (``kernel_parity_flat``). K3, K7 and K7-q8
+   also with one tail length per kv head (one of them 0). K12, the fused
+   W4A8 decode layer, at qwen2.5-7b's shapes, T 1/4/8 at layers 0/14/27,
+   beside the device time of the composed chain it replaces
+   (``kernel_parity_fused``).
 4. bf16 main path at the full width of qwen2.5-7b (28 layers, random bf16
    weights from a seed) and a 16384-token context, through the engine's
    entry points: prefill, scoring, a greedy answer on the dense cache,
@@ -48,7 +52,12 @@
    own counted phase that must not run the other modes' or layout's
    kernels, with the q8 answers' agreement with the exact ones; then K11
    against K7 and both q8 kernels against their plain versions on the
-   real rows, with the relative RMS of q8 against exact attention.
+   real rows, with the relative RMS of q8 against exact attention. Then
+   ``fuse_layer="on"`` on the same int4 pool state (``fused_path``, its
+   own counted phase): K12 must run once a layer of every decode forward
+   and no flat or q8 kernel; ms/token fused and composed, evicted and
+   full, from the same run; the fused answers against the composed ones
+   and their logits held to the composed path's own schedule noise.
 6. W8A8-KV4 path (QServe's W8A8-KV4 geometry, the upstream KVzip's own
    quantized model) at the full width of llama3.1-8b (32 layers, G = 4,
    random weights from a seed), after the qwen2.5-7b engines are freed:
@@ -396,6 +405,18 @@ def kernel_parity(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int)
             plain_ms=time_ms(lambda: pool_decode.pool_decode_attend_plain(
                 q, kp, vp, *meta, kt, vt, tail_len, 0, scale=scale), 5, 1),
             bound_ms=b[0], bound_by=b[1], library_ms=None))
+    # one tail length per kv head (the merged pool of serving), one of them 0
+    tails = torch.tensor([0] + [tail_len + 13 * h for h in range(1, Hkv)], dtype=torch.int32,
+                         device=dev)
+    for T in (1, 4):
+        q = rn(T, H, D)
+        for l in (0, L - 1):
+            got = pool_decode.pool_decode_attend(q, kp, vp, *meta, kt, vt, tails, l,
+                                                 scale=scale, max_rows=max_rows)
+            want = pool_decode.pool_decode_attend_plain(
+                q.float(), *pool_f, *meta, *tail_f, tails, l, scale=scale)
+            hold("pool_decode_attend", f"q ({T},{H},{D}) layer {l} tails {tails.tolist()}",
+                 got, want, OUT_RTOL)
     del kp, vp, kt, vt, pool_f, tail_f
 
     return verify_parity(out, checks)
@@ -593,6 +614,23 @@ def kernel_parity_int4(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap:
                 q, *pool, *meta, kt, vt, tail_len, 0, scale=scale, q8=True), 5, 1),
             bound_ms=b[0], bound_by=b[1], library_ms=None))
     log(phase="k7_q8_vs_exact", rel_rms=q8_cost)
+    # K7 and K7-q8 with one tail length per kv head (the merged pool of
+    # serving), one of them 0
+    tails = torch.tensor([0] + [tail_len + 13 * h for h in range(1, Hkv)], dtype=torch.int32,
+                         device=dev)
+    for T in (1, 4):
+        q = rn(T, H, D)
+        for l in (0, L - 1):
+            for q8, name in ((False, "pool_decode_attend_int4"),
+                             (True, "pool_decode_attend_int4_q8")):
+                got = pool_decode.pool_decode_attend_int4(q, *pool, *meta, kt, vt, tails, l,
+                                                          scale=scale, max_rows=max_rows,
+                                                          q8=q8)
+                want = pool_decode.pool_decode_attend_int4_plain(
+                    q.float(), *pool, *meta, kt.float(), vt.float(), tails, l, scale=scale,
+                    q8=q8, **(dict(with_slack=True) if q8 else {}))
+                hold(name, f"q ({T},{H},{D}) layer {l} tails {tails.tolist()}", got, want,
+                     OUT_RTOL)
     del pool, kq, vq, kt, vt
 
     # K8: the four W4A8 linears of qwen2.5-7b as 28-layer v2 stacks with
@@ -639,6 +677,125 @@ def kernel_parity_int4(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap:
         **{k: sum(t[k] for t in step) for k in ("ms", "host_ms", "plain_ms", "bound_ms")},
         bound_by="bytes" if all(t["bound_by"] == "bytes" for t in step) else "operations",
         library_ms=None, per_shape={f"{n} T {t}": v for (n, t), v in timed.items()}))
+    return verify_parity(out, checks)
+
+
+def fused_stacks(cfg, gen):
+    """qwen2.5-7b's four W4A8 linears as 28-layer v2 stacks: random bytes
+    and per-(group, column) scales with zeros centring each group's nibbles
+    (weights of standard deviation ~0.02, as a trained layer's), stored
+    pre-folded as the v2 layout keeps them."""
+    import torch
+
+    L, H, Hkv, Dh = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    D, I = cfg.hidden_size, cfg.intermediate_size
+    dev = "cuda"
+    stacks = []
+    for IN, OUT in ((H * Dh, D), (D, 2 * I), (I, D), (D, (H + 2 * Hkv) * Dh)):
+        half, Gp8 = OUT // 2, -(-IN // 128 // 8) * 8
+        s = 0.0043 * (0.75 + 0.5 * torch.rand(L, 2, Gp8, half, device=dev, generator=gen))
+        z = -7.5 * s
+        s[:, 0] /= 16.0                 # the high half pre-folded: s_hi / 16,
+        z[:, 0] += 8.0 * 16.0 * s[:, 0]  # z_hi + 8 s_hi
+        stacks.append(dict(
+            q4=torch.randint(0, 256, (L, IN, half), dtype=torch.uint8, device=dev,
+                             generator=gen),
+            s2=s.to(torch.bfloat16), z2=z.to(torch.bfloat16)))
+    return stacks
+
+
+def kernel_parity_fused(cfg):
+    """K12 (the fused W4A8 decode layer) against its plain version at
+    qwen2.5-7b's shapes (D 3584, I 18944, H*Dh 3584, qkv 4608, 28 layers),
+    T 1, 4 and 8 at layers 0, 14 and 27, with the next layer's qkv weights
+    as the forward passes them, through ``ops.parity`` on both outputs; the
+    gate must reject a reference whose qkv weights lack one input group and
+    one whose o-proj lacks a 128-column block. Times at T 1, cycling over
+    the 28 layers: K12, its plain version, and the composed chain it
+    replaces (four K8 calls, two RMSNorms, SiLU*up and the residual adds),
+    each as device time (``graph_ms``; the capture takes K12's cooperative
+    launch), and both at T 4 and 8."""
+    import torch
+    import torch.nn.functional as F
+
+    from kvzip_tpu_torch.models.transformer import rms_norm
+    from kvzip_tpu_torch.ops import OUT_RTOL, w4a8_fused
+    from kvzip_tpu_torch.ops.w4a8 import w4a8_linear_stacked
+
+    L, D, I = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
+    HD = cfg.num_heads * cfg.head_dim
+    eps = cfg.rms_norm_eps
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    ws = fused_stacks(cfg, gen)
+    w_o, w_gu, w_dn, w_qkv = ws
+
+    def rn(*shape, std=1.0):
+        return (std * torch.randn(*shape, generator=gen, device=dev)).to(torch.bfloat16)
+
+    lnm, lna = 1 + rn(L, D, std=0.1), 1 + rn(L, D, std=0.1)
+    checks, out = {}, []
+    cycle = iter(range(10 ** 9))
+
+    def fused(x, attn, l):
+        return w4a8_fused.w4a8_layer_fused(x, attn, lnm, lna, *ws, l, eps=eps,
+                                           qkv_layer=min(l + 1, L - 1))
+
+    def plain(x, attn, l, weights=ws):
+        return w4a8_fused.w4a8_layer_fused_plain(x, attn, lnm, lna, *weights, l, eps=eps,
+                                                 qkv_layer=min(l + 1, L - 1))
+
+    for T in (1, 4, 8):
+        x, attn = rn(T, D, std=0.5), rn(T, HD, std=0.3)
+        for l in (0, L // 2, L - 1):
+            got, want = fused(x, attn, l), plain(x, attn, l)
+            drops = (None, None)
+            if T == 1 and l == 0:
+                qkv_d, o_d = ({k: v.clone() for k, v in w.items()} for w in (w_qkv, w_o))
+                for k in ("s2", "z2"):
+                    qkv_d[k][1, :, D // 256] = 0  # the middle input group of layer 1's qkv
+                    o_d[k][0, 0, :, :128] = 0    # o-proj output columns 0..127
+                drops = (plain(x, attn, l, (o_d, w_gu, w_dn, w_qkv))[0],
+                         plain(x, attn, l, (w_o, w_gu, w_dn, qkv_d))[1])
+            for g, w, d, what in zip(got, want, drops, ("x_new", "qkv")):
+                if not torch.isfinite(g.float()).all():
+                    raise AssertionError(f"w4a8_layer_fused: non-finite {what}")
+                hold_parity(checks, "w4a8_layer_fused", f"{what} T {T} layer {l}", g, w,
+                            OUT_RTOL, d)
+    def composed(x, attn, l):
+        o = w4a8_linear_stacked(attn, w_o, l)
+        x1 = x + o
+        gate, up = w4a8_linear_stacked(rms_norm(x1, lnm[l], eps), w_gu, l).chunk(2, dim=-1)
+        x2 = x1 + w4a8_linear_stacked(F.silu(gate) * up, w_dn, l)
+        nxt = min(l + 1, L - 1)
+        return x2, w4a8_linear_stacked(rms_norm(x2, lna[nxt], eps), w_qkv, nxt)
+
+    per_shape = {}
+    for T in (8, 4, 1):  # T 1 last: its x and attn stay for the kernels line
+        x, attn = rn(T, D, std=0.5), rn(T, HD, std=0.3)
+        per_shape[f"T {T}"] = dict(
+            ms=graph_ms(lambda: fused(x, attn, next(cycle) % L), 56),
+            composed_ms=graph_ms(lambda: composed(x, attn, next(cycle) % L), 56))
+
+    t = kernel_ms(lambda: fused(x, attn, next(cycle) % L), 56)
+    chain = kernel_ms(lambda: composed(x, attn, next(cycle) % L), 56)
+    # bytes the layer must move: its four weight slices and their scales,
+    # x, attn and the two norm rows read, x_new and qkv written
+    nbytes = sum(w["q4"][0].numel() + 2 * 2 * w["s2"][0].numel() for w in ws) \
+        + 2 * (D + HD + 2 * D + D + w_qkv["q4"].shape[2] * 2)
+    ops = 2 * sum(w["q4"].shape[1] * w["q4"].shape[2] * 2 for w in ws)
+    b = bound(ops, nbytes, PEAK_INT8_OPS)
+    out.append(dict(
+        name="w4a8_layer_fused", route="cuda", source="kvzip_tpu_torch/csrc/w4a8_fused.cu",
+        replaces="kvzip_tpu/ops/w4a8_fused.py:330", **t,
+        plain_ms=time_ms(lambda: plain(x, attn, 0), 3, 1),
+        bound_ms=b[0], bound_by=b[1], library_ms=None,
+        composed_ms=chain["ms"], composed_host_ms=chain["host_ms"], weight_bytes=nbytes,
+        per_shape=per_shape))
+    log(phase="k12_times", **{k: out[-1][k] for k in (
+        "ms", "host_ms", "plain_ms", "bound_ms", "composed_ms", "composed_host_ms",
+        "weight_bytes", "per_shape")})
+    del ws, w_o, w_gu, w_dn, w_qkv
     return verify_parity(out, checks)
 
 
@@ -919,14 +1076,16 @@ def teacher_forced(eng, state, seq, step: bool):
 
 
 def allkept_check(eng, dense, full, query, dense_ans, full_eng=None,
-                  phase="allkept_check"):
+                  phase="allkept_check", full_step=False):
     """An all-rows-kept pool holds the same KV as the dense cache, so its
     answer must be the dense answer. Both run in bf16 through different
     kernels (K3 against K1/K4), so logits agree only to bf16 rounding; the
     noise floor is measured as the difference between two equivalent
     schedules on the dense cache (chunked against token by token). The
     same hold compares any two caches of the same rows: ``full`` decoded by
-    ``full_eng`` (the flat layout against the pool).
+    ``full_eng`` (the flat layout against the pool); with ``full_step`` the
+    other side runs token by token and is compared with the token-by-token
+    dense logits (a route that only runs at decode shapes).
 
     Holds: (1) teacher-forced logits of the pool agree with the dense ones
     within twice that floor; (2) their argmax agrees wherever the dense
@@ -939,15 +1098,16 @@ def allkept_check(eng, dense, full, query, dense_ans, full_eng=None,
     seq = np.concatenate([query, dense_ans])
     l_dense = teacher_forced(eng, dense, seq, step=False)
     l_steps = teacher_forced(eng, dense, seq, step=True)
-    l_full = teacher_forced(full_eng, full, seq, step=False)
+    l_full = teacher_forced(full_eng, full, seq, step=full_step)
     for a in (l_dense, l_steps, l_full):
         if not np.isfinite(a).all():
             raise AssertionError("non-finite logits")
     floor = float(np.abs(l_dense - l_steps).max())
-    diff = float(np.abs(l_dense - l_full).max())
-    top2 = np.sort(l_dense, axis=-1)[:, -2:]
+    l_ref = l_steps if full_step else l_dense
+    diff = float(np.abs(l_ref - l_full).max())
+    top2 = np.sort(l_ref, axis=-1)[:, -2:]
     gap = top2[:, 1] - top2[:, 0]
-    agree = l_dense.argmax(-1) == l_full.argmax(-1)
+    agree = l_ref.argmax(-1) == l_full.argmax(-1)
     # answer token i is predicted at position len(query) - 1 + i
     ans_gap = gap[len(query) - 1:len(query) - 1 + len(dense_ans)]
     near = np.nonzero(ans_gap <= diff)[0]
@@ -1104,7 +1264,7 @@ def main_path(eng, ctx_ids, queries, quant: bool = False, keep: dict = None):
     rep["evicted_ms_per_token"], answers = decode_ms_per_token(eng, st, queries)
     if st.cache.tail_len != 0:
         raise AssertionError("the O(1) restore left rows in the tail")
-    base = eng.synthetic_full_pool_state(st, eng.decode_budget, int4=quant)
+    base = eng.synthetic_full_pool_state(st, quant, eng.decode_budget)
     rep["full_ms_per_token"], _ = decode_ms_per_token(eng, base, queries)
     rep["kv_bytes_allocated"] = pool_bytes(st.cache)
     rep["full_kv_bytes_allocated"] = pool_bytes(base.cache)
@@ -1168,6 +1328,46 @@ def q8_path(qeng, state, queries, exact_answers, full_state):
         first.append(int(np.argmin(eq)) if not eq.all() else None)
     rep.update(answer_tokens=[a.tolist() for a in answers], token_agreement=same,
                first_mismatch=first)
+    return rep
+
+
+def fused_path(feng, eng, state, queries, composed_answers, full_state):
+    """Decode with ``fuse_layer="on"`` (K12) on the quantized pool state:
+    ms/token over it and over the full int4 pool, beside the composed
+    route's (``eng``) on the same states in the same run (its launches not
+    counted); K12's launches in one single-token decode forward (one a
+    layer); the fused answers' agreement with the composed ones, and
+    teacher-forced logits held to the composed path's own schedule noise
+    (``allkept_check``)."""
+    import numpy as np
+
+    from kvzip_tpu_torch.ops import LAUNCHES
+
+    rep = {}
+    full = full_state()
+    saved = dict(LAUNCHES)
+    rep["composed_evicted_ms_per_token"], _ = decode_ms_per_token(eng, state, queries)
+    rep["composed_full_ms_per_token"], _ = decode_ms_per_token(eng, full, queries)
+    LAUNCHES.update(saved)
+    rep["evicted_ms_per_token"], answers = decode_ms_per_token(feng, state, queries)
+    rep["full_ms_per_token"], _ = decode_ms_per_token(feng, full, queries)
+    before = LAUNCHES["w4a8_layer_fused"]
+    feng.forward_ids(queries[0][:1], state)
+    rep["fused_launches_per_forward"] = LAUNCHES["w4a8_layer_fused"] - before
+    if rep["fused_launches_per_forward"] != feng.config.num_layers:
+        raise AssertionError(f"fused layer ran {rep['fused_launches_per_forward']} times in "
+                             f"one {feng.config.num_layers}-layer decode forward")
+    same, first = [], []
+    for a, b in zip(answers, composed_answers):
+        n = min(len(a), len(b))
+        eq = a[:n] == b[:n]
+        same.append(float(eq.mean()) if n else 1.0)
+        first.append(int(np.argmin(eq)) if not eq.all() else None)
+    rep.update(answer_tokens=[a.tolist() for a in answers], token_agreement=same,
+               first_mismatch=first)
+    rep["logits"] = allkept_check(eng, state, state, queries[0], composed_answers[0],
+                                  full_eng=feng, phase="fused_vs_composed_logits",
+                                  full_step=True)
     return rep
 
 
@@ -1359,11 +1559,12 @@ def main() -> int:
     kernels = kernel_parity(cfg, CTX, sink, capacity, eng.decode_budget)
     kernels_q = kernel_parity_int4(cfg, CTX, sink, capacity, eng.decode_budget)
     kernels_f = kernel_parity_flat(cfg, CTX, sink, eng.decode_budget)
+    kernels_k12 = kernel_parity_fused(cfg)
     log(phase="kernel_parity", seconds=time.perf_counter() - t0,
         timing_details=[{k: v for k, v in r.items()
                          if k in ("name", "ms", "host_ms", "library_ms", "decode_ms",
                                   "decode_bound_ms", "padded_bound_ms", "per_shape")}
-                        for r in kernels + kernels_q + kernels_f])
+                        for r in kernels + kernels_q + kernels_f + kernels_k12])
 
     def counted(tag, engine, kernel_names, path, *args, absent=(), **kw):
         """One path between a counter reset and a read; every kernel of the
@@ -1437,18 +1638,27 @@ def main() -> int:
     launches.update(counted(
         "pool_path_quant_q8", qpeng, ("pool_decode_attend_int4_q8",), q8_path, pool_st,
         queries, keep["answers"],
-        lambda: qpeng.synthetic_full_pool_state(pool_st, qpeng.decode_budget, int4=True),
+        lambda: qpeng.synthetic_full_pool_state(pool_st, True, qpeng.decode_budget),
         absent=("pool_decode_attend_int4", *flat_kernels)))
+    # the fused W4A8 decode layer (K12) on the same pool state
+    fpeng = variant(eng, fuse_layer="on")
+    fused_launches = counted(
+        "fused_layer_quant", fpeng,
+        ("w4a8_layer_fused", "w4a8_matmul_stacked_v2", "pool_decode_attend_int4"), fused_path,
+        eng, pool_st, queries, keep["answers"],
+        lambda: eng.synthetic_full_pool_state(pool_st, True, eng.decode_budget),
+        absent=("pool_decode_attend_int4_q8", *flat_kernels))
+    launches["w4a8_layer_fused"] = fused_launches["w4a8_layer_fused"]
     q8_logits(feng, qfeng, flat_st, queries, keep["flat_answers"], "q8_logits_flat")
     q8_logits(eng, qpeng, pool_st, queries, keep["answers"], "q8_logits_pool")
     cross_layout_attention(pool_st.cache, flat_st.cache, cfg.num_heads, int4=True)
     allkept_check(eng, pool_st, flat_st, queries[0], keep["answers"][0], full_eng=feng,
                   phase="cross_layout_logits_quant")
-    for r in kernels_q + kernels_f:
+    for r in kernels_q + kernels_f + kernels_k12:
         if r["name"] in launches:
             r["launches"] = launches[r["name"]]
-    kernels += kernels_q
-    del eng, feng, qfeng, qpeng, keep, pool_st, flat_st
+    kernels += kernels_q + kernels_k12
+    del eng, feng, qfeng, qpeng, fpeng, keep, pool_st, flat_st
     gc.collect()
     torch.cuda.empty_cache()
 

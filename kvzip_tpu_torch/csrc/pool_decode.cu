@@ -5,7 +5,8 @@
 // (_pool_bf16_kernel). The layer's kept rows sit at pool rows
 // [layer_off[l], layer_off[l] + layer_rows[l]); a row is visible to the
 // queries of kv head h iff row_head == h (-1 marks padding). Tail row j of
-// head h is visible to query i iff j < tail_len + i + 1.
+// head h is visible to query i iff j < tail_len[h] + i + 1 (one length for
+// every head, or one per kv head, as the merged pool of serving passes).
 //
 // Bound on the H100: device-memory bytes (the layer's kept rows and tail).
 // Design: flash-decoding, as in K4. The segment is cut into splits of CH
@@ -27,7 +28,8 @@ __global__ void pool_partial_kernel(const bf16* __restrict__ q, const bf16* __re
                                     const int* __restrict__ layer_off,
                                     const int* __restrict__ layer_rows,
                                     const bf16* __restrict__ k_tail,
-                                    const bf16* __restrict__ v_tail, float* part_acc,
+                                    const bf16* __restrict__ v_tail,
+                                    const int* __restrict__ tail_lens, float* part_acc,
                                     float* part_ml, int T, int H, int Hkv, int G, int Tcap,
                                     int layer, int tail_len, int CH, int S_pool, float scale) {
   __shared__ __align__(16) bf16 Ks[BK * SROW];
@@ -41,6 +43,7 @@ __global__ void pool_partial_kernel(const bf16* __restrict__ q, const bf16* __re
   const bool active = blockIdx.z * 64 + warp * 16 < R;
   const int qi_lo = r_lo % T, qi_hi = r_hi % T;
   const bool is_tail = split == S_pool;
+  const int tl = tail_lens ? tail_lens[hk] : tail_len;
 
   uint32_t qa[KK_D][4];
   load_q(qa, r_lo < R ? q + (static_cast<size_t>(qi_lo) * H + hk * G + r_lo / T) * D : nullptr,
@@ -54,7 +57,7 @@ __global__ void pool_partial_kernel(const bf16* __restrict__ q, const bf16* __re
     kh = k_tail + off;
     vh = v_tail + off;
     k0 = 0;
-    k1 = min(tail_len + T, Tcap);
+    k1 = min(tl + T, Tcap);
   } else {
     int off = layer_off[layer];
     kh = k_pool + static_cast<size_t>(off) * D;
@@ -94,7 +97,7 @@ __global__ void pool_partial_kernel(const bf16* __restrict__ q, const bf16* __re
         int cl = nt * 8 + tig * 2 + (j & 1);
         bool ok;
         if (is_tail)
-          ok = c0 + cl < tail_len + ((j >> 1) ? qi_hi : qi_lo) + 1 && cl < n;
+          ok = c0 + cl < tl + ((j >> 1) ? qi_hi : qi_lo) + 1 && cl < n;
         else
           ok = rh[cl] == hk;
         s[nt][j] = ok ? s[nt][j] * scale : -INFINITY;
@@ -107,13 +110,15 @@ __global__ void pool_partial_kernel(const bf16* __restrict__ q, const bf16* __re
 
 // q (T, H, D) bf16; k_pool/v_pool (P, D) bf16; row_head (P,) int32;
 // layer_off/layer_rows (L,) int32; k_tail/v_tail (L, Hkv, Tcap, D) bf16;
-// out (T, H, D); part_acc (Hkv, S_pool + 1, G*T, D) and part_ml
-// (Hkv, S_pool + 1, G*T, 2) f32 scratch.
+// tail_lens (Hkv,) int32 or null for the one tail_len; out (T, H, D);
+// part_acc (Hkv, S_pool + 1, G*T, D) and part_ml (Hkv, S_pool + 1, G*T, 2)
+// f32 scratch.
 extern "C" int kvz_pool_decode(const void* q, const void* k_pool, const void* v_pool,
                                const void* row_head, const void* layer_off,
                                const void* layer_rows, const void* k_tail, const void* v_tail,
-                               void* out, void* part_acc, void* part_ml, int T, int H, int Hkv,
-                               int Tcap, int layer, int tail_len, int CH, int S_pool,
+                               const void* tail_lens, void* out, void* part_acc,
+                               void* part_ml, int T, int H, int Hkv, int Tcap, int layer,
+                               int tail_len, int CH, int S_pool,
                                float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int G = H / Hkv, R = G * T;
@@ -123,8 +128,8 @@ extern "C" int kvz_pool_decode(const void* q, const void* k_pool, const void* v_
       static_cast<const bf16*>(v_pool), static_cast<const int*>(row_head),
       static_cast<const int*>(layer_off), static_cast<const int*>(layer_rows),
       static_cast<const bf16*>(k_tail), static_cast<const bf16*>(v_tail),
-      static_cast<float*>(part_acc), static_cast<float*>(part_ml), T, H, Hkv, G, Tcap, layer,
-      tail_len, CH, S_pool, scale);
+      static_cast<const int*>(tail_lens), static_cast<float*>(part_acc),
+      static_cast<float*>(part_ml), T, H, Hkv, G, Tcap, layer, tail_len, CH, S_pool, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   merge_partials_kernel<<<dim3(R, Hkv), D, 0, st>>>(static_cast<const float*>(part_acc),

@@ -6,8 +6,9 @@ Port of the ``Engine``/``KVState`` main path of ``kvzip_tpu/engine.py``
 ``kv_quant="int4"``, ``weight_quant="w8a8"`` or ``"w4a8"`` and
 ``embed_quant="int8"``, the fused W8A8 activation quantization
 ``act_fused="pallas"``, the windowed scoring ``scoring_attend="window"``,
-the legacy flat decode layout ``flat_decode="legacy"`` and the int8
-attention ``attn_quant="int8"``).
+the legacy flat decode layout ``flat_decode="legacy"``, the int8
+attention ``attn_quant="int8"`` and the fused W4A8 decode layer,
+``fuse_layer`` from ``KVZIP_MEGAKERNEL``).
 PyTorch runs eagerly: the chunk loop, the layer loop and the decode loop
 are Python loops, caches are updated in place, and the
 ``update_cache=False`` semantics are O(1) counter restores as in the
@@ -15,7 +16,7 @@ reference.
 
 Device rule: on a CUDA device every attention op, every W4A8 linear below
 512 rows and every fused activation quantization launches its kernel
-(K1-K11, K13, K14); on the CPU the same calls run the plain PyTorch
+(K1-K14); on the CPU the same calls run the plain PyTorch
 versions. Both devices build the pool (or the flat layout) at prune time,
 and both honour ``attn_quant`` (the reference ignores it on the CPU, where
 its kernels run in interpret mode).
@@ -24,6 +25,7 @@ its kernels run in interpret mode).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -174,6 +176,11 @@ class Engine:
                 "none and the template table has no entry for this family")
         self.eos_ids = tuple(eos)
         self.set_chat_template()
+        # the fused W4A8 decode layer (K12, ``ops/w4a8_fused.py``): "auto"
+        # (on the card where the shapes allow), "on" (the CPU too, through
+        # the plain version) or "off", from KVZIP_MEGAKERNEL as in the
+        # reference, default off; tests set the attribute
+        self.fuse_layer = os.environ.get("KVZIP_MEGAKERNEL", "off")
 
     # ------------------------------------------------------------------ text
     def encode(self, text: str) -> np.ndarray:
@@ -216,7 +223,8 @@ class Engine:
             want = collect if collect == "all" else (
                 "last" if pos == len(ids) and collect == "last" else "none")
             res = forward(self.params, self.config, self._ids(chunk),
-                          state.cache, collect_logits=want, sink=state.sink, attn_q8=q8)
+                          state.cache, collect_logits=want, sink=state.sink, attn_q8=q8,
+                          fuse_layer=self.fuse_layer)
             if res.logits is not None:
                 parts.append(res.logits)
         if collect == "all":
@@ -393,11 +401,13 @@ class Engine:
         st.snapshot()
         return st
 
-    def synthetic_full_pool_state(self, state: KVState, tail_cap: int,
-                                  int4: bool = False) -> KVState:
+    def synthetic_full_pool_state(self, state: KVState, int4: bool,
+                                  tail_cap: int) -> KVState:
         """A full-occupancy pool (int4 with ``int4``) with the geometry of an
         all-rows-kept build: the full-cache decode baseline, which runs
-        through the same kernel (K3 or K7) as the evicted cache."""
+        through the same kernel (K3 or K7) as the evicted cache. The
+        arguments are in the reference's order (``bench.py`` passes them
+        positionally)."""
         cfg = self.config
         cache = synthetic_full_pool(
             cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
@@ -471,7 +481,8 @@ class Engine:
         q8 = self._q8(state)
         while not done and len(tokens) < max_new:
             res = forward(self.params, self.config, self._ids(tokens[-1:]),
-                          state.cache, collect_logits="last", sink=state.sink, attn_q8=q8)
+                          state.cache, collect_logits="last", sink=state.sink, attn_q8=q8,
+                          fuse_layer=self.fuse_layer)
             tokens.append(int(torch.argmax(res.logits[-1])))
             done = tokens[-1] in self.eos_ids
         if done:

@@ -32,6 +32,11 @@ Dispatch, as in the reference:
   mode (``q8``);
 - W4A8 weights (fused ``wqkv``, ``wo``, ``w_gateup``, ``w_down``) go
   through ``w4a8_linear_stacked`` (K8 below 512 rows);
+- ``fuse_layer`` ("auto" or "on"; "on" also on the CPU, where the plain
+  version runs): a decode step of T <= 8 rows on a pool or flat cache with
+  the four v2 W4A8 stacks takes the first layer's qkv composed before the
+  loop, then one K12 (``w4a8_layer_fused``) per layer for o-proj, the MLP
+  and the next layer's norm and qkv;
 - W8A8 weights (``{"q", "s"}``): q/k/v share one activation quantization
   and gate/up another; with ``cfg.fused_act`` the RMSNorm and the
   quantization run as K13 (``rmsnorm_quant``) and act(gate) * up with the
@@ -61,6 +66,8 @@ from kvzip_tpu_torch.ops.quant import (dequantize_int4, embed_lookup, head_logit
 from kvzip_tpu_torch.ops.ragged_decode import MAX_T, ragged_decode_attend
 from kvzip_tpu_torch.ops.score_kernel import fused_scores
 from kvzip_tpu_torch.ops.w4a8 import w4a8_linear_stacked
+from kvzip_tpu_torch.ops.w4a8_fused import MAX_T as FUSED_MAX_T
+from kvzip_tpu_torch.ops.w4a8_fused import w4a8_layer_fused
 from kvzip_tpu_torch.ops.windowed_attend import windowed_attend
 from kvzip_tpu_torch.pool import PoolInt4KV, PoolKV
 
@@ -152,7 +159,8 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
             collect_logits: str = "none", scoring: bool = False,
             score_start: int = 0, score_len: int = 0, score_qlen: int = 0,
             score_width: int = 0, sink: int = 0,
-            scoring_attend: str = "full", attn_q8: bool = False) -> ForwardResult:
+            scoring_attend: str = "full", attn_q8: bool = False,
+            fuse_layer: str = "off") -> ForwardResult:
     """Run ids (T,) through the model, appending their KV to ``cache`` in
     place (``lengths``/``seen``, or ``tail_len``/``seen`` for a pool or a
     flat cache).
@@ -163,7 +171,9 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
     true number of repeat queries. ``scoring_attend``: "full" (the exact
     pass over the whole cache) or "window" (K9 over [sink | window |
     repeat] only). ``attn_q8``: int8 attention on an int4 pool or flat
-    cache (K7/K11 with ``q8``).
+    cache (K7/K11 with ``q8``). ``fuse_layer``: "off", "auto" or "on", the
+    fused W4A8 decode layer (K12) where its shapes allow ("auto" on the
+    card only).
     """
     T = ids.shape[0]
     L, H, Hkv, Dh = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -175,6 +185,8 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
         raise ValueError("scoring runs before the prune; a pool or flat cache is decode-only")
     if scoring_attend not in ("full", "window"):
         raise ValueError(f"scoring_attend: {scoring_attend!r}")
+    if fuse_layer not in ("off", "auto", "on"):
+        raise ValueError(f"fuse_layer: {fuse_layer!r}")
     window = scoring and scoring_attend == "window"
     if (is_pool or is_flat) and cache.tail_len + T > cache.k_tail.shape[2]:
         raise ValueError("pool tail overflow" if is_pool else "flat tail overflow")
@@ -188,12 +200,21 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
     w4 = {k: v for k, v in lp_all.items() if _is_w4(v)}
     scores = []
     eps = cfg.rms_norm_eps
+    # the fused layer (K12): decode shapes on a pool or flat cache with the
+    # four v2 stacks; the first layer's qkv is composed before the loop
+    fused = (fuse_layer != "off" and not scoring and (is_pool or is_flat)
+             and T <= FUSED_MAX_T and (ids.is_cuda or fuse_layer == "on")
+             and all(n in w4 and "s2" in w4[n]
+                     for n in ("wqkv", "wo", "w_gateup", "w_down")))
+    if fused:
+        qkv = w4a8_linear_stacked(rms_norm(x, lp_all["ln_attn"][0], eps), w4["wqkv"], 0)
     for l in range(L):
         lp = {k: ({kk: vv[l] for kk, vv in v.items()} if isinstance(v, dict)
                   else v[l]) for k, v in lp_all.items() if k not in w4}
         if "wqkv" in w4:
-            h = rms_norm(x, lp["ln_attn"], eps)
-            qkv = w4a8_linear_stacked(h, w4["wqkv"], l)
+            if not fused:
+                h = rms_norm(x, lp["ln_attn"], eps)
+                qkv = w4a8_linear_stacked(h, w4["wqkv"], l)
             nq, nk = H * Dh, Hkv * Dh
             q, k, v = qkv[:, :nq], qkv[:, nq:nq + nk], qkv[:, nq + nk:]
             if "bq" in lp:
@@ -281,6 +302,13 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
                 attn = flash_attend(q, k_l, v_l, base, scale=scale)
 
         attn = attn.reshape(T, H * Dh)
+        if fused:
+            # the next layer's norm and qkv (its own weights, where the
+            # reference's forward reads this layer's)
+            x, qkv = w4a8_layer_fused(x, attn, lp_all["ln_mlp"], lp_all["ln_attn"], w4["wo"],
+                                      w4["w_gateup"], w4["w_down"], w4["wqkv"], l, eps=eps,
+                                      qkv_layer=min(l + 1, L - 1))
+            continue
         if "wo" in w4:
             x = x + w4a8_linear_stacked(attn, w4["wo"], l)
         else:

@@ -18,7 +18,8 @@ LAUNCHES = {"flash_attend": 0, "fused_scores": 0, "ragged_decode_attend": 0,
             "w4a8_matmul_stacked_v2": 0, "windowed_attend": 0,
             "rmsnorm_quant": 0, "silu_mul_quant": 0,
             "pool_decode_attend_int4_q8": 0, "flat_decode_attend": 0,
-            "flat_decode_attend_int4": 0, "flat_decode_attend_int4_q8": 0}
+            "flat_decode_attend_int4": 0, "flat_decode_attend_int4_q8": 0,
+            "w4a8_layer_fused": 0}
 
 
 def reset_launches() -> None:

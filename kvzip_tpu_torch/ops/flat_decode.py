@@ -118,6 +118,29 @@ def flat_decode_attend_int4_plain(q, k_flat_q, k_flat_s, k_flat_z, v_flat_q, v_f
     return _flat_heads(q, row_head, k_tail, tail_len, n_seq, attend, with_slack)
 
 
+def tail_arg(tail_len: TailLen, n_heads: int, T: int, Tcap: int, device,
+             what: str) -> tuple:
+    """A kernel's tail length: (the ``(n_heads,)`` int32 vector or None, the
+    one int). The largest entry must leave room for the T new rows; a
+    vector's entries are read back for that check (a host sync), except
+    while a CUDA graph is being captured, where the kernels' clamp of each
+    head's rows at Tcap still keeps every read inside the tail."""
+    if isinstance(tail_len, torch.Tensor) and tail_len.dim() > 0:
+        if tail_len.shape != (n_heads,) or tail_len.dtype != torch.int32 \
+                or tail_len.device != device or not tail_len.is_contiguous():
+            raise ValueError(f"{what}: tail_len must be ({n_heads},) int32 on {device}")
+        if tail_len.is_cuda and torch.cuda.is_current_stream_capturing():
+            return tail_len, 0
+        lo, hi = torch.stack([tail_len.min(), tail_len.max()]).tolist()
+        if hi + T > Tcap or lo < 0:
+            raise ValueError(f"{what}: tail_len max {hi} + T {T} > Tcap {Tcap}")
+        return tail_len, 0
+    scalar = int(tail_len)
+    if scalar + T > Tcap:
+        raise ValueError(f"{what}: tail_len {scalar} + T {T} > Tcap {Tcap}")
+    return None, scalar
+
+
 def _launch_geometry(q, k_tail, rows_total, n_seq, layer, L, what, tail_len):
     """Shared checks and split geometry of K10/K11: (T, H_all, Hkv, Tcap,
     R_seg, CH, S_seg, tail pointer, tail scalar, layer)."""
@@ -128,17 +151,7 @@ def _launch_geometry(q, k_tail, rows_total, n_seq, layer, L, what, tail_len):
             or rows_total % n_seq or not 0 <= layer < L:
         raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} tail {tuple(k_tail.shape)} "
                          f"rows {rows_total} n_seq {n_seq} layer {layer}")
-    lens_t = None
-    scalar = 0
-    if isinstance(tail_len, torch.Tensor) and tail_len.dim() > 0:
-        if tail_len.shape != (Hkv_all,) or tail_len.dtype != torch.int32 \
-                or tail_len.device != q.device:
-            raise ValueError(f"{what}: tail_len must be ({Hkv_all},) int32 on {q.device}")
-        lens_t = tail_len.contiguous()
-    else:
-        scalar = int(tail_len)
-        if scalar + T > Tcap:
-            raise ValueError(f"{what}: tail_len {scalar} + T {T} > Tcap {Tcap}")
+    lens_t, scalar = tail_arg(tail_len, Hkv_all, T, Tcap, q.device, what)
     R_seg = rows_total // n_seq
     G = (H_all // n_seq) // (Hkv_all // n_seq)
     ch = split_size(R_seg, -(-G * T // 64), target=512)

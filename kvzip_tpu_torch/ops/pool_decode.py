@@ -6,7 +6,10 @@ pool, exact or the int8-attention ``q8`` mode, ``csrc/pool_decode_int4.cu``):
 flash-decoding over the layer's pool
 segment plus one split for the bf16 tail, then a merge. The port stores the
 pool row-major: K and V are both (P, D), or (P, D//2) packed int4 rows with
-float32 per-row scales and zeros (P,).
+float32 per-row scales and zeros (P,). ``tail_len`` is one int or one per
+kv head (an ``(Hkv,)`` int32 tensor on q's device, as the merged pool of
+serving passes it): tail row j of head h is visible to query i iff
+``j < tail_len[h] + i + 1``.
 """
 
 from __future__ import annotations
@@ -19,13 +22,26 @@ from kvzip_tpu_torch import _build
 from kvzip_tpu_torch.ops import (LAUNCHES, attention, check_kernel_args,
                                  on_cuda, stream_ptr)
 from kvzip_tpu_torch.ops.attention import Q8_TILE, attend_int4_q8
+from kvzip_tpu_torch.ops.flat_decode import TailLen, _tail_lens, tail_arg
 from kvzip_tpu_torch.ops.quant import dequantize_int4
 from kvzip_tpu_torch.ops.ragged_decode import split_size
 
-_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_float,
+_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                        ctypes.c_void_p]
-_ARGS_INT4 = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 9 + [ctypes.c_float,
+_ARGS_INT4 = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9 + [ctypes.c_float,
                                                             ctypes.c_void_p]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _tail_masks(tail_len: TailLen, T: int, G: int, Hkv: int, Tcap: int, device) -> list:
+    """Per kv head, the (G*T, Tcap) visibility of its tail rows to the
+    head's query rows (row g*T + i)."""
+    qi = torch.arange(G * T, device=device) % T
+    col = torch.arange(Tcap, device=device)
+    return [col[None] < n + qi[:, None] + 1 for n in _tail_lens(tail_len, Hkv)]
 
 
 def pool_decode_attend_plain(q, k_pool, v_pool, row_head, layer_off,
@@ -54,13 +70,13 @@ def pool_decode_attend_int4_plain(q, k_pool_q, k_pool_s, k_pool_z, v_pool_q,
         Hkv, Tcap = k_tail.shape[1], k_tail.shape[2]
         G = H // Hkv
         kq, ks, kz, vq, vs, vz = (a[off:off + n] for a in seg)
-        tail_ok = attention.causal_mask(tail_len, 0, T, Tcap, q.device).repeat(G, 1)
+        tail_ok = _tail_masks(tail_len, T, G, Hkv, Tcap, q.device)
         out = torch.empty((T, H, D), dtype=torch.float32, device=q.device)
         slack = torch.zeros((T, H, D), dtype=torch.float32, device=q.device)
         for h in range(Hkv):
             o, sl = attend_int4_q8(attention.head_rows(q, h, G), kq, ks.float(), kz.float(),
                                    vq, vs.float(), vz.float(), row_head[off:off + n] == h,
-                                   k_tail[layer, h], v_tail[layer, h], tail_ok, scale=scale,
+                                   k_tail[layer, h], v_tail[layer, h], tail_ok[h], scale=scale,
                                    block=block, with_slack=True)
             attention.put_head_rows(out, h, G, o)
             attention.put_head_rows(slack, h, G, sl)
@@ -80,13 +96,13 @@ def _pool_layer_plain(q, kp, vp, rh, k_tail, v_tail, tail_len, layer, *,
     T, H, D = q.shape
     Hkv, Tcap = k_tail.shape[1], k_tail.shape[2]
     G = H // Hkv
-    tail_ok = attention.causal_mask(tail_len, 0, T, Tcap, q.device).repeat(G, 1)
+    tail_ok = _tail_masks(tail_len, T, G, Hkv, Tcap, q.device)
     out = torch.empty((T, H, D), dtype=torch.float32, device=q.device)
     for h in range(Hkv):
         mine = rh == h
         attention.put_head_rows(out, h, G, attention.attend_rows(
             attention.head_rows(q, h, G), kp[mine], vp[mine], k_tail[layer, h],
-            v_tail[layer, h], tail_ok, scale=scale))
+            v_tail[layer, h], tail_ok[h], scale=scale))
     return out.to(q.dtype)
 
 
@@ -94,7 +110,7 @@ def pool_decode_attend(q: torch.Tensor, k_pool: torch.Tensor,
                        v_pool: torch.Tensor, row_head: torch.Tensor,
                        layer_off: torch.Tensor, layer_rows: torch.Tensor,
                        k_tail: torch.Tensor, v_tail: torch.Tensor,
-                       tail_len: int, layer: int, *, scale: float,
+                       tail_len: TailLen, layer: int, *, scale: float,
                        max_rows: int) -> torch.Tensor:
     """q (T, H, D); k_pool/v_pool (P, D); row_head (P,) int32 (-1 padding);
     layer_off/layer_rows (L,) int32; k_tail/v_tail (L, Hkv, Tcap, D) with
@@ -113,11 +129,10 @@ def pool_decode_attend(q: torch.Tensor, k_pool: torch.Tensor,
     T, H, D = q.shape
     L, Hkv, Tcap, _ = k_tail.shape
     if H % Hkv or v_pool.shape != k_pool.shape or v_tail.shape != k_tail.shape \
-            or row_head.shape != (k_pool.shape[0],) or not 0 <= layer < L \
-            or tail_len + T > Tcap:
+            or row_head.shape != (k_pool.shape[0],) or not 0 <= layer < L:
         raise ValueError(f"pool_decode_attend: bad shapes q {tuple(q.shape)} "
-                         f"pool {tuple(k_pool.shape)} tail {tuple(k_tail.shape)}"
-                         f" tail_len {tail_len}")
+                         f"pool {tuple(k_pool.shape)} tail {tuple(k_tail.shape)}")
+    lens_t, scalar = tail_arg(tail_len, Hkv, T, Tcap, q.device, "pool_decode_attend")
     R = (H // Hkv) * T
     ch = split_size(max_rows, -(-R // 64), target=512)
     s_pool = -(-max_rows // ch)
@@ -131,8 +146,8 @@ def pool_decode_attend(q: torch.Tensor, k_pool: torch.Tensor,
         _build.check(fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                         row_head.data_ptr(), layer_off.data_ptr(),
                         layer_rows.data_ptr(), k_tail.data_ptr(),
-                        v_tail.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-                        part_ml.data_ptr(), T, H, Hkv, Tcap, layer, tail_len,
+                        v_tail.data_ptr(), _ptr(lens_t), out.data_ptr(),
+                        part_acc.data_ptr(), part_ml.data_ptr(), T, H, Hkv, Tcap, layer, scalar,
                         ch, s_pool, scale, stream_ptr(q.device)),
                      "pool_decode_attend")
     LAUNCHES["pool_decode_attend"] += 1
@@ -145,7 +160,7 @@ def pool_decode_attend_int4(q: torch.Tensor, k_pool_q: torch.Tensor,
                             v_pool_z: torch.Tensor, row_head: torch.Tensor,
                             layer_off: torch.Tensor, layer_rows: torch.Tensor,
                             k_tail: torch.Tensor, v_tail: torch.Tensor,
-                            tail_len: int, layer: int, *, scale: float,
+                            tail_len: TailLen, layer: int, *, scale: float,
                             max_rows: int, q8: bool = False) -> torch.Tensor:
     """As :func:`pool_decode_attend` over an int4 pool: k_pool_q/v_pool_q
     (P, D//2) uint8 split-packed, k/v_pool_s/z (P,) float32 -> (T, H, D).
@@ -168,11 +183,10 @@ def pool_decode_attend_int4(q: torch.Tensor, k_pool_q: torch.Tensor,
     if H % Hkv or k_pool_q.shape != (P, D // 2) or v_pool_q.shape != (P, D // 2) \
             or any(a.shape != (P,) for a in (k_pool_s, k_pool_z, v_pool_s,
                                              v_pool_z, row_head)) \
-            or v_tail.shape != k_tail.shape or not 0 <= layer < L \
-            or tail_len + T > Tcap:
+            or v_tail.shape != k_tail.shape or not 0 <= layer < L:
         raise ValueError(f"pool_decode_attend_int4: bad shapes q {tuple(q.shape)} "
-                         f"pool {tuple(k_pool_q.shape)} tail {tuple(k_tail.shape)}"
-                         f" tail_len {tail_len}")
+                         f"pool {tuple(k_pool_q.shape)} tail {tuple(k_tail.shape)}")
+    lens_t, scalar = tail_arg(tail_len, Hkv, T, Tcap, q.device, "pool_decode_attend_int4")
     R = (H // Hkv) * T
     ch = split_size(max_rows, -(-R // 64), target=512)
     s_pool = -(-max_rows // ch)
@@ -183,9 +197,9 @@ def pool_decode_attend_int4(q: torch.Tensor, k_pool_q: torch.Tensor,
                           device=q.device)
     with torch.cuda.device(q.device):
         fn = _build.kernel("pool_decode_int4", "kvz_pool_decode_int4", _ARGS_INT4)
-        _build.check(fn(*[a.data_ptr() for a in (q, *pool, *meta, k_tail, v_tail,
-                                                 out, part_acc, part_ml)],
-                        T, H, Hkv, Tcap, layer, tail_len, ch, s_pool, int(q8), scale,
+        _build.check(fn(*[a.data_ptr() for a in (q, *pool, *meta, k_tail, v_tail)],
+                        _ptr(lens_t), out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+                        T, H, Hkv, Tcap, layer, scalar, ch, s_pool, int(q8), scale,
                         stream_ptr(q.device)), "pool_decode_attend_int4")
     LAUNCHES["pool_decode_attend_int4_q8" if q8 else "pool_decode_attend_int4"] += 1
     return out

@@ -208,6 +208,25 @@ def test_quantized_engine_refolds_and_runs_the_full_pool(engines):
         assert len(teng.generate_ids(f"Turn {turn}: and then?", tst,
                                      update_cache=True)) > 0
     assert tst.refolds >= 1
-    full = teng.synthetic_full_pool_state(tst, teng.decode_budget, int4=True)
+    full = teng.synthetic_full_pool_state(tst, True, teng.decode_budget)
     assert isinstance(full.cache, PoolInt4KV)
     assert len(teng.generate_ids(QUERY_Q, full)) > 0
+
+
+def test_synthetic_full_pool_state_takes_the_reference_argument_order(engines):
+    """``(state, int4, tail_cap)``, called positionally as ``bench.py`` calls
+    the reference's."""
+    import inspect
+
+    from kvzip_tpu_torch.engine import KVState
+    from kvzip_tpu_torch.pool import PoolKV
+
+    _, teng = engines
+    names = [list(inspect.signature(f).parameters)[1:]
+             for f in (JEngine.synthetic_full_pool_state, Engine.synthetic_full_pool_state)]
+    assert names[0] == names[1] == ["state", "int4", "tail_cap"]
+    st = KVState(cache=None, kv_type="evict", sink=4, ctx_len=100, prefill_len=104)
+    for int4, kind in ((True, PoolInt4KV), (False, PoolKV)):
+        full = teng.synthetic_full_pool_state(st, int4, 64)
+        assert type(full.cache) is kind and full.cache.k_tail.shape[2] == 64
+        assert full.cache.tail_len == 0 and full.pruned

@@ -21,6 +21,7 @@ def test_import_loads_no_jax_and_no_reference():
             "kvzip_tpu_torch.ops.quant, kvzip_tpu_torch.ops.w4a8, "
             "kvzip_tpu_torch.ops.w4a8_v2, kvzip_tpu_torch.ops.fused_act, "
             "kvzip_tpu_torch.ops.windowed_attend, kvzip_tpu_torch.ops.flat_decode, "
+            "kvzip_tpu_torch.ops.w4a8_fused, "
             "kvzip_tpu_torch.cache, kvzip_tpu_torch.models.params\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'kvzip_tpu' or m.startswith('kvzip_tpu.')]\n"

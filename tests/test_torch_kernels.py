@@ -1,5 +1,6 @@
-"""On the card: each CUDA kernel (K1-K11, K13, K14; K7 and K11 also in
-their int8-attention mode) against its plain version, on the same bf16 inputs (int4 rows with bf16 or float32 scales
+"""On the card: each CUDA kernel (K1-K14; K7 and K11 also in their
+int8-attention mode, K3 and K7 also with one tail length per kv head)
+against its plain version, on the same bf16 inputs (int4 rows with bf16 or float32 scales
 for K5-K7, int4 weights with bf16 scales for K8), the plain version
 computed in float32.
 
@@ -22,6 +23,10 @@ on at most 1e-3 of the elements, their scales to 1e-5 relative
 (``ops.quant_parity``: the kernels' sums and rsqrtf/expf/tanhf differ from
 PyTorch's in the last bits, which moves a value on a rounding boundary
 one step).
+K12 (the fused W4A8 decode layer) goes through ``parity`` with the output
+rtol on both outputs: its chained s8 quantizations may flip a value at a
+rounding boundary, which moves later sums by one s8 step of one input;
+a reference with one weight group or one column block dropped must fail.
 """
 
 import pytest
@@ -430,4 +435,125 @@ def test_flat_wrappers_reject_wrong_dtypes_and_shapes(gen):
         flat_decode.flat_decode_attend_int4(
             q, kq, ks.float(), kz.float(), kq, ks.float(), kz.float(), rh, kt, kt,
             torch.zeros((3,), dtype=torch.int32, device="cuda"), scale=1.0, layer=0)
+    assert sum(LAUNCHES.values()) == 0
+
+
+def _pool_geometry(gen, Hkv):
+    rows, off, P = [300, 0, 129], [0, 384, 512], 768
+    rh = torch.full((P,), -1, dtype=torch.int32)
+    for o, r in zip(off, rows):
+        rh[o:o + r] = torch.randint(0, Hkv, (r,), generator=gen,
+                                    dtype=torch.int32).sort().values
+    return (rh.cuda(), torch.tensor(off, dtype=torch.int32, device="cuda"),
+            torch.tensor(rows, dtype=torch.int32, device="cuda")), P
+
+
+@pytest.mark.parametrize("T", [1, 4])
+@pytest.mark.parametrize("kind", ["bf16", "int4", "int4_q8"])
+def test_pool_decode_kernels_with_per_head_tails(gen, kind, T):
+    """K3, K7 and K7-q8 with one tail length per kv head (one of them 0) on
+    every layer of a pool whose middle layer holds no rows; a vector of
+    equal entries gives the scalar's bits."""
+    H, Hkv, L, Tcap = 28, 4, 3, 64
+    meta, P = _pool_geometry(gen, Hkv)
+    q, kt, vt = _rn(gen, T, H, D), _rn(gen, L, Hkv, Tcap, D), _rn(gen, L, Hkv, Tcap, D)
+    tails = torch.tensor([7, 0, 41, 19], dtype=torch.int32, device="cuda")
+    if kind == "bf16":
+        pool = (_rn(gen, P, D), _rn(gen, P, D))
+        fn, plain, name = (pool_decode.pool_decode_attend, pool_decode.pool_decode_attend_plain,
+                           "pool_decode_attend")
+        kw = {}
+    else:
+        kq, ks, kz = _quant(gen, P)
+        vq, vs, vz = _quant(gen, P)
+        pool = (kq, ks.float(), kz.float(), vq, vs.float(), vz.float())
+        fn, plain = pool_decode.pool_decode_attend_int4, pool_decode.pool_decode_attend_int4_plain
+        q8 = kind == "int4_q8"
+        name = "pool_decode_attend_int4_q8" if q8 else "pool_decode_attend_int4"
+        kw = dict(q8=q8)
+    for layer in range(L):
+        got = fn(q, *pool, *meta, kt, vt, tails, layer, scale=D ** -0.5, max_rows=384, **kw)
+        want = plain(q.float(), *pool, *meta, kt.float(), vt.float(), tails, layer,
+                     scale=D ** -0.5, **kw, **(dict(with_slack=True) if kw.get("q8") else {}))
+        want, slack = want if kw.get("q8") else (want, None)
+        assert _ok(got, want, slack=slack)
+    same = [fn(q, *pool, *meta, kt, vt, tl, 0, scale=D ** -0.5, max_rows=384, **kw)
+            for tl in (9, torch.full((Hkv,), 9, dtype=torch.int32, device="cuda"))]
+    assert torch.equal(same[0], same[1])
+    assert LAUNCHES[name] == L + 2
+    with pytest.raises(ValueError, match="tail_len"):
+        fn(q, *pool, *meta, kt, vt, torch.tensor([7, 0, Tcap - T + 1, 19], dtype=torch.int32,
+                                                 device="cuda"), 0, scale=D ** -0.5,
+           max_rows=384, **kw)
+
+
+def _fused_weights(gen, L, D_, HD, I, QKV):
+    from kvzip_tpu_torch.ops import w4a8, w4a8_v2
+
+    def stack(IN, OUT):
+        w = torch.randn(L, IN, OUT, generator=gen) * 0.05
+        return {k: t.cuda() for k, t in
+                w4a8_v2.repack_scales_v2(w4a8.quantize_weight_int4(w), in_dim=IN).items()}
+
+    return stack(HD, D_), stack(D_, 2 * I), stack(I, D_), stack(D_, QKV)
+
+
+FUSED = dict(L=3, D_=512, HD=512, I=1024, QKV=768)
+
+
+@pytest.mark.parametrize("layer", [0, 2])
+@pytest.mark.parametrize("T", [1, 4, 8])
+def test_w4a8_layer_fused_kernel(gen, T, layer):
+    from kvzip_tpu_torch.ops import w4a8_fused
+
+    ws = _fused_weights(gen, **FUSED)
+    L, D_ = FUSED["L"], FUSED["D_"]
+    x, attn = _rn(gen, T, D_) * 0.3, _rn(gen, T, FUSED["HD"]) * 0.3
+    lnm, lna = 1 + 0.1 * _rn(gen, L, D_), 1 + 0.1 * _rn(gen, L, D_)
+    got = w4a8_fused.w4a8_layer_fused(x, attn, lnm, lna, *ws, layer, eps=1e-6)
+    want = w4a8_fused.w4a8_layer_fused_plain(x, attn, lnm, lna, *ws, layer, eps=1e-6)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert _ok(g, w)
+    assert LAUNCHES["w4a8_layer_fused"] == 1
+
+
+def test_w4a8_layer_fused_gate_rejects_dropped_group_and_block(gen):
+    """The hold fails for a reference whose qkv weights lack one input
+    group, and for one whose o-proj lacks a 128-column block."""
+    from kvzip_tpu_torch.ops import w4a8_fused
+
+    ws = _fused_weights(gen, **FUSED)
+    L, D_ = FUSED["L"], FUSED["D_"]
+    x, attn = _rn(gen, 4, D_) * 0.3, _rn(gen, 4, FUSED["HD"]) * 0.3
+    lnm, lna = 1 + 0.1 * _rn(gen, L, D_), 1 + 0.1 * _rn(gen, L, D_)
+    x_new, qkv = w4a8_fused.w4a8_layer_fused(x, attn, lnm, lna, *ws, 1, eps=1e-6)
+    wo, wgu, wdn, wqkv = ({k: t.clone() for k, t in w.items()} for w in ws)
+    for k in ("s2", "z2"):
+        wqkv[k][1, :, 2] = 0    # input group 2 of layer 1
+        wo[k][1, 0, :, :128] = 0  # o-proj output columns 0..127
+    _, qkv_drop = w4a8_fused.w4a8_layer_fused_plain(x, attn, lnm, lna, *ws[:3], wqkv, 1,
+                                                    eps=1e-6)
+    x_drop, _ = w4a8_fused.w4a8_layer_fused_plain(x, attn, lnm, lna, wo, *ws[1:], 1, eps=1e-6)
+    assert not parity(qkv, qkv_drop, OUT_RTOL)["ok"]
+    assert not parity(x_new, x_drop, OUT_RTOL)["ok"]
+
+
+def test_w4a8_layer_fused_rejects_wrong_dtypes_and_shapes(gen):
+    from kvzip_tpu_torch.ops import w4a8_fused
+
+    ws = _fused_weights(gen, **FUSED)
+    L, D_ = FUSED["L"], FUSED["D_"]
+    ln = torch.ones((L, D_), dtype=torch.bfloat16, device="cuda")
+    x, attn = _rn(gen, 4, D_), _rn(gen, 4, FUSED["HD"])
+    with pytest.raises(TypeError, match="bfloat16"):
+        w4a8_fused.w4a8_layer_fused(x.float(), attn, ln, ln, *ws, 0, eps=1e-6)
+    bad = dict(ws[0], q4=ws[0]["q4"].view(torch.int8))
+    with pytest.raises(TypeError, match="uint8"):
+        w4a8_fused.w4a8_layer_fused(x, attn, ln, ln, bad, *ws[1:], 0, eps=1e-6)
+    with pytest.raises(ValueError, match="1..8"):
+        w4a8_fused.w4a8_layer_fused(_rn(gen, 9, D_), _rn(gen, 9, FUSED["HD"]), ln, ln, *ws,
+                                    0, eps=1e-6)
+    with pytest.raises(ValueError, match="does not fit"):
+        w4a8_fused.w4a8_layer_fused(x, attn, ln, ln, ws[0], ws[3], *ws[2:], 0, eps=1e-6)
     assert sum(LAUNCHES.values()) == 0
