@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 1. Card: prints ``nvidia-smi``'s name and power limit; fails without CUDA.
-2. Build: builds the CUDA kernels K1-K14 from ``kvzip_tpu_torch/csrc``
-   (twelve sources, one ``nvcc`` each, all started together).
+2. Build: builds the CUDA kernels K1-K16 from ``kvzip_tpu_torch/csrc``
+   (thirteen sources, one ``nvcc`` each, all started together).
 3. Kernel parity: each kernel against its plain PyTorch version (computed
    in float32 from the same inputs) at every shape its main path gives
    it, through ``kvzip_tpu_torch.ops.parity`` (tolerances relative to the
@@ -25,7 +25,10 @@
    also with one tail length per kv head (one of them 0). K12, the fused
    W4A8 decode layer, at qwen2.5-7b's shapes, T 1/4/8 at layers 0/14/27,
    beside the device time of the composed chain it replaces
-   (``kernel_parity_fused``).
+   (``kernel_parity_fused``). K15/K16, the v1 W4A8 linears, at qwen2.5-7b's
+   unfused and fused v1 shapes (pad groups included), K15 at T 1/24/511
+   and layers 0/14/27 of 28-layer stacks, K16 at T 1/24 with a bias on
+   q/k/v (``kernel_parity_w4a8_v1``).
 4. bf16 main path at the full width of qwen2.5-7b (28 layers, random bf16
    weights from a seed) and a 16384-token context, through the engine's
    entry points: prefill, scoring, a greedy answer on the dense cache,
@@ -58,6 +61,26 @@
    and no flat or q8 kernel; ms/token fused and composed, evicted and
    full, from the same run; the fused answers against the composed ones
    and their logits held to the composed path's own schedule noise.
+   Then the v1 W4A8 storage (``v1_path_quant``, counted): the unfused v1
+   tree the flagship draws before its repack, passed as it is
+   (``weight_quant="none"``, int4 KV, int8 embedding and head), through
+   the same main path; K15 must run (seven launches a layer of a decode
+   forward) with K2 and K5-K7, and neither K8, K12, K16 nor a flat or q8
+   kernel. Its decode and teacher-forced logits against the flagship's
+   composed v2 engine on the flagship's pool state (``v1_vs_v2``, held to
+   twice the v2 path's schedule noise). Then ``embed_quant="int4h"`` on the
+   same v1 layers (``int4h_head``, counted): K8 on the int4 lm_head
+   (OUT = 152,064) and K15 on the layers, three queries on the same pool
+   state, the int4 head's logits against the int8 head's on the same hidden
+   states held to the reference's bound (error below 0.2 of the largest
+   logit, argmax kept at clear top-2 margins), and K8 held against its
+   plain version on the head's weights at every row count the phase sends
+   it. After the qwen2.5-7b engines
+   are freed, ``checkpoint_load``: a small qwen2 checkpoint (bf16, two
+   shards) and its W8A8 export written by ``write_safetensors`` (the card
+   has no ``safetensors``), loaded by ``Engine(<dir>)`` through the port's
+   own reader (the bf16 one stream-quantized with ``weight_quant="w4a8"``),
+   each tree equal to the one written, each answering one query.
 6. W8A8-KV4 path (QServe's W8A8-KV4 geometry, the upstream KVzip's own
    quantized model) at the full width of llama3.1-8b (32 layers, G = 4,
    random weights from a seed), after the qwen2.5-7b engines are freed:
@@ -94,6 +117,8 @@ QUANT = dict(kv_quant="int4", weight_quant="w4a8", embed_quant="int8")
 # QServe's W8A8-KV4 geometry (get_model_id("llama3-8b-4m-w8a8kv4"))
 W8_MODEL = "llama3.1-8b"
 W8 = dict(kv_quant="int4", weight_quant="w8a8", act_fused="pallas")
+# a v1 W4A8 tree passed in as it is (every projection through K15)
+V1 = dict(kv_quant="int4", weight_quant="none", embed_quant="int8")
 # H100 SXM data-sheet peaks (dense bf16 and int8 tensor cores, HBM3)
 PEAK_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
@@ -168,6 +193,32 @@ def bound(flops: float, nbytes: float, peak_ops: float = PEAK_FLOPS):
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
 
 
+def write_safetensors(path: str, tensors: dict) -> None:
+    """Write ``name -> torch tensor`` as one safetensors file: an 8-byte
+    little-endian header length, a JSON header (dtype, shape and byte
+    offsets of each tensor, padded with spaces to 8 bytes), then each
+    tensor's little-endian bytes in name order."""
+    import torch
+
+    st = {torch.bfloat16: "BF16", torch.float16: "F16", torch.float32: "F32",
+          torch.int8: "I8", torch.uint8: "U8", torch.int32: "I32"}
+    header, blobs, off = {}, [], 0
+    for name in sorted(tensors):
+        t = tensors[name].detach().cpu().contiguous()
+        blob = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": st[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + len(blob)]}
+        blobs.append(blob)
+        off += len(blob)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for blob in blobs:
+            f.write(blob)
+
+
 # ---------------------------------------------------------------- kernels
 def hold_parity(checks, name, shape, got, want, rtol, perturbed=None):
     """Record ``ops.parity`` of got against want (and, where given, whether
@@ -219,6 +270,15 @@ def verify_parity(out, checks):
         r.update(max_abs_err=max(c["max_abs_err"] for c in rows),
                  rms_want=worst["rms_want"], worst_to_tol=worst["worst_to_tol"])
     return out
+
+
+def fold_parity(row, checks):
+    """Hold checks of row's kernel made after its parity phase (as
+    ``verify_parity`` holds them) and fold them into its kernels-line row."""
+    extra = verify_parity([dict(name=row["name"])], checks)[0]
+    row["max_abs_err"] = max(row["max_abs_err"], extra["max_abs_err"])
+    if extra["worst_to_tol"] > row["worst_to_tol"]:
+        row.update(worst_to_tol=extra["worst_to_tol"], rms_want=extra["rms_want"])
 
 
 def kernel_parity(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int):
@@ -430,7 +490,8 @@ def kernel_parity_int4(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap:
     T = 1/4/16 on a ~30% int4 pool, layers 0/14/27, tail 40; K8 at T = 1,
     16 and 256 for each of the four W4A8 linears. At one shape each the
     gate must reject a reference with one 64-key tile (K5-K7) or one
-    128-row input group (K8) left out. Times: ``kernel_ms``; the decode-shape
+    128-row input group (K8) left out (K8 at the lm_head's shape is held in
+    ``int4h_path``). Times: ``kernel_ms``; the decode-shape
     kernels cycle over the 28 layers' stacks, so each launch reads its
     rows or weights from device memory."""
     import torch
@@ -677,6 +738,124 @@ def kernel_parity_int4(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap:
         **{k: sum(t[k] for t in step) for k in ("ms", "host_ms", "plain_ms", "bound_ms")},
         bound_by="bytes" if all(t["bound_by"] == "bytes" for t in step) else "operations",
         library_ms=None, per_shape={f"{n} T {t}": v for (n, t), v in timed.items()}))
+    return verify_parity(out, checks)
+
+
+def v1_stack(L, IN, OUT, gen):
+    """A v1 W4A8 stack as ``quantize_weight_int4`` stores it: random bytes
+    in the true input rows, 0x00 in the pad rows (IN rounded up to a
+    multiple of 16 groups of 128), per-(group, column) bf16 scales with
+    zeros centring each group's nibbles (weights of standard deviation
+    ~0.02), s = z = 0 on the pad groups."""
+    import torch
+
+    G = IN // 128
+    Gp = -(-G // min(16, G)) * min(16, G)
+    q4 = torch.randint(0, 256, (L, Gp * 128, OUT // 2), dtype=torch.uint8, device="cuda",
+                       generator=gen)
+    q4[:, IN:] = 0
+    s = 0.0043 * (0.75 + 0.5 * torch.rand(L, Gp, OUT, device="cuda", generator=gen))
+    s[:, G:] = 0
+    return dict(q4=q4, s=s.to(torch.bfloat16), z=(-7.5 * s).to(torch.bfloat16))
+
+
+def kernel_parity_w4a8_v1(cfg):
+    """K15 (``w4a8_matmul_stacked``) and K16 (``w4a8_matmul``) against
+    their plain version (``_w4a8_jnp``) at qwen2.5-7b's unfused v1 shapes
+    (q/k/v 3584 -> 3584, 512, 512; o 3584 -> 3584; gate/up 3584 -> 18944;
+    down 18944 -> 3584, its 148 groups stored as 160) and the fused v1 ones
+    (qkv 3584 -> 4608, gate/up 3584 -> 37888), as 28-layer stacks: K15 at
+    T 1, 24 and 511 and layers 0, 14 and 27; K16 on layer slices at T 1 and
+    24, with a bias on q/k/v. The gate must reject a reference with one
+    input group dropped (one shape each). Times: ``kernel_ms`` at T 1
+    cycling over the 28 layers, so that each launch reads its weights from
+    device memory, and at T 24 and 511; the kernels line carries one decode
+    step's seven unfused linears at T 1, summed. Bound: the weight bytes
+    the product needs (true groups only) plus x and out over 3.35 TB/s,
+    against 2 T IN OUT int8 operations; ``padded_bound_ms`` counts the pad
+    groups' bytes too."""
+    import torch
+
+    from kvzip_tpu_torch.ops import OUT_RTOL, w4a8
+
+    L, H, Hkv, Dh = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    D, I = cfg.hidden_size, cfg.intermediate_size
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    shapes = dict(wq=(D, H * Dh), wk=(D, Hkv * Dh), wv=(D, Hkv * Dh), wo=(H * Dh, D),
+                  w_gate=(D, I), w_up=(D, I), w_down=(I, D),
+                  wqkv=(D, (H + 2 * Hkv) * Dh), w_gateup=(D, 2 * I))
+    biased = ("wq", "wk", "wv", "wqkv")
+    checks, timed = {}, {}
+    cycle = iter(range(10 ** 9))
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def k16_plain(xf, wl, bias):
+        """The plain version, the bias added to its bf16 output."""
+        y = w4a8._w4a8_jnp(xf, wl)
+        return y if bias is None else y.to(torch.bfloat16).float() + bias.float()
+
+    for name, (IN, OUT) in shapes.items():
+        w = v1_stack(L, IN, OUT, gen)
+        G, Gp = IN // 128, w["s"].shape[1]
+        bias = rn(OUT) * 0.1 if name in biased else None
+        for T in (1, 24, 511):
+            x = rn(T, IN)
+            for l in (0, L // 2, L - 1):
+                wl = {k: v[l] for k, v in w.items()}
+                got = w4a8.w4a8_matmul_stacked(x, w["q4"], w["s"], w["z"], l)
+                want = w4a8._w4a8_jnp(x.float(), wl)
+                drop = None
+                if T == 1 and l == 0:
+                    xd = x.float().clone()
+                    xd[:, 128:256] = 0
+                    drop = w4a8._w4a8_jnp(xd, wl)
+                hold_parity(checks, "w4a8_matmul_stacked", f"{name} {IN}->{OUT} T {T} layer {l}",
+                            got, want, OUT_RTOL, drop)
+                if T == 511 or l != 0:
+                    continue
+                got = w4a8.w4a8_matmul(x, wl["q4"], wl["s"], wl["z"], bias)
+                want = k16_plain(x.float(), wl, bias)
+                drop = None
+                if T == 1:
+                    xd = x.float().clone()
+                    xd[:, :128] = 0
+                    drop = k16_plain(xd, wl, bias)
+                hold_parity(checks, "w4a8_matmul", f"{name} {IN}->{OUT} T {T} bias "
+                            f"{bias is not None}", got, want, OUT_RTOL, drop)
+            half = OUT // 2
+            io = 2 * T * IN + 2 * T * OUT
+            b = bound(2 * T * IN * OUT, IN * half + 2 * 2 * G * OUT + io, PEAK_INT8_OPS)
+            padded = bound(2 * T * IN * OUT, Gp * 128 * half + 2 * 2 * Gp * OUT + io,
+                           PEAK_INT8_OPS)
+            iters = 56 if T == 1 else 10
+            r = dict(**kernel_ms(lambda: w4a8.w4a8_matmul_stacked(
+                x, w["q4"], w["s"], w["z"], next(cycle) % L), iters),
+                bound_ms=b[0], bound_by=b[1], padded_bound_ms=padded[0])
+            if T == 1:
+                r["plain_ms"] = time_ms(lambda: w4a8._w4a8_jnp(x, {k: v[0] for k, v in w.items()}),
+                                        2, 1)
+                slices = [{k: v[l] for k, v in w.items()} for l in range(L)]
+                r16 = kernel_ms(lambda: w4a8.w4a8_matmul(
+                    x, *(slices[next(cycle) % L][k] for k in ("q4", "s", "z")), bias), iters)
+                r.update(k16_ms=r16["ms"], k16_host_ms=r16["host_ms"])
+            timed[(name, T)] = r
+        del w
+    log(phase="k15_k16_times", **{f"{n} T {t}": v for (n, t), v in timed.items()})
+    step = [timed[(n, 1)] for n in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")]
+    per_shape = {f"{n} T {t}": v for (n, t), v in timed.items()}
+    common = dict(route="cuda", source="kvzip_tpu_torch/csrc/w4a8_v1.cu", library_ms=None,
+                  bound_ms=sum(t["bound_ms"] for t in step),
+                  bound_by="bytes" if all(t["bound_by"] == "bytes" for t in step) else "operations",
+                  padded_bound_ms=sum(t["padded_bound_ms"] for t in step),
+                  plain_ms=sum(t["plain_ms"] for t in step))
+    out = [dict(name="w4a8_matmul_stacked", replaces="kvzip_tpu/ops/w4a8.py:346",
+                ms=sum(t["ms"] for t in step), host_ms=sum(t["host_ms"] for t in step),
+                per_shape=per_shape, **common),
+           dict(name="w4a8_matmul", replaces="kvzip_tpu/ops/w4a8.py:169",
+                ms=sum(t["k16_ms"] for t in step), host_ms=sum(t["k16_host_ms"] for t in step),
+                **common)]
     return verify_parity(out, checks)
 
 
@@ -1311,21 +1490,29 @@ def flat_path(feng, keep, queries, quant: bool):
     return rep
 
 
-def q8_path(qeng, state, queries, exact_answers, full_state):
-    """Decode with ``attn_quant="int8"`` on an int4 state (pool or flat):
-    ms/token over it and over its full layout, and how far its greedy
-    answers follow the exact mode's on the same queries."""
+def token_agreement(answers, refs):
+    """Per pair of greedy answers: the share of their common positions
+    where the tokens agree, and the first position where they part (None
+    where they never do)."""
     import numpy as np
 
-    rep = {}
-    rep["evicted_ms_per_token"], answers = decode_ms_per_token(qeng, state, queries)
-    rep["full_ms_per_token"], _ = decode_ms_per_token(qeng, full_state(), queries)
     same, first = [], []
-    for a, b in zip(answers, exact_answers):
+    for a, b in zip(answers, refs):
         n = min(len(a), len(b))
         eq = a[:n] == b[:n]
         same.append(float(eq.mean()) if n else 1.0)
         first.append(int(np.argmin(eq)) if not eq.all() else None)
+    return same, first
+
+
+def q8_path(qeng, state, queries, exact_answers, full_state):
+    """Decode with ``attn_quant="int8"`` on an int4 state (pool or flat):
+    ms/token over it and over its full layout, and how far its greedy
+    answers follow the exact mode's on the same queries."""
+    rep = {}
+    rep["evicted_ms_per_token"], answers = decode_ms_per_token(qeng, state, queries)
+    rep["full_ms_per_token"], _ = decode_ms_per_token(qeng, full_state(), queries)
+    same, first = token_agreement(answers, exact_answers)
     rep.update(answer_tokens=[a.tolist() for a in answers], token_agreement=same,
                first_mismatch=first)
     return rep
@@ -1339,8 +1526,6 @@ def fused_path(feng, eng, state, queries, composed_answers, full_state):
     layer); the fused answers' agreement with the composed ones, and
     teacher-forced logits held to the composed path's own schedule noise
     (``allkept_check``)."""
-    import numpy as np
-
     from kvzip_tpu_torch.ops import LAUNCHES
 
     rep = {}
@@ -1357,17 +1542,255 @@ def fused_path(feng, eng, state, queries, composed_answers, full_state):
     if rep["fused_launches_per_forward"] != feng.config.num_layers:
         raise AssertionError(f"fused layer ran {rep['fused_launches_per_forward']} times in "
                              f"one {feng.config.num_layers}-layer decode forward")
-    same, first = [], []
-    for a, b in zip(answers, composed_answers):
-        n = min(len(a), len(b))
-        eq = a[:n] == b[:n]
-        same.append(float(eq.mean()) if n else 1.0)
-        first.append(int(np.argmin(eq)) if not eq.all() else None)
+    same, first = token_agreement(answers, composed_answers)
     rep.update(answer_tokens=[a.tolist() for a in answers], token_agreement=same,
                first_mismatch=first)
     rep["logits"] = allkept_check(eng, state, state, queries[0], composed_answers[0],
                                   full_eng=feng, phase="fused_vs_composed_logits",
                                   full_step=True)
+    return rep
+
+
+def v1_path(veng, ctx_ids, queries):
+    """The v1 W4A8 tree (``weight_quant="none"``, unfused, every projection
+    through K15 below 512 rows) through the main path, then K15's launches
+    in one single-token decode forward on its pool (seven a layer)."""
+    from kvzip_tpu_torch.ops import LAUNCHES
+
+    keep = {}
+    rep = main_path(veng, ctx_ids, queries, quant=True, keep=keep)
+    before = LAUNCHES["w4a8_matmul_stacked"]
+    veng.forward_ids(queries[0][:1], keep["pool"])
+    rep["k15_launches_per_forward"] = LAUNCHES["w4a8_matmul_stacked"] - before
+    if rep["k15_launches_per_forward"] != 7 * veng.config.num_layers:
+        raise AssertionError(f"K15 ran {rep['k15_launches_per_forward']} times in one "
+                             f"{veng.config.num_layers}-layer decode forward")
+    return rep
+
+
+def v1_vs_v2(veng, eng, state, queries, v2_answers):
+    """The v1 engine against the flagship's composed v2 engine on the
+    flagship's scored pool state: both hold the same int4 grid (v1_tree is
+    the tree the flagship draws before its repack) and differ by v2's
+    bf16-rounded pre-folded zero. Decode ms/token of both in the same run,
+    greedy agreement, and teacher-forced logits held to twice the v2 path's
+    own schedule noise (``allkept_check``). Launches are not counted."""
+    from kvzip_tpu_torch.ops import LAUNCHES
+
+    saved = dict(LAUNCHES)
+    rep = {}
+    rep["v2_ms_per_token"], _ = decode_ms_per_token(eng, state, queries)
+    rep["v1_ms_per_token"], answers = decode_ms_per_token(veng, state, queries)
+    same, first = token_agreement(answers, v2_answers)
+    rep.update(token_agreement=same, first_mismatch=first,
+               answer_tokens=[a.tolist() for a in answers])
+    rep["logits"] = allkept_check(eng, state, state, queries[0], v2_answers[0], full_eng=veng,
+                                  phase="v1_vs_v2_logits")
+    LAUNCHES.update(saved)
+    log(phase="v1_vs_v2", **rep)
+    return rep
+
+
+def int4h_path(heng, veng, state, queries, checks):
+    """``embed_quant="int4h"`` (the int4 lm_head through K8, OUT = the
+    vocabulary) on the v1 layers: decode ms/token and answers on the
+    flagship's pool state; then, for each query and its answer, the int4
+    head's teacher-forced logits against the int8 head's (``veng``, the same
+    layers and embedding, so the same hidden states): max |difference| over
+    max |logit| and argmax agreement, held to the reference's bound
+    (``tests/test_quant.py``: below 0.2, the argmax kept wherever the top-2
+    margin exceeds 0.3 of the largest |logit|). Then K8 at the head's shape
+    (152,064 columns: a grid of several column blocks a split, which no
+    shape of ``kernel_parity_int4`` gives it) is held against its plain
+    version on the head's own weights, into ``checks``, at every row count
+    this path sends the head: 1 (each decode step and a query's last row)
+    and the pool ladder's chunks of each teacher-forced sequence, each with
+    a perturbed reference (one input group dropped) that must fail; then
+    its device time alone at T = 1. ``veng``'s launches and those of the
+    holds and timings are not counted."""
+    import numpy as np
+    import torch
+
+    from kvzip_tpu_torch.engine import POOL_LADDER, ladder_split
+    from kvzip_tpu_torch.ops import LAUNCHES, OUT_RTOL
+    from kvzip_tpu_torch.ops.w4a8_v2 import w4a8_jnp_v2, w4a8_matmul_stacked_v2
+
+    rep = {}
+    vocab = 2 * heng.params["lm_head"]["q4"].shape[-1]
+    if vocab != heng.config.vocab_size:
+        raise AssertionError(f"int4 head of {vocab} columns")
+    rep["ms_per_token"], answers = decode_ms_per_token(heng, state, queries)
+    errs, agree, clear_kept = [], [], True
+    for qids, ans in zip(queries, answers):
+        seq = np.concatenate([qids, ans])
+        l4 = teacher_forced(heng, state, seq, step=False)
+        saved = dict(LAUNCHES)
+        l8 = teacher_forced(veng, state, seq, step=False)
+        LAUNCHES.update(saved)
+        if not (np.isfinite(l4).all() and np.isfinite(l8).all()):
+            raise AssertionError("int4h: non-finite logits")
+        absmax = float(np.abs(l8).max())
+        errs.append(float(np.abs(l4 - l8).max()) / absmax)
+        agree.append(float((l4.argmax(-1) == l8.argmax(-1)).mean()))
+        top2 = np.sort(l8, axis=-1)[:, -2:]
+        clear = (top2[:, 1] - top2[:, 0]) > 0.3 * absmax
+        clear_kept &= bool((l4.argmax(-1)[clear] == l8.argmax(-1)[clear]).all())
+    # K8 at the head's shape: held at every row count sent here, then timed
+    head, D = heng.params["lm_head"], heng.config.hidden_size
+    w0 = {k: v[0] for k, v in head.items()}
+    rows = sorted({1, *(n for qids, ans in zip(queries, answers)
+                        for n in ladder_split(len(qids) + len(ans), POOL_LADDER))})
+    gen = torch.Generator("cuda").manual_seed(SEED + 8)
+    saved = dict(LAUNCHES)
+    for T in rows:
+        x = torch.randn(T, D, device="cuda", generator=gen).to(torch.bfloat16)
+        got = w4a8_matmul_stacked_v2(x, head["q4"], head["s2"], head["z2"], 0)
+        xd = x.float().clone()
+        xd[:, 128:256] = 0
+        hold_parity(checks, "w4a8_matmul_stacked_v2", f"lm_head {D}->{vocab} T {T}", got,
+                    w4a8_jnp_v2(x.float(), w0), OUT_RTOL, w4a8_jnp_v2(xd, w0))
+    xf = x[:1]
+    t = kernel_ms(lambda: w4a8_matmul_stacked_v2(xf, head["q4"], head["s2"], head["z2"], 0), 20)
+    LAUNCHES.update(saved)
+    b = bound(2 * D * vocab, D * vocab // 2 + 2 * head["s2"].numel() * 2 + 2 * D + 2 * vocab,
+              PEAK_INT8_OPS)
+    rep.update(head_k8_ms=t["ms"], head_k8_host_ms=t["host_ms"], head_k8_bound_ms=b[0],
+               head_k8_bound_by=b[1], head_k8_rows=rows, vocab=vocab, head_rel_err=errs,
+               argmax_agreement=agree, clear_margin_argmax_kept=clear_kept,
+               answer_tokens=[a.tolist() for a in answers])
+    if max(errs) >= 0.2 or not clear_kept:
+        log(phase="int4h_head_failed", **rep)
+        raise AssertionError(f"int4 head: error {max(errs)} (bound 0.2), clear-margin "
+                             f"argmax kept {clear_kept}")
+    return rep
+
+
+# a small qwen2 checkpoint (head_dim 128, as the kernels take)
+CKPT_CONFIG = dict(model_type="qwen2", vocab_size=1024, hidden_size=256, intermediate_size=512,
+                   num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
+                   max_position_embeddings=4096, rope_theta=1000000.0, rms_norm_eps=1e-6,
+                   tie_word_embeddings=False, hidden_act="silu")
+CKPT_LINEARS = {"self_attn.q_proj": "wq", "self_attn.k_proj": "wk", "self_attn.v_proj": "wv",
+                "self_attn.o_proj": "wo", "mlp.gate_proj": "w_gate", "mlp.up_proj": "w_up",
+                "mlp.down_proj": "w_down"}
+CKPT_VECTORS = {"self_attn.q_proj.bias": "bq", "self_attn.k_proj.bias": "bk",
+                "self_attn.v_proj.bias": "bv", "input_layernorm.weight": "ln_attn",
+                "post_attention_layernorm.weight": "ln_mlp"}
+
+
+def write_checkpoint(path: str, tensors: dict) -> None:
+    """``config.json`` and two shards: the embedding and layer 0, the rest."""
+    os.makedirs(path, exist_ok=True)
+    first = {k: v for k, v in tensors.items()
+             if k.startswith(("model.embed", "model.layers.0."))}
+    write_safetensors(os.path.join(path, "model-00001-of-00002.safetensors"), first)
+    write_safetensors(os.path.join(path, "model-00002-of-00002.safetensors"),
+                      {k: v for k, v in tensors.items() if k not in first})
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(CKPT_CONFIG, f)
+
+
+def checkpoint_load(tokenizer):
+    """A small qwen2 checkpoint written by ``write_checkpoint`` (bf16, from
+    a seed) and its QServe-style W8A8 export (int8 projections, float32
+    ``dequant_scale``), loaded on the card by ``Engine(<dir>)`` through the
+    port's own safetensors reader: the bf16 one with
+    ``weight_quant="w4a8"`` (stream-quantized, fused, repacked to v2), the
+    W8A8 one as it is. Each loaded tree must equal the tree written,
+    quantized the same way by ``prepare_params``; each engine answers one
+    query on a 300-token context; K8 must run on the W4A8 one."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from kvzip_tpu_torch.config import ModelConfig
+    from kvzip_tpu_torch.engine import Engine
+    from kvzip_tpu_torch.models.params import prepare_params
+    from kvzip_tpu_torch.ops import LAUNCHES, reset_launches
+
+    c = CKPT_CONFIG
+    D, I, V, L = c["hidden_size"], c["intermediate_size"], c["vocab_size"], c["num_hidden_layers"]
+    kv = c["num_key_value_heads"] * D // c["num_attention_heads"]
+    outs = dict(wq=D, wk=kv, wv=kv, wo=D, w_gate=I, w_up=I, w_down=D)
+    ins = dict(wq=D, wk=D, wv=D, wo=D, w_gate=D, w_up=D, w_down=I)
+    vec = dict(bq=D, bk=kv, bv=kv, ln_attn=D, ln_mlp=D)
+    g = torch.Generator().manual_seed(SEED + 11)
+
+    def rn(*shape, std=0.05, mean=0.0):
+        return (mean + std * torch.randn(*shape, generator=g)).to(torch.bfloat16)
+
+    hf = {"model.embed_tokens.weight": rn(V, D), "lm_head.weight": rn(V, D),
+          "model.norm.weight": rn(D, std=0.1, mean=1.0)}
+    layers = {}
+    for l in range(L):
+        for name, slot in CKPT_LINEARS.items():
+            w = rn(outs[slot], ins[slot])  # HF's (out, in)
+            hf[f"model.layers.{l}.{name}.weight"] = w
+            layers.setdefault(slot, []).append(w.T)
+        for name, slot in CKPT_VECTORS.items():
+            t = rn(vec[slot], std=0.1, mean=1.0 if slot.startswith("ln") else 0.0)
+            hf[f"model.layers.{l}.{name}"] = t
+            layers.setdefault(slot, []).append(t)
+    # on the card, so that prepare_params quantizes it as the loader does
+    written = {"embed": hf["model.embed_tokens.weight"].cuda(),
+               "lm_head": hf["lm_head.weight"].cuda(),
+               "final_norm": hf["model.norm.weight"].cuda(),
+               "layers": {k: torch.stack(v).cuda() for k, v in layers.items()}}
+    w8 = dict(hf)
+    w8_layers = {k: v for k, v in written["layers"].items() if k in vec}
+    for name, slot in CKPT_LINEARS.items():
+        qs, ss = [], []
+        for l in range(L):
+            wf = hf[f"model.layers.{l}.{name}.weight"].float()
+            sc = wf.abs().amax(dim=1) / 127.0 + 1e-8
+            q = torch.clamp(torch.round(wf / sc[:, None]), -127, 127).to(torch.int8)
+            w8[f"model.layers.{l}.{name}.weight"] = q
+            w8[f"model.layers.{l}.{name}.dequant_scale"] = sc
+            qs.append(q)
+            ss.append(sc)
+        w8_layers[slot] = {"q": torch.stack(qs), "s": torch.stack(ss)}
+
+    def same(got, want, path=""):
+        if isinstance(want, dict):
+            if sorted(got) != sorted(want):
+                raise AssertionError(f"{path}: keys {sorted(got)} != {sorted(want)}")
+            for k in want:
+                same(got[k], want[k], f"{path}/{k}")
+        elif got.dtype != want.dtype or not torch.equal(got, want.to(got.device)):
+            raise AssertionError(f"loaded tree differs from the written one at {path}")
+
+    rep = {}
+    rng = np.random.default_rng(SEED + 11)
+    ctx = rng.integers(0, 256, 300).astype(np.int32)
+    query = rng.integers(0, 256, 24).astype(np.int32)
+    with tempfile.TemporaryDirectory() as tmp:
+        bf16_dir, w8_dir = os.path.join(tmp, "qwen2-bf16"), os.path.join(tmp, "qwen2-w8a8")
+        write_checkpoint(bf16_dir, hf)
+        write_checkpoint(w8_dir, w8)
+        cfg = ModelConfig.from_json(os.path.join(bf16_dir, "config.json"), name=bf16_dir)
+        for tag, path, wq, want in (
+                ("w4a8", bf16_dir, "w4a8",
+                 prepare_params(cfg, {**written, "layers": dict(written["layers"])},
+                                dtype=torch.bfloat16, weight_quant="w4a8", device="cuda")),
+                ("w8a8", w8_dir, "none", {**written, "layers": w8_layers})):
+            reset_launches()
+            t0 = time.perf_counter()
+            e = Engine(path, tokenizer=tokenizer, weight_quant=wq, max_new_tokens=8,
+                       device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            same(e.params, want)
+            st = e.prefill(ctx)
+            ans = e.generate_ids(query, st)
+            if len(ans) == 0 or not np.isfinite(e.forward_ids(query, st, return_logits=True)).all():
+                raise AssertionError(f"checkpoint engine ({tag}) gave no answer")
+            rep[tag] = dict(load_s=load_s, answer_tokens=ans.tolist(),
+                            launches={k: v for k, v in LAUNCHES.items() if v})
+            if tag == "w4a8" and not LAUNCHES["w4a8_matmul_stacked_v2"]:
+                raise AssertionError("the loaded W4A8 checkpoint did not run through K8")
+            del e, st
+    log(phase="checkpoint_load", config=CKPT_CONFIG, **rep)
     return rep
 
 
@@ -1531,6 +1954,7 @@ def main() -> int:
     from kvzip_tpu_torch.config import resolve_config
     from kvzip_tpu_torch.engine import Engine
     from kvzip_tpu_torch.ops import LAUNCHES, reset_launches
+    from kvzip_tpu_torch.tokenizer import ByteTokenizer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
@@ -1560,11 +1984,12 @@ def main() -> int:
     kernels_q = kernel_parity_int4(cfg, CTX, sink, capacity, eng.decode_budget)
     kernels_f = kernel_parity_flat(cfg, CTX, sink, eng.decode_budget)
     kernels_k12 = kernel_parity_fused(cfg)
+    kernels_v1 = kernel_parity_w4a8_v1(cfg)
     log(phase="kernel_parity", seconds=time.perf_counter() - t0,
         timing_details=[{k: v for k, v in r.items()
                          if k in ("name", "ms", "host_ms", "library_ms", "decode_ms",
                                   "decode_bound_ms", "padded_bound_ms", "per_shape")}
-                        for r in kernels + kernels_q + kernels_f + kernels_k12])
+                        for r in kernels + kernels_q + kernels_f + kernels_k12 + kernels_v1])
 
     def counted(tag, engine, kernel_names, path, *args, absent=(), **kw):
         """One path between a counter reset and a read; every kernel of the
@@ -1649,18 +2074,47 @@ def main() -> int:
         lambda: eng.synthetic_full_pool_state(pool_st, True, eng.decode_budget),
         absent=("pool_decode_attend_int4_q8", *flat_kernels))
     launches["w4a8_layer_fused"] = fused_launches["w4a8_layer_fused"]
+    # the v1 W4A8 storage (K15) and the int4 lm_head (K8 on the vocabulary)
+    # on the tree the flagship draws before its repack, the same state
+    from kvzip_tpu_torch.models.params import init_params_w4a8
+
+    v1_tree = init_params_w4a8(cfg, torch.Generator("cuda").manual_seed(SEED), "cuda",
+                               torch.bfloat16)
+    veng = Engine(MODEL, config=cfg, params=v1_tree, tokenizer=eng.tokenizer,
+                  dtype=torch.bfloat16, device="cuda", max_new_tokens=NEW_TOKENS, **V1)
+    v1_absent = ("w4a8_matmul_stacked_v2", "w4a8_layer_fused", "w4a8_matmul",
+                 "pool_decode_attend_int4_q8", *flat_kernels)
+    # the v1 path's K2/K5-K7 counts stay in its own log line: the kernels
+    # line keeps the flagship's; K16 (absent here) is on no Engine path of
+    # the port (only _lin takes a per-layer v1 dict), so its count is 0
+    counted("v1_path_quant", veng, ("w4a8_matmul_stacked", "fused_scores", "flash_attend_int4",
+                                    "flash_attend_int4_extra", "pool_decode_attend_int4"),
+            v1_path, ctx_ids, queries, absent=v1_absent)
+    launches.update({n: LAUNCHES[n] for n in ("w4a8_matmul_stacked", "w4a8_matmul")})
+    v1_vs_v2(veng, eng, pool_st, queries, keep["answers"])
+    heng = Engine(MODEL, config=cfg, params=v1_tree, tokenizer=eng.tokenizer,
+                  dtype=torch.bfloat16, device="cuda", max_new_tokens=NEW_TOKENS,
+                  **dict(V1, embed_quant="int4h"))
+    head_checks = {}
+    counted("int4h_head", heng, ("w4a8_matmul_stacked_v2", "w4a8_matmul_stacked",
+                                 "pool_decode_attend_int4"), int4h_path, veng, pool_st,
+            queries, head_checks, absent=v1_absent[1:])
+    fold_parity(next(r for r in kernels_q if r["name"] == "w4a8_matmul_stacked_v2"),
+                head_checks)
+    del v1_tree, veng, heng
     q8_logits(feng, qfeng, flat_st, queries, keep["flat_answers"], "q8_logits_flat")
     q8_logits(eng, qpeng, pool_st, queries, keep["answers"], "q8_logits_pool")
     cross_layout_attention(pool_st.cache, flat_st.cache, cfg.num_heads, int4=True)
     allkept_check(eng, pool_st, flat_st, queries[0], keep["answers"][0], full_eng=feng,
                   phase="cross_layout_logits_quant")
-    for r in kernels_q + kernels_f + kernels_k12:
+    for r in kernels_q + kernels_f + kernels_k12 + kernels_v1:
         if r["name"] in launches:
             r["launches"] = launches[r["name"]]
-    kernels += kernels_q + kernels_k12
+    kernels += kernels_q + kernels_k12 + kernels_v1
     del eng, feng, qfeng, qpeng, fpeng, keep, pool_st, flat_st
     gc.collect()
     torch.cuda.empty_cache()
+    checkpoint_load(ByteTokenizer(CKPT_CONFIG["vocab_size"]))
 
     # the W8A8-KV4 path at llama3.1-8b, its own context and queries
     cfg = resolve_config(W8_MODEL)

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (K1-K14).
+"""Build and load the port's CUDA kernels (K1-K16).
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, ``build/lib<name>-<hash>.so``, loaded through
@@ -24,7 +24,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD = os.path.join(_HERE, "build")
 KERNELS = ("flash", "score", "ragged_decode", "pool_decode", "flash_int4",
            "pool_decode_int4", "w4a8", "windowed_attend", "fused_act", "flat_decode",
-           "flat_decode_int4", "w4a8_fused")
+           "flat_decode_int4", "w4a8_fused", "w4a8_v1")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

@@ -2,9 +2,12 @@
 decode over the pool (or the legacy flat layout).
 
 Port of the ``Engine``/``KVState`` main path of ``kvzip_tpu/engine.py``
-(evict path; bf16 or float32 weights and KV, with the quantized options
-``kv_quant="int4"``, ``weight_quant="w8a8"`` or ``"w4a8"`` and
-``embed_quant="int8"``, the fused W8A8 activation quantization
+(evict path; bf16 or float32 weights and KV, random from a seed, passed in
+(a v1 W4A8 tree with ``weight_quant="none"`` runs as it is) or loaded from
+a safetensors checkpoint directory given as ``model_name``, with the
+quantized options ``kv_quant="int4"``, ``weight_quant="w8a8"`` or
+``"w4a8"`` and ``embed_quant="int8"`` or ``"int4h"`` (int8 embedding, int4
+lm_head), the fused W8A8 activation quantization
 ``act_fused="pallas"``, the windowed scoring ``scoring_attend="window"``,
 the legacy flat decode layout ``flat_decode="legacy"``, the int8
 attention ``attn_quant="int8"`` and the fused W4A8 decode layer,
@@ -16,7 +19,7 @@ reference.
 
 Device rule: on a CUDA device every attention op, every W4A8 linear below
 512 rows and every fused activation quantization launches its kernel
-(K1-K14); on the CPU the same calls run the plain PyTorch
+(K1-K16); on the CPU the same calls run the plain PyTorch
 versions. Both devices build the pool (or the flat layout) at prune time,
 and both honour ``attn_quant`` (the reference ignores it on the CPU, where
 its kernels run in interpret mode).
@@ -166,7 +169,8 @@ class Engine:
             gen = torch.Generator(device=self.device).manual_seed(seed)
         self.params = prepare_params(
             self.config, params, dtype=dtype, weight_quant=weight_quant,
-            embed_quant=embed_quant, generator=gen, device=self.device)
+            embed_quant=embed_quant, generator=gen, device=self.device,
+            model_name=model_name)
         self.tokenizer = tokenizer or load_tokenizer(
             model_name, vocab_size=self.config.vocab_size)
         eos = template_lib.eos_ids(model_name, self.tokenizer)

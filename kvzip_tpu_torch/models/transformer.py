@@ -30,8 +30,10 @@ Dispatch, as in the reference:
   tail, at every T;
 - ``attn_q8`` (``attn_quant="int8"``): K7 and K11 in their int8-attention
   mode (``q8``);
-- W4A8 weights (fused ``wqkv``, ``wo``, ``w_gateup``, ``w_down``) go
-  through ``w4a8_linear_stacked`` (K8 below 512 rows);
+- W4A8 weights (fused ``wqkv`` and ``w_gateup`` or the unfused
+  projections, ``wo``, ``w_down``) go through ``w4a8_linear_stacked``:
+  below 512 rows K8 for v2 storage, K15 (``w4a8_matmul_stacked``) for v1;
+  ``_lin`` takes a per-layer v1 dict to K16 (``w4a8_matmul``);
 - ``fuse_layer`` ("auto" or "on"; "on" also on the CPU, where the plain
   version runs): a decode step of T <= 8 rows on a pool or flat cache with
   the four v2 W4A8 stacks takes the first layer's qkv composed before the
@@ -65,7 +67,7 @@ from kvzip_tpu_torch.ops.quant import (dequantize_int4, embed_lookup, head_logit
                                        quantize_act_int8, quantize_int4)
 from kvzip_tpu_torch.ops.ragged_decode import MAX_T, ragged_decode_attend
 from kvzip_tpu_torch.ops.score_kernel import fused_scores
-from kvzip_tpu_torch.ops.w4a8 import w4a8_linear_stacked
+from kvzip_tpu_torch.ops.w4a8 import w4a8_linear, w4a8_linear_stacked
 from kvzip_tpu_torch.ops.w4a8_fused import MAX_T as FUSED_MAX_T
 from kvzip_tpu_torch.ops.w4a8_fused import w4a8_layer_fused
 from kvzip_tpu_torch.ops.windowed_attend import windowed_attend
@@ -92,7 +94,9 @@ def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 def _lin(x: torch.Tensor, w, bias=None) -> torch.Tensor:
-    """Linear of a plain (in, out) weight or a W8A8 dict."""
+    """Linear of a plain (in, out) weight, a W8A8 dict or a v1 W4A8 dict."""
+    if _is_w4(w):
+        return w4a8_linear(x, w, bias)
     if is_w8(w):
         return int8_linear(x, w["q"], w["s"], bias)
     y = x @ w
@@ -219,6 +223,10 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
             q, k, v = qkv[:, :nq], qkv[:, nq:nq + nk], qkv[:, nq + nk:]
             if "bq" in lp:
                 q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+        elif "wq" in w4:
+            h = rms_norm(x, lp["ln_attn"], eps)
+            q, k, v = (w4a8_linear_stacked(h, w4[n], l, lp.get(b))
+                       for n, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
         else:
             q, k, v = _norm_lin_shared(
                 x, lp["ln_attn"], eps, (lp["wq"], lp["wk"], lp["wv"]),
@@ -316,6 +324,9 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
         if "w_gateup" in w4:
             h2 = rms_norm(x, lp["ln_mlp"], eps)
             gate, up = w4a8_linear_stacked(h2, w4["w_gateup"], l).chunk(2, dim=-1)
+        elif "w_gate" in w4:
+            h2 = rms_norm(x, lp["ln_mlp"], eps)
+            gate, up = (w4a8_linear_stacked(h2, w4[n], l) for n in ("w_gate", "w_up"))
         else:
             gate, up = _norm_lin_shared(x, lp["ln_mlp"], eps,
                                         (lp["w_gate"], lp["w_up"]), (None, None),

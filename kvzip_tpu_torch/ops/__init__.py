@@ -19,7 +19,7 @@ LAUNCHES = {"flash_attend": 0, "fused_scores": 0, "ragged_decode_attend": 0,
             "rmsnorm_quant": 0, "silu_mul_quant": 0,
             "pool_decode_attend_int4_q8": 0, "flat_decode_attend": 0,
             "flat_decode_attend_int4": 0, "flat_decode_attend_int4_q8": 0,
-            "w4a8_layer_fused": 0}
+            "w4a8_layer_fused": 0, "w4a8_matmul_stacked": 0, "w4a8_matmul": 0}
 
 
 def reset_launches() -> None:

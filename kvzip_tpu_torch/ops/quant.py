@@ -2,7 +2,7 @@
 linears and the int8 embedding / lm_head tables.
 
 Port of ``kvzip_tpu/ops/quant.py`` (int4 KV, ``quantize_act_int8``, W8A8,
-the int8 embed and head). The int4 KV semantics: per group of 128 contiguous head-dim
+the int8 embed and head, the int4 head). The int4 KV semantics: per group of 128 contiguous head-dim
 elements, ``scale = (max - min) / 15 + 1e-8``, ``zero = min``,
 ``q = clamp(round((x - zero) / scale), 0, 15)``, two nibbles per byte. The
 scale is computed in float32 and used unrounded to pick the nibble, then
@@ -158,8 +158,25 @@ def _int8_rows_dot(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(xp, wq.T)[:T]
 
 
+def quantize_head_int4(head: torch.Tensor, model_dtype=torch.bfloat16) -> dict:
+    """lm_head table (V, D) -> W4A8 v2 storage, a one-layer stack (per
+    group of 128 along D, asymmetric, as the W4A8 projections). Opt-in
+    (``embed_quant="int4h"``): int4 rounding leaves ~10% relative logit
+    noise at any D, which can flip a close argmax."""
+    from kvzip_tpu_torch.ops.w4a8 import quantize_weight_int4
+    from kvzip_tpu_torch.ops.w4a8_v2 import repack_scales_v2
+
+    w = repack_scales_v2(quantize_weight_int4(head.T[None]), in_dim=head.shape[1])
+    return {**w, "s2": w["s2"].to(model_dtype), "z2": w["z2"].to(model_dtype)}
+
+
 def head_logits(head, xf: torch.Tensor) -> torch.Tensor:
-    """lm_head projection for a plain (V, D) table or an int8 dict."""
+    """lm_head projection for a plain (V, D) table, an int8 dict or an int4
+    dict (:func:`quantize_head_int4`, K8 on the card below 512 rows)."""
+    if isinstance(head, dict) and "q4" in head:
+        from kvzip_tpu_torch.ops.w4a8 import w4a8_linear_stacked
+
+        return w4a8_linear_stacked(xf, head, 0)
     if isinstance(head, dict):
         xq, xs = quantize_act_int8(xf)
         acc = _int8_rows_dot(xq, head["q"])

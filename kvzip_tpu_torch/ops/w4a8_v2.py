@@ -16,10 +16,9 @@ import torch
 from kvzip_tpu_torch import _build
 from kvzip_tpu_torch.ops import LAUNCHES, check_kernel_args, on_cuda, stream_ptr
 from kvzip_tpu_torch.ops.quant import quantize_act_int8
-from kvzip_tpu_torch.ops.w4a8 import GROUP
+from kvzip_tpu_torch.ops.w4a8 import GROUP, split_groups
 
 _ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_TARGET_CTAS = 1056  # eight CTAs per SM of the H100's 132
 
 
 def repack_scales_v2(w: dict, in_dim: int = 0) -> dict:
@@ -106,11 +105,7 @@ def w4a8_matmul_stacked_v2(x: torch.Tensor, wq4: torch.Tensor,
             or x.data_ptr() % 16:
         raise ValueError(f"w4a8_matmul_stacked_v2: bad shapes or alignment x "
                          f"{tuple(x.shape)} q4 {tuple(wq4.shape)} s2 {tuple(s2.shape)}")
-    G = IN // GROUP
-    tt = 1 if T == 1 else 4
-    cols = -(-half // 512) * -(-T // tt)
-    gps = -(-G // min(G, -(-_TARGET_CTAS // cols)))
-    S = -(-G // gps)
+    tt, gps, S = split_groups(T, half, IN // GROUP)
     dev = x.device
     out = torch.empty((T, 2 * half), dtype=x.dtype, device=dev)
     xq = torch.empty((T, IN), dtype=torch.int8, device=dev)

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the reference package,
-and its engine runs on the card unless the caller asks for the CPU."""
+"""The port stands alone: it imports neither JAX nor the reference package
+(nor ``safetensors`` or ``ml_dtypes``, which the card's machine lacks), and
+its engine runs on the card unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -22,9 +23,11 @@ def test_import_loads_no_jax_and_no_reference():
             "kvzip_tpu_torch.ops.w4a8_v2, kvzip_tpu_torch.ops.fused_act, "
             "kvzip_tpu_torch.ops.windowed_attend, kvzip_tpu_torch.ops.flat_decode, "
             "kvzip_tpu_torch.ops.w4a8_fused, "
-            "kvzip_tpu_torch.cache, kvzip_tpu_torch.models.params\n"
+            "kvzip_tpu_torch.cache, kvzip_tpu_torch.models.params, "
+            "kvzip_tpu_torch.models.transformer\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-            " or m == 'kvzip_tpu' or m.startswith('kvzip_tpu.')]\n"
+            " or m == 'kvzip_tpu' or m.startswith('kvzip_tpu.')"
+            " or m.split('.')[0] in ('safetensors', 'ml_dtypes')]\n"
             "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True).stdout
@@ -48,6 +51,18 @@ def test_no_file_imports_jax_or_reference(path):
     for mod in _imported_modules(os.path.join(ROOT, path)):
         top = mod.split(".")[0]
         assert top not in ("jax", "jaxlib", "kvzip_tpu"), f"{path}: {mod}"
+
+
+@pytest.mark.parametrize("path", sorted(
+    os.path.relpath(os.path.join(d, f), ROOT)
+    for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py"))
+    + ["chip_smoke.py"])
+def test_no_file_imports_safetensors_or_ml_dtypes(path):
+    """The card's machine has neither: the port reads checkpoints with its
+    own reader (``models/params.py::_read_raw``) and the smoke writes them
+    with its own writer."""
+    for mod in _imported_modules(os.path.join(ROOT, path)):
+        assert mod.split(".")[0] not in ("safetensors", "ml_dtypes"), f"{path}: {mod}"
 
 
 def test_engine_defaults_to_cuda_and_raises_without_a_card():

@@ -1,7 +1,7 @@
-"""On the card: each CUDA kernel (K1-K14; K7 and K11 also in their
+"""On the card: each CUDA kernel (K1-K16; K7 and K11 also in their
 int8-attention mode, K3 and K7 also with one tail length per kv head)
 against its plain version, on the same bf16 inputs (int4 rows with bf16 or float32 scales
-for K5-K7, int4 weights with bf16 scales for K8), the plain version
+for K5-K7, int4 weights with bf16 scales for K8, K15 and K16), the plain version
 computed in float32.
 
 Run on a machine with a card: ``python -m pytest -n 0 -m cuda
@@ -11,7 +11,8 @@ size: elementwise |got - want| <= rtol |want| + 0.02 RMS(want), with rtol
 2^-7 on attention outputs (bf16 probabilities in the p.v product, bf16
 output; K5-K7 also round their dequantized values to bf16, K8 its
 output) and 2^-4 on scores (bf16-rounded logits), and RMS(got - want) <=
-2^-7 RMS(want). In the int8-attention mode the plain version repeats the
+2^-7 RMS(want); K15/K16's bias is added to the bf16 output and rounded
+again, as the plain version adds it. In the int8-attention mode the plain version repeats the
 kernel's s8 arithmetic at its 64-row p tile and the integer sums are
 exact, but a quantized p lying at a .5 boundary may round one step the
 other way in the kernel's float32: the same gate holds it after
@@ -556,4 +557,80 @@ def test_w4a8_layer_fused_rejects_wrong_dtypes_and_shapes(gen):
                                     0, eps=1e-6)
     with pytest.raises(ValueError, match="does not fit"):
         w4a8_fused.w4a8_layer_fused(x, attn, ln, ln, ws[0], ws[3], *ws[2:], 0, eps=1e-6)
+    assert sum(LAUNCHES.values()) == 0
+
+
+def _v1_stack(gen, L, IN, OUT):
+    """A v1 W4A8 stack of N(0, 0.02) weights (pad groups where IN / 128 is
+    not a multiple of the reference's 16 groups a block), on the card."""
+    from kvzip_tpu_torch.ops import w4a8
+
+    w = torch.randn(L, IN, OUT, generator=gen) * 0.02
+    return {k: t.cuda() for k, t in w4a8.quantize_weight_int4(w).items()}
+
+
+@pytest.mark.parametrize("T", [1, 24, 511])
+@pytest.mark.parametrize("IN,OUT", [(2304, 256), (256, 640), (128, 512), (256, 10240)])
+def test_w4a8_v1_stacked_kernel(gen, T, IN, OUT):
+    """K15 at every layer of a 3-layer stack: pad groups (2304 -> 32
+    groups), one input group, and a grid of one split (10240 columns at
+    T = 511) beside several."""
+    from kvzip_tpu_torch.ops import w4a8
+
+    L = 3
+    w = _v1_stack(gen, L, IN, OUT)
+    x = _rn(gen, T, IN)
+    for layer in range(L):
+        got = w4a8.w4a8_matmul_stacked(x, w["q4"], w["s"], w["z"], layer)
+        want = w4a8._w4a8_jnp(x.float(), {k: t[layer] for k, t in w.items()})
+        assert got.dtype == torch.bfloat16 and got.shape == (T, OUT)
+        assert _ok(got, want)
+    assert LAUNCHES["w4a8_matmul_stacked"] == L and LAUNCHES["w4a8_matmul"] == 0
+
+
+@pytest.mark.parametrize("T", [1, 24])
+@pytest.mark.parametrize("IN,OUT", [(2304, 256), (256, 640)])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_w4a8_v1_kernel_with_bias(gen, T, IN, OUT, with_bias):
+    """K16 on one weight, its bias added after the cast to bf16."""
+    from kvzip_tpu_torch.ops import w4a8
+
+    w = {k: t[0] for k, t in _v1_stack(gen, 1, IN, OUT).items()}
+    x = _rn(gen, T, IN)
+    bias = _rn(gen, OUT) if with_bias else None
+    got = w4a8.w4a8_matmul(x, w["q4"], w["s"], w["z"], bias)
+    want = w4a8._w4a8_jnp(x.float(), w)
+    if with_bias:
+        want = want.to(torch.bfloat16).float() + bias.float()
+    assert _ok(got, want)
+    assert LAUNCHES["w4a8_matmul"] == 1 and LAUNCHES["w4a8_matmul_stacked"] == 0
+
+
+def test_w4a8_v1_gate_rejects_a_dropped_group(gen):
+    from kvzip_tpu_torch.ops import w4a8
+
+    w = _v1_stack(gen, 2, 2304, 256)
+    x = _rn(gen, 1, 2304)
+    got = w4a8.w4a8_matmul_stacked(x, w["q4"], w["s"], w["z"], 1)
+    xd = x.float().clone()
+    xd[:, 128:256] = 0  # input group 1
+    assert not parity(got, w4a8._w4a8_jnp(xd, {k: t[1] for k, t in w.items()}),
+                      OUT_RTOL)["ok"]
+
+
+def test_w4a8_v1_rejects_wrong_dtypes_and_shapes(gen):
+    from kvzip_tpu_torch.ops import w4a8
+
+    w = _v1_stack(gen, 2, 256, 256)
+    x = _rn(gen, 4, 256)
+    with pytest.raises(TypeError, match="bfloat16"):
+        w4a8.w4a8_matmul_stacked(x.float(), w["q4"], w["s"], w["z"], 0)
+    with pytest.raises(TypeError, match="uint8"):
+        w4a8.w4a8_matmul_stacked(x, w["q4"].view(torch.int8), w["s"], w["z"], 0)
+    with pytest.raises(TypeError, match="bfloat16"):
+        w4a8.w4a8_matmul(x, w["q4"][0], w["s"][0], w["z"][0], torch.zeros(256, device="cuda"))
+    with pytest.raises(ValueError, match="bad shapes"):
+        w4a8.w4a8_matmul_stacked(x, w["q4"], w["s"], w["z"], 2)
+    with pytest.raises(ValueError, match="bad shapes"):
+        w4a8.w4a8_matmul_stacked(_rn(gen, 4, 384), w["q4"], w["s"], w["z"], 0)
     assert sum(LAUNCHES.values()) == 0
