@@ -5,7 +5,9 @@
 
 1. Card: prints ``nvidia-smi``'s name and power limit; fails without CUDA.
 2. Build: builds the CUDA kernels K1-K16 from ``kvzip_tpu_torch/csrc``
-   (thirteen sources, one ``nvcc`` each, all started together).
+   (thirteen sources, one ``nvcc`` each, all started together), and logs
+   ptxas's register, shared-memory and spill lines for K1 and K4 with the
+   count of HGMMA (wgmma) instructions in K1's SASS, which must not be 0.
 3. Kernel parity: each kernel against its plain PyTorch version (computed
    in float32 from the same inputs) at every shape its main path gives
    it, through ``kvzip_tpu_torch.ops.parity`` (tolerances relative to the
@@ -20,6 +22,8 @@
    attention (K7-q8, K11-q8) is held against its plain version's own s8
    arithmetic, discounting the quantized-p steps that float32 rounding may
    flip (the plain version's ``with_slack``).
+   K1 is timed at the prefill's 4,096-query chunk and at a 2,304-query
+   scoring window, K4 at T = 1 and 8, each beside SDPA with its mask.
    K10/K11 at T = 1 and 24, one and two merged sequences, on an evicted
    and on the full flat stack (``kernel_parity_flat``). K3, K7 and K7-q8
    also with one tail length per kv head (one of them 0). K12, the fused
@@ -219,6 +223,25 @@ def write_safetensors(path: str, tensors: dict) -> None:
             f.write(blob)
 
 
+def hopper_build_report(_build, build_logs) -> dict:
+    """ptxas's entry, register, shared-memory and spill lines for K1 and K4,
+    and the count of HGMMA (wgmma) instructions in K1's SASS, which must
+    not be 0."""
+    import shutil
+
+    rep = {}
+    for name in ("flash", "ragged_decode"):
+        rep[f"{name}_ptxas"] = [ln.strip() for ln in build_logs[name].splitlines()
+                                if any(w in ln for w in ("Compiling entry", "registers", "spill"))]
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "--dump-sass", _build._lib_path("flash")], capture_output=True,
+                          text=True, check=True).stdout
+    rep["flash_sass_hgmma"] = sum("HGMMA" in ln for ln in sass.splitlines())
+    if not rep["flash_sass_hgmma"]:
+        raise AssertionError("K1's SASS holds no HGMMA: it does not run on wgmma")
+    return rep
+
+
 # ---------------------------------------------------------------- kernels
 def hold_parity(checks, name, shape, got, want, rtol, perturbed=None):
     """Record ``ops.parity`` of got against want (and, where given, whether
@@ -325,9 +348,11 @@ def kernel_parity(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int)
     prefill_len = sink + ctx_tokens
 
     # K1 at the prefill's largest chunk (4096 queries after 12288 rows) and
-    # at a scoring window (2304 queries after the whole prefill)
+    # at a scoring window (2304 queries after the whole prefill), both timed
+    # beside SDPA with the same causal mask
     k, v = rn(Hkv, capacity, D), rn(Hkv, capacity, D)
     kf, vf = k.float(), v.float()
+    timed = {}
     for T, base in ((4096, 12288), (2304, prefill_len)):
         q = rn(T, H, D)
         lens = torch.full((Hkv,), base, dtype=torch.int32, device=dev)
@@ -338,21 +363,21 @@ def kernel_parity(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int)
             drop = flash.flash_attend_plain(q.float(), kf, vf, lens - 64, scale=scale)
         hold("flash_attend", f"q ({T},{H},{D}) base {base} C {capacity}", got, want,
              OUT_RTOL, drop)
-        if T != 4096:
-            continue
         S = base + T
         ke, ve = k[:, :S].contiguous(), v[:, :S].contiguous()
         mask = torch.arange(S, device=dev)[None] < base + torch.arange(T, device=dev)[:, None] + 1
         pairs = H * (T * base + T * (T + 1) // 2)
         b = bound(4 * D * pairs, 2 * (2 * T * H * D) + 2 * 2 * Hkv * S * D)
-        out.append(dict(
-            name="flash_attend", route="cuda", source="kvzip_tpu_torch/csrc/flash.cu",
-            replaces="kvzip_tpu/ops/flash.py:173",
+        timed[f"T {T} base {base}"] = dict(
             **kernel_ms(lambda: flash.flash_attend(q, k, v, lens, scale=scale), 10),
-            plain_ms=time_ms(lambda: flash.flash_attend_plain(q, k, v, lens, scale=scale), 2, 1),
-            bound_ms=b[0], bound_by=b[1],
-            library_ms=graph_ms(lambda: sdpa(q, ke, ve, mask), 10)))
+            bound_ms=b[0], bound_by=b[1], library_ms=graph_ms(lambda: sdpa(q, ke, ve, mask), 10))
+        if T == 4096:
+            plain_ms = time_ms(lambda: flash.flash_attend_plain(q, k, v, lens, scale=scale), 2, 1)
         del ke, ve, mask
+    out.append(dict(
+        name="flash_attend", route="cuda", source="kvzip_tpu_torch/csrc/flash.cu",
+        replaces="kvzip_tpu/ops/flash.py:173", **timed["T 4096 base 12288"],
+        plain_ms=plain_ms, per_shape=timed))
     del q, k, v, kf, vf
 
     # K2 at a scoring chunk: 2304 padded repeat queries, a 2048-wide window
@@ -377,13 +402,15 @@ def kernel_parity(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int)
         bound_ms=b[0], bound_by=b[1], library_ms=None))
     del q, keys
 
-    # K4 at decode steps on the dense cache (T = 1, and T = 4 for a query's
-    # last pieces): all 28 layers' stacks, cycled layer by layer in timing
-    # so every launch reads its rows from device memory
+    # K4 at decode steps on the dense cache (T = 1; T = 4 for a query's last
+    # pieces, T = 8 for the largest block): all 28 layers' stacks, cycled
+    # layer by layer in timing so every launch reads its rows from device
+    # memory; SDPA beside it (with the causal mask at T = 8)
     kc, vc = rn(L, Hkv, capacity, D), rn(L, Hkv, capacity, D)
     kf, vf = kc[0].float(), vc[0].float()
     lens = torch.full((Hkv,), prefill_len, dtype=torch.int32, device=dev)
-    for T in (1, 4):
+    timed = {}
+    for T in (1, 4, 8):
         q = rn(T, H, D)
         got = ragged_decode.ragged_decode_attend(q, kc[0], vc[0], lens, scale=scale)
         want = ragged_decode.ragged_decode_attend_plain(q.float(), kf, vf, lens, scale=scale)
@@ -393,9 +420,13 @@ def kernel_parity(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int)
                                                             scale=scale)
         hold("ragged_decode_attend", f"q ({T},{H},{D}) live {prefill_len} C {capacity}",
              got, want, OUT_RTOL, drop)
-        if T != 1:
+        if T == 4:
             continue
-        S = prefill_len + T  # one query sees every live row: no mask needed
+        S = prefill_len + T
+        mask = None  # one query sees every live row
+        if T > 1:
+            mask = torch.arange(S, device=dev)[None] < (prefill_len + 1
+                                                        + torch.arange(T, device=dev)[:, None])
 
         def k4():
             l = next_layer()
@@ -403,18 +434,19 @@ def kernel_parity(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int)
 
         def k4_library():
             l = next_layer()
-            return sdpa(q, kc[l, :, :S], vc[l, :, :S])
+            return sdpa(q, kc[l, :, :S], vc[l, :, :S], mask)
 
         b = bound(4 * D * H * T * S, 2 * 2 * Hkv * S * D + 2 * 2 * T * H * D)
-        out.append(dict(
-            name="ragged_decode_attend", route="cuda",
-            source="kvzip_tpu_torch/csrc/ragged_decode.cu",
-            replaces="kvzip_tpu/ops/ragged_decode.py:125",
-            **kernel_ms(k4, 56),
-            plain_ms=time_ms(lambda: ragged_decode.ragged_decode_attend_plain(
-                q, kc[0], vc[0], lens, scale=scale), 5, 1),
-            bound_ms=b[0], bound_by=b[1],
-            library_ms=graph_ms(k4_library, 56)))
+        timed[f"T {T}"] = dict(**kernel_ms(k4, 56), bound_ms=b[0], bound_by=b[1],
+                               library_ms=graph_ms(k4_library, 56))
+        if T == 1:
+            plain_ms = time_ms(lambda: ragged_decode.ragged_decode_attend_plain(
+                q, kc[0], vc[0], lens, scale=scale), 5, 1)
+    out.append(dict(
+        name="ragged_decode_attend", route="cuda",
+        source="kvzip_tpu_torch/csrc/ragged_decode.cu",
+        replaces="kvzip_tpu/ops/ragged_decode.py:125", **timed["T 1"], plain_ms=plain_ms,
+        per_shape=timed))
     del kc, vc, kf, vf
 
     # K3 at decode steps on a pruned pool (~30% of each head's rows kept,
@@ -1965,6 +1997,7 @@ def main() -> int:
     log(phase="build", seconds=time.perf_counter() - t0,
         ptxas=[ln.strip() for lg in build_logs.values() for ln in lg.splitlines()
                if "registers" in ln])
+    log(phase="build_k1_k4", **hopper_build_report(_build, build_logs))
 
     cfg = resolve_config(MODEL)
     t0 = time.perf_counter()

@@ -56,7 +56,9 @@ def _start(name: str, tmp: str) -> subprocess.Popen:
 
 def build_all(names=KERNELS) -> Dict[str, str]:
     """Build every missing library in parallel; returns nvcc's log per
-    kernel (ptxas register and shared-memory use), "" where reused."""
+    kernel (ptxas register and shared-memory use), kept beside each library
+    (``lib<name>-<hash>.so.log``) and read back where the library is
+    reused."""
     os.makedirs(BUILD, exist_ok=True)
     with _lock:
         procs = {}
@@ -72,9 +74,15 @@ def build_all(names=KERNELS) -> Dict[str, str]:
             if proc.returncode != 0:
                 errors.append(f"nvcc failed for {n}.cu:\n{logs[n]}")
             else:
+                with open(f"{out}.log", "w") as fh:
+                    fh.write(logs[n])
                 os.replace(tmp, out)
         if errors:
             raise RuntimeError("\n".join(errors))
+        for n in names:
+            if n not in procs and os.path.exists(f"{_lib_path(n)}.log"):
+                with open(f"{_lib_path(n)}.log") as fh:
+                    logs[n] = fh.read()
     return logs
 
 

@@ -1,7 +1,8 @@
 """K1: causal GQA flash attention over the dense cache (prefill, scoring).
 
 Port of ``kvzip_tpu/ops/flash.py::flash_attend``; the kernel is
-``csrc/flash.cu``. Key j of kv head h is visible to query i iff
+``csrc/flash.cu`` (TMA loads and wgmma, one CTA per query head and block
+of 128 queries). Key j of kv head h is visible to query i iff
 ``j < base_lens[h] + i + 1``.
 """
 
@@ -34,10 +35,12 @@ def flash_attend(q: torch.Tensor, k_cache: torch.Tensor,
                       dict(base_lens=base_lens))
     T, H, D = q.shape
     Hkv, C, _ = k_cache.shape
-    if H % Hkv or H // Hkv > 32 or v_cache.shape != k_cache.shape \
-            or base_lens.shape != (Hkv,):
+    if H % Hkv or v_cache.shape != k_cache.shape or base_lens.shape != (Hkv,):
         raise ValueError(f"flash_attend: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k_cache.shape)} lens {tuple(base_lens.shape)}")
+    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
+        raise ValueError("flash_attend: q, k_cache and v_cache must start on "
+                         "16-byte boundaries (TMA)")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         fn = _build.kernel("flash", "kvz_flash_attend", _ARGS)

@@ -1,13 +1,17 @@
 """K4: decode attention (T <= 8) against the dense cache.
 
 Port of ``kvzip_tpu/ops/ragged_decode.py::ragged_decode_attend``; the kernel
-is ``csrc/ragged_decode.cu`` (flash-decoding: per-split partials, then a
-merge).
+is ``csrc/ragged_decode.cu``: one launch, a grid of at most one CTA a SM
+(:func:`plan_splits`), each kv head's live rows cut on the device into S
+equal splits (:func:`split_bounds` mirrors that arithmetic), and the
+head's first eight splits merging all the splits' partials, a column slice
+each, once the head's count of published partials is complete.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -15,9 +19,12 @@ from kvzip_tpu_torch import _build
 from kvzip_tpu_torch.ops import (LAUNCHES, attention, check_kernel_args,
                                  on_cuda, stream_ptr)
 
-_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_float,
+_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float,
                                                       ctypes.c_void_p]
 MAX_T = 8
+ROWS_PER_CTA = 32   # packed (query, head) rows a CTA (csrc/ragged_decode.cu RG)
+SPLIT_ALIGN = 16    # split lengths are multiples of a warp's 16-key tile
+_tickets = {}       # device -> the kernel's arrival counts, zero between launches
 
 
 def split_size(n_keys: int, groups: int, target: int = 1024) -> int:
@@ -27,6 +34,39 @@ def split_size(n_keys: int, groups: int, target: int = 1024) -> int:
     while groups * -(-n_keys // ch) > target and ch < 1 << 16:
         ch *= 2
     return ch
+
+
+def plan_splits(capacity: int, n_kv_heads: int, rows: int, sms: int):
+    """(S, row groups) of K4's grid (row groups, S, n_kv_heads): S splits of
+    each head's live rows, the most that keep the grid within one CTA a SM
+    (at least one), and no more than the capacity's 64-key units."""
+    groups = -(-rows // ROWS_PER_CTA)
+    S = max(1, sms // (n_kv_heads * groups))
+    return min(S, -(-capacity // 64)), groups
+
+
+def split_bounds(live: int, S: int):
+    """The key range [k0, k1) of each of the S splits of ``live`` rows, as
+    the kernel computes it: equal lengths rounded up to ``SPLIT_ALIGN``."""
+    per = -(-live // S)
+    chunk = -(-per // SPLIT_ALIGN) * SPLIT_ALIGN
+    return [(min(s * chunk, live), min(s * chunk + chunk, live)) for s in range(S)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
+    """At least n zeroed int32 arrival counts, kept a device (the first call
+    at a size must not be inside a CUDA-graph capture); each launch leaves
+    its counts zero."""
+    t = _tickets.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _tickets[device] = t
+    return t
 
 
 def ragged_decode_attend_plain(q, k_cache, v_cache, base_lens, *, scale):
@@ -51,16 +91,20 @@ def ragged_decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"ragged_decode_attend: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k_cache.shape)}")
     R = (H // Hkv) * T
-    ch = split_size(C, Hkv * -(-R // 64))
-    S = -(-C // ch)
+    S, groups = plan_splits(C, Hkv, R, _sm_count(q.device))
     out = torch.empty_like(q)
-    part_acc = torch.empty((Hkv, S, R, D), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((Hkv, S, R, 2), dtype=torch.float32, device=q.device)
+    # a (kv head, row group)'s S x 32 x D values and 32 x S (m, l) pairs
+    # (laid out in the kernel), and 4 floats the merge's copy may read past
+    part_acc = torch.empty(Hkv * groups * S * ROWS_PER_CTA * D, dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty(Hkv * groups * ROWS_PER_CTA * S * 2 + 4, dtype=torch.float32,
+                          device=q.device)
+    tickets = _ticket_buffer(q.device, Hkv * groups)
     with torch.cuda.device(q.device):
         fn = _build.kernel("ragged_decode", "kvz_ragged_decode", _ARGS)
         _build.check(fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                         base_lens.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-                        part_ml.data_ptr(), T, H, Hkv, C, ch, scale,
+                        part_ml.data_ptr(), tickets.data_ptr(), T, H, Hkv, C, S, scale,
                         stream_ptr(q.device)), "ragged_decode_attend")
     LAUNCHES["ragged_decode_attend"] += 1
     return out

@@ -60,9 +60,21 @@ def _ok(got, want, rtol=OUT_RTOL, slack=None):
 
 
 
-@pytest.mark.parametrize("H,Hkv", [(4, 2), (28, 4)])
+def _drop_first_tile(plain, q, k, v, lens):
+    """The plain version without the first 64 keys: a kernel that lost a
+    tile. The gate must reject it."""
+    return plain(q.float(), k[:, 64:].float(), v[:, 64:].float(),
+                 (lens - 64).clamp_min(0), scale=D ** -0.5)
+
+
+# base + T == C on head 0 where C - T == base; T = 200 and 48 are not
+# multiples of the 128-query block; C = 300 is no multiple of the 128-key
+# tile (the last tile reads past C); the kv heads' bases differ by 7
+@pytest.mark.parametrize("H,Hkv", [(4, 2), (28, 4), (32, 8)])
 @pytest.mark.parametrize("T,C,base", [(48, 256, 100), (256, 1024, 0),
-                                      (1024, 8192, 5000)])
+                                      (1024, 8192, 5000), (16, 512, 300),
+                                      (200, 1024, 824), (2304, 4096, 1792),
+                                      (100, 300, 180)])
 def test_flash_kernel(gen, H, Hkv, T, C, base):
     q, k, v = _rn(gen, T, H, D), _rn(gen, Hkv, C, D), _rn(gen, Hkv, C, D)
     lens = torch.tensor([max(base - 7 * i, 0) for i in range(Hkv)],
@@ -71,19 +83,45 @@ def test_flash_kernel(gen, H, Hkv, T, C, base):
     want = flash.flash_attend_plain(q.float(), k.float(), v.float(), lens,
                                     scale=D ** -0.5)
     assert _ok(got, want) and LAUNCHES["flash_attend"] == 1
+    drop = _drop_first_tile(flash.flash_attend_plain, q, k, v, lens)
+    assert not parity(got, drop, OUT_RTOL)["ok"]
 
 
-@pytest.mark.parametrize("H,Hkv", [(4, 2), (28, 4)])
+def _single_row_live(S: int, lo: int) -> int:
+    """The least live length >= lo whose K4 split plan has a split holding
+    exactly one row."""
+    return next(n for n in range(lo, lo + (1 << 16))
+                if any(b - a == 1 for a, b in ragged_decode.split_bounds(n, S)))
+
+
+@pytest.mark.parametrize("H,Hkv", [(4, 2), (28, 4), (32, 8)])
 @pytest.mark.parametrize("T", [1, 3, 8])
-def test_ragged_decode_kernel(gen, H, Hkv, T):
-    C = 4096
+@pytest.mark.parametrize("lens_kind", ["ragged", "edges", "short"])
+def test_ragged_decode_kernel(gen, H, Hkv, T, lens_kind):
+    """"ragged": C = 4096, bases 3000 - 400 h. "edges": C = 4001 (no
+    multiple of the 16-key tile or split unit), head 0 at base 0, head 1
+    at base + T = C, head 2 with a split that holds a single live row.
+    "short": C = 160, so fewer than 8 splits and fewer merging CTAs, each
+    merging a wider column slice."""
+    C = {"ragged": 4096, "edges": 4001, "short": 160}[lens_kind]
     q, k, v = _rn(gen, T, H, D), _rn(gen, Hkv, C, D), _rn(gen, Hkv, C, D)
-    lens = torch.tensor([3000 - 400 * i for i in range(Hkv)],
-                        dtype=torch.int32, device="cuda")
+    if lens_kind == "ragged":
+        lens = [3000 - 400 * i for i in range(Hkv)]
+    elif lens_kind == "short":
+        lens = [C - T - 19 * i for i in range(Hkv)]
+    else:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        S, _ = ragged_decode.plan_splits(C, Hkv, (H // Hkv) * T, sms)
+        lens = [0, C - T] + [C // 2 - 37 * i for i in range(2, Hkv)]
+        if Hkv > 2:
+            lens[2] = _single_row_live(S, 1000) - T
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
     got = ragged_decode.ragged_decode_attend(q, k, v, lens, scale=D ** -0.5)
     want = ragged_decode.ragged_decode_attend_plain(
         q.float(), k.float(), v.float(), lens, scale=D ** -0.5)
     assert _ok(got, want) and LAUNCHES["ragged_decode_attend"] == 1
+    drop = _drop_first_tile(ragged_decode.ragged_decode_attend_plain, q, k, v, lens)
+    assert not parity(got, drop, OUT_RTOL)["ok"]
 
 
 @pytest.mark.parametrize("H,Hkv", [(4, 2), (28, 4)])

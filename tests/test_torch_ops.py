@@ -31,8 +31,10 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+# (20, [108, 0]): base + T = C on head 0, base 0 on head 1, and T no
+# multiple of the reference's 8-query block or the kernel's 128
 @pytest.mark.parametrize("G", [2, 7])
-@pytest.mark.parametrize("T,lens", [(16, [40, 3]), (32, [0, 77])])
+@pytest.mark.parametrize("T,lens", [(16, [40, 3]), (32, [0, 77]), (20, [108, 0])])
 def test_flash_plain_matches_reference_kernel(G, T, lens):
     rng = np.random.default_rng(G * 100 + T)
     Hkv, C = 2, 128
@@ -48,21 +50,45 @@ def test_flash_plain_matches_reference_kernel(G, T, lens):
     _close(got, want)
 
 
+# "edges": base + T = C on head 0 and base 0 on head 2
 @pytest.mark.parametrize("G", [2, 7])
 @pytest.mark.parametrize("T", [1, 3, 8])
-def test_ragged_decode_plain_matches_reference_kernel(G, T):
+@pytest.mark.parametrize("lens_kind", ["ragged", "edges"])
+def test_ragged_decode_plain_matches_reference_kernel(G, T, lens_kind):
     rng = np.random.default_rng(G * 10 + T)
     Hkv, C = 3, 128
     q = rng.standard_normal((T, Hkv * G, D), np.float32)
     k = rng.standard_normal((Hkv, C, D), np.float32)
     v = rng.standard_normal((Hkv, C, D), np.float32)
-    base = np.asarray([25, 0, 97], np.int32)
+    base = np.asarray([25, 0, 97] if lens_kind == "ragged" else [C - T, 61, 0],
+                      np.int32)
     want = jragged.ragged_decode_attend(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(base),
         scale=D ** -0.5, block_kv=32, interpret=True)
     got = ragged_decode.ragged_decode_attend(_t(q), _t(k), _t(v), _t(base),
                                              scale=D ** -0.5)
     _close(got, want)
+
+
+# K4's grid at the main paths' shapes (qwen2.5-7b and llama3.1-8b at a
+# 16k context, T 1 and 8) and at the cuda lane's
+@pytest.mark.parametrize("C,Hkv,G,T,live", [
+    (19456, 4, 7, 1, 16545), (19456, 4, 7, 8, 16552), (19456, 8, 4, 1, 16610),
+    (19456, 8, 4, 8, 16617), (4000, 2, 2, 3, 1), (4000, 4, 7, 8, 4000),
+    (128, 3, 7, 8, 33)])
+def test_ragged_decode_split_plan_covers_each_live_row_once(C, Hkv, G, T, live):
+    sms = 132
+    S, groups = ragged_decode.plan_splits(C, Hkv, G * T, sms)
+    assert groups == -(-G * T // ragged_decode.ROWS_PER_CTA)
+    assert 1 <= Hkv * groups * S <= sms  # at most one CTA a SM
+    bounds = ragged_decode.split_bounds(live, S)
+    assert len(bounds) == S
+    covered = np.zeros(live, np.int32)
+    for k0, k1 in bounds:
+        assert 0 <= k0 <= k1 <= live
+        assert k0 % ragged_decode.SPLIT_ALIGN == 0 or k0 == live
+        covered[k0:k1] += 1
+    assert (covered == 1).all()
 
 
 @pytest.mark.parametrize("G", [2, 7])
