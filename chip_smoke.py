@@ -6,8 +6,11 @@
 1. Card: prints ``nvidia-smi``'s name and power limit; fails without CUDA.
 2. Build: builds the CUDA kernels K1-K16 from ``kvzip_tpu_torch/csrc``
    (thirteen sources, one ``nvcc`` each, all started together), and logs
-   ptxas's register, shared-memory and spill lines for K1 and K4 with the
-   count of HGMMA (wgmma) instructions in K1's SASS, which must not be 0.
+   (``build_wgmma``) ptxas's register, shared-memory and spill lines for
+   the Hopper kernels K1, K4, K5/K6's prefill form and K9, with the count
+   of HGMMA (wgmma) instructions and the spilled bytes of each wgmma
+   kernel (K1, K9 and the int4 body) from its SASS; fewer than 16 HGMMA
+   fails the run.
 3. Kernel parity: each kernel against its plain PyTorch version (computed
    in float32 from the same inputs) at every shape its main path gives
    it, through ``kvzip_tpu_torch.ops.parity`` (tolerances relative to the
@@ -23,7 +26,12 @@
    arithmetic, discounting the quantized-p steps that float32 rounding may
    flip (the plain version's ``with_slack``).
    K1 is timed at the prefill's 4,096-query chunk and at a 2,304-query
-   scoring window, K4 at T = 1 and 8, each beside SDPA with its mask.
+   scoring window, K4 at T = 1 and 8, each beside SDPA with its mask; K9
+   beside SDPA with its bool mask; K5's prefill form and K6 beside the same
+   attention computed by dequantizing the live rows and calling K1 (logged
+   as ``deq_k1_ms`` and ``k1_ms``). K5's two forms (T > 16, T <= 16) are
+   two rows of the kernels line, each with its own launches
+   (``LAUNCHES["flash_attend_int4_decode"]`` counts the decode form).
    K10/K11 at T = 1 and 24, one and two merged sequences, on an evicted
    and on the full flat stack (``kernel_parity_flat``). K3, K7 and K7-q8
    also with one tail length per kv head (one of them 0). K12, the fused
@@ -53,7 +61,8 @@
    answer, an all-rows-kept int4 pool held against K5 on the dense int4
    cache (``allkept_attention_int4``), prune(0.3, "pair"), three queries
    on the int4 pool and the full int4 pool baseline. Counters zeroed
-   before and read after; K2 and K5-K8 must have run. Then the int4 flat
+   before and read after; K2 and K5-K8 (K5 in both forms) must have run.
+   Then the int4 flat
    layout on the same kept rows (K11), the same flat state with
    ``attn_quant="int8"`` (K11-q8) and the pool with it (K7-q8), each its
    own counted phase that must not run the other modes' or layout's
@@ -91,7 +100,8 @@
    K9, K13 and K14 parity and times at its shapes, then
    ``Engine(weight_quant="w8a8", kv_quant="int4", act_fused="pallas")``
    through the same main path (its own 16384-token context and queries);
-   K2, K5, K6, K7, K13 and K14 must have run. Then the windowed pass: one
+   K2, K5 (both forms), K6, K7, K13 and K14 must have run. Then the
+   windowed pass: one
    prefill of the same context scored exactly and with
    ``scoring_attend="window"`` (K9 must have run), reporting both scoring
    times, the Pearson correlation of the two scores and the agreement of
@@ -107,6 +117,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -223,22 +234,44 @@ def write_safetensors(path: str, tensors: dict) -> None:
             f.write(blob)
 
 
+# library -> SASS function-name fragment of each of its wgmma kernels
+WGMMA_KERNELS = {"flash": "flash_bf16_kernel", "windowed_attend": "flash_bf16_kernel",
+                 "flash_int4": "flash_int4_wgmma_kernel"}
+
+
 def hopper_build_report(_build, build_logs) -> dict:
-    """ptxas's entry, register, shared-memory and spill lines for K1 and K4,
-    and the count of HGMMA (wgmma) instructions in K1's SASS, which must
-    not be 0."""
+    """ptxas's entry, register, shared-memory and spill lines for the Hopper
+    kernels (K1, K4, K5/K6's prefill form, K9), and for each wgmma kernel
+    the count of HGMMA instructions in its SASS and its spilled bytes
+    (stores plus loads). A wgmma kernel with fewer than 16 HGMMA (one q.k
+    and one p.v product of eight 16-deep steps a tile) fails the run."""
     import shutil
 
     rep = {}
-    for name in ("flash", "ragged_decode"):
+    for name in ("flash", "ragged_decode", "flash_int4", "windowed_attend"):
         rep[f"{name}_ptxas"] = [ln.strip() for ln in build_logs[name].splitlines()
                                 if any(w in ln for w in ("Compiling entry", "registers", "spill"))]
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "--dump-sass", _build._lib_path("flash")], capture_output=True,
-                          text=True, check=True).stdout
-    rep["flash_sass_hgmma"] = sum("HGMMA" in ln for ln in sass.splitlines())
-    if not rep["flash_sass_hgmma"]:
-        raise AssertionError("K1's SASS holds no HGMMA: it does not run on wgmma")
+    for name, frag in WGMMA_KERNELS.items():
+        sass = subprocess.run([tool, "--dump-sass", _build._lib_path(name)], capture_output=True,
+                              text=True, check=True).stdout
+        hgmma, fn = {}, None
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                fn = ln.split("Function :")[1].strip()
+            elif fn and frag in fn and "HGMMA" in ln:
+                hgmma[fn] = hgmma.get(fn, 0) + 1
+        spills, fn = {}, None
+        for ln in build_logs[name].splitlines():
+            if "Function properties for" in ln:
+                fn = ln.split("Function properties for")[1].strip()
+            elif fn and frag in fn and "spill stores" in ln:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+                spills[fn] = int(m.group(1)) + int(m.group(2))
+        rep[f"{name}_sass_hgmma"], rep[f"{name}_spill_bytes"] = hgmma, spills
+        if not hgmma or min(hgmma.values()) < 16:
+            raise AssertionError(f"{name}: a wgmma kernel's SASS holds fewer than 16 HGMMA: "
+                                 f"{hgmma}")
     return rep
 
 
@@ -516,9 +549,13 @@ def kernel_parity(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int)
 
 def kernel_parity_int4(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int):
     """K5-K8 against their plain versions at the shapes the quantized main
-    path gives them, through ``ops.parity``: K5 at a 4096-query prefill
-    chunk after 12,288 int4 rows and at T = 1 and 4 on the dense int4
-    cache; K6 at a 2304-query scoring chunk after the whole prefill; K7 at
+    path gives them, through ``ops.parity``: K5's prefill form at a
+    4096-query chunk after 12,288 int4 rows and at T = 17 (the first T past
+    ``SPLIT_T``), its decode form at T = 1 and 4 on the dense int4 cache
+    (two rows of the kernels line, each with its own launches); K6 at a
+    2304-query scoring chunk after the whole prefill, K5's prefill form and
+    K6 each beside the dequantize-then-K1 yardstick (``deq_k1_ms``,
+    ``k1_ms``, logged); K7 at
     T = 1/4/16 on a ~30% int4 pool, layers 0/14/27, tail 40; K8 at T = 1,
     16 and 256 for each of the four W4A8 linears. At one shape each the
     gate must reject a reference with one 64-key tile (K5-K7) or one
@@ -528,8 +565,8 @@ def kernel_parity_int4(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap:
     rows or weights from device memory."""
     import torch
 
-    from kvzip_tpu_torch.ops import OUT_RTOL, flash_int4, pool_decode, w4a8_v2
-    from kvzip_tpu_torch.ops.quant import quantize_int4
+    from kvzip_tpu_torch.ops import OUT_RTOL, flash, flash_int4, pool_decode, w4a8_v2
+    from kvzip_tpu_torch.ops.quant import dequantize_int4, quantize_int4
     from kvzip_tpu_torch.pool import POOL_ALIGN, plan_offsets
 
     L, H, Hkv, D = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -559,21 +596,36 @@ def kernel_parity_int4(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap:
     prefill_len = sink + ctx_tokens
     row_bytes = Dp + 4          # packed row + bf16 scale and zero
 
-    # K5: dense int4 cache of every layer (decode cycles over them)
+    # K5: dense int4 cache of every layer (decode cycles over them); the
+    # prefill form (T > 16) and the decode form are two rows of the line
     layers = [(*quant(Hkv, capacity), *quant(Hkv, capacity)) for _ in range(L)]
     kv0 = layers[0]
-    for T, base in ((4096, 12288), (1, prefill_len), (4, prefill_len)):
+
+    def deq(p, s_, z):
+        return dequantize_int4(p, s_[..., None], z[..., None], torch.bfloat16, pack="split")
+
+    def yardstick(q, lens, live_rows):
+        """The same attention computed by dequantizing the live rows to bf16
+        and calling K1: the composition's time and K1's alone on the
+        dequantized rows (notes beside the kernel, never a route of the
+        port)."""
+        kd, vd = live_rows()
+        return dict(deq_k1_ms=graph_ms(lambda: flash.flash_attend(q, *live_rows(), lens,
+                                                                  scale=scale), 10),
+                    k1_ms=graph_ms(lambda: flash.flash_attend(q, kd, vd, lens, scale=scale), 10))
+
+    for T, base in ((4096, 12288), (17, 700), (1, prefill_len), (4, prefill_len)):
         q = rn(T, H, D)
         lens = torch.full((Hkv,), base, dtype=torch.int32, device=dev)
+        name = "flash_attend_int4" if T > flash_int4.SPLIT_T else "flash_attend_int4_decode"
         got = flash_int4.flash_attend_int4(q, *kv0, lens, scale=scale)
         want = flash_int4.flash_attend_int4_plain(q.float(), *kv0, lens, scale=scale)
         drop = None
+        if T in (4096, 1):
+            drop = flash_int4.flash_attend_int4_plain(q.float(), *kv0, lens - 64, scale=scale)
+        hold(name, f"q ({T},{H},{D}) base {base} C {capacity}", got, want, OUT_RTOL, drop)
         if T == 4096:
-            drop = flash_int4.flash_attend_int4_plain(q.float(), *kv0, lens - 64,
-                                                      scale=scale)
-        hold("flash_attend_int4", f"q ({T},{H},{D}) base {base} C {capacity}", got, want,
-             OUT_RTOL, drop)
-        if T == 4096:
+            S = base + T
             pairs = H * (T * base + T * (T + 1) // 2)
             b = bound(4 * D * pairs,
                       2 * 2 * T * H * D + 2 * Hkv * (base + T) * row_bytes)
@@ -585,13 +637,21 @@ def kernel_parity_int4(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap:
                             10),
                 plain_ms=time_ms(lambda: flash_int4.flash_attend_int4_plain(
                     q, *kv0, lens, scale=scale), 2, 1),
-                bound_ms=b[0], bound_by=b[1], library_ms=None))
+                bound_ms=b[0], bound_by=b[1], library_ms=None,
+                **yardstick(q, lens, lambda: (deq(*(a[:, :S] for a in kv0[:3])),
+                                              deq(*(a[:, :S] for a in kv0[3:]))))))
         elif T == 1:
             S = base + T
-            dec_b = bound(4 * D * H * T * S, 2 * Hkv * S * row_bytes + 2 * 2 * T * H * D)
-            dec_ms = graph_ms(lambda: flash_int4.flash_attend_int4(
-                q, *layers[next_layer()], lens, scale=scale), 56)
-            out[-1].update(decode_ms=dec_ms, decode_bound_ms=dec_b[0])
+            b = bound(4 * D * H * T * S, 2 * Hkv * S * row_bytes + 2 * 2 * T * H * D)
+            out.append(dict(
+                name="flash_attend_int4_decode", route="cuda",
+                source="kvzip_tpu_torch/csrc/flash_int4.cu",
+                replaces="kvzip_tpu/ops/flash_int4.py:354",
+                **kernel_ms(lambda: flash_int4.flash_attend_int4(
+                    q, *layers[next_layer()], lens, scale=scale), 56),
+                plain_ms=time_ms(lambda: flash_int4.flash_attend_int4_plain(
+                    q, *kv0, lens, scale=scale), 5, 1),
+                bound_ms=b[0], bound_by=b[1], library_ms=None))
 
     # K6: a scoring chunk of 2304 padded queries after the whole prefill
     T = 2304
@@ -614,7 +674,10 @@ def kernel_parity_int4(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap:
                                                                scale=scale), 10),
         plain_ms=time_ms(lambda: flash_int4.flash_attend_int4_extra_plain(
             q, *kv0, lens, *extra, scale=scale), 2, 1),
-        bound_ms=b[0], bound_by=b[1], library_ms=None))
+        bound_ms=b[0], bound_by=b[1], library_ms=None,
+        **yardstick(q, lens, lambda: tuple(
+            torch.cat([deq(*(a[:, :prefill_len] for a in kv0[i:i + 3])),
+                       deq(*extra[i:i + 3]).transpose(0, 1)], dim=1) for i in (0, 3)))))
     del layers, kv0, extra
 
     # K7: a pruned int4 pool (~30% of each head's rows), partly filled tail
@@ -1997,7 +2060,7 @@ def main() -> int:
     log(phase="build", seconds=time.perf_counter() - t0,
         ptxas=[ln.strip() for lg in build_logs.values() for ln in lg.splitlines()
                if "registers" in ln])
-    log(phase="build_k1_k4", **hopper_build_report(_build, build_logs))
+    log(phase="build_wgmma", **hopper_build_report(_build, build_logs))
 
     cfg = resolve_config(MODEL)
     t0 = time.perf_counter()
@@ -2020,8 +2083,8 @@ def main() -> int:
     kernels_v1 = kernel_parity_w4a8_v1(cfg)
     log(phase="kernel_parity", seconds=time.perf_counter() - t0,
         timing_details=[{k: v for k, v in r.items()
-                         if k in ("name", "ms", "host_ms", "library_ms", "decode_ms",
-                                  "decode_bound_ms", "padded_bound_ms", "per_shape")}
+                         if k in ("name", "ms", "host_ms", "library_ms", "bound_ms",
+                                  "deq_k1_ms", "k1_ms", "padded_bound_ms", "per_shape")}
                         for r in kernels + kernels_q + kernels_f + kernels_k12 + kernels_v1])
 
     def counted(tag, engine, kernel_names, path, *args, absent=(), **kw):
@@ -2078,8 +2141,9 @@ def main() -> int:
     log(phase="init_quant", seconds=time.perf_counter() - t0, **QUANT)
     keep = {}
     launches = run("main_path_quant", eng,
-                   ("fused_scores", "flash_attend_int4", "flash_attend_int4_extra",
-                    "pool_decode_attend_int4", "w4a8_matmul_stacked_v2"),
+                   ("fused_scores", "flash_attend_int4", "flash_attend_int4_decode",
+                    "flash_attend_int4_extra", "pool_decode_attend_int4",
+                    "w4a8_matmul_stacked_v2"),
                    absent=("pool_decode_attend_int4_q8", *flat_kernels), quant=True, keep=keep)
     feng = variant(eng, flat_decode="legacy")
     launches.update(counted("flat_path_quant", feng, ("flat_decode_attend_int4",), flat_path,
@@ -2140,6 +2204,10 @@ def main() -> int:
     cross_layout_attention(pool_st.cache, flat_st.cache, cfg.num_heads, int4=True)
     allkept_check(eng, pool_st, flat_st, queries[0], keep["answers"][0], full_eng=feng,
                   phase="cross_layout_logits_quant")
+    # K5's forms: the wrapper counts every launch, the decode form also apart
+    launches["flash_attend_int4"] -= launches["flash_attend_int4_decode"]
+    if not launches["flash_attend_int4"]:
+        raise AssertionError("K5's prefill form never launched on the quantized path")
     for r in kernels_q + kernels_f + kernels_k12 + kernels_v1:
         if r["name"] in launches:
             r["launches"] = launches[r["name"]]
@@ -2170,9 +2238,11 @@ def main() -> int:
                                                              "library_ms", "per_shape")}
                         for r in kernels_w8])
     launches = run("main_path_w8a8", eng,
-                   ("fused_scores", "flash_attend_int4", "flash_attend_int4_extra",
-                    "pool_decode_attend_int4", "rmsnorm_quant", "silu_mul_quant"),
-                   quant=True)
+                   ("fused_scores", "flash_attend_int4", "flash_attend_int4_decode",
+                    "flash_attend_int4_extra", "pool_decode_attend_int4", "rmsnorm_quant",
+                    "silu_mul_quant"), quant=True)
+    if launches["flash_attend_int4"] == launches["flash_attend_int4_decode"]:
+        raise AssertionError("K5's prefill form never launched on the W8A8-KV4 path")
     launches.update(counted("windowed_scoring", weng, ("windowed_attend",), windowed_pass,
                             eng, ctx_ids))
     for r in kernels_w8:

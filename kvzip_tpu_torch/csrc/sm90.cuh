@@ -1,5 +1,5 @@
-// Hopper (sm_90a) building blocks of the redesigned attention kernels K1
-// and K4: mbarriers, TMA tensor loads, wgmma descriptors and issue, ldmatrix
+// Hopper (sm_90a) building blocks of the redesigned attention kernels (K1,
+// K4, K5/K6's prefill form, K9): mbarriers, TMA tensor loads, wgmma descriptors and issue, ldmatrix
 // and a cp.async ring, and the host-side tensor-map encoder (reached through
 // cudaGetDriverEntryPoint, so no library beyond the CUDA runtime is linked).
 //
@@ -45,11 +45,19 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
 
 // Spin until the barrier's phase of the given parity has completed. A
 // phase that never completes (a lost arrival or byte count) traps after
-// about 2^28 tries instead of hanging the card.
+// about 4 s of the global timer instead of hanging the card (each try of
+// try_wait may suspend the thread for a while, so a count of tries is no
+// clock).
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   uint32_t addr = smem_u32(bar), done = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    if (tries == (1u << 28)) __trap();
+  uint64_t t0 = 0;
+  for (uint32_t tries = 1; !done; ++tries) {
+    if ((tries & 0xFFFF) == 0) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(now));
+      if (!t0) t0 = now;
+      else if (now - t0 > 4000000000ull) __trap();
+    }
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
@@ -90,6 +98,19 @@ __device__ __forceinline__ unsigned atom_add(unsigned* p, unsigned v) {
 // later async-proxy (TMA) accesses of global memory.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// Orders this thread's earlier generic-proxy writes of shared memory before
+// later async-proxy (wgmma, TMA) accesses of it; the writer fences, then
+// arrives on the barrier the reader waits for.
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A barrier among `threads` threads (whole warps) of the CTA; id 0 is
+// __syncthreads'.
+__device__ __forceinline__ void named_bar(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // --------------------------------------------------------------------- TMA
@@ -205,7 +226,10 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64], const uin
 #undef SM90_ACC64_OUT
 
 // Register budget of a warp-specialized kernel: the producer warpgroup gives
-// registers up, the consumers take them.
+// registers up, the consumers take them. The consumers can take only what
+// the CTA's own warps gave up from its launch allocation (168 a thread at
+// 384 threads: 64,512), so producer * 128 + consumers * 256 must stay within
+// it; asking for more blocks setmaxnreg.inc for ever.
 template <int N>
 __device__ __forceinline__ void regs_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
@@ -267,17 +291,31 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map with the 128-byte swizzle and zero fill out of bounds.
-// dims[0] is the contiguous dimension; strides are in bytes, for dims 1..n-1.
-inline bool bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                     const cuuint64_t* strides, const cuuint32_t* box) {
+// A tensor map with zero fill out of bounds. dims[0] is the contiguous
+// dimension; strides are in bytes, for dims 1..n-1.
+inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, CUtensorMapSwizzle swizzle,
+                       const void* ptr, int rank, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box) {
   EncodeTiledFn fn = encode_tiled();
   if (!fn) return false;
   cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
-            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
+  return fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// bf16 rows with the 128-byte swizzle (the layout desc_sw128 describes).
+inline bool bf16_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                     const cuuint64_t* strides, const cuuint32_t* box) {
+  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, CU_TENSOR_MAP_SWIZZLE_128B, ptr, rank,
+                    dims, strides, box);
+}
+
+// uint8 rows (packed int4) as they lie, without a swizzle.
+inline bool u8_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                   const cuuint64_t* strides, const cuuint32_t* box) {
+  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, CU_TENSOR_MAP_SWIZZLE_NONE, ptr, rank, dims,
+                    strides, box);
 }
 
 }  // namespace sm90

@@ -5,7 +5,9 @@ A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
 tensors it launches its hand-written kernel (``csrc/``) or raises. Every
 kernel launch adds one to ``LAUNCHES[<wrapper name>]`` (``<wrapper
 name>_q8`` for the int8-attention mode of K7 and K11), so a run can show
-which kernels its path went through.
+which kernels its path went through. K5's decode form (T <= 16) also adds
+one to ``LAUNCHES["flash_attend_int4_decode"]``, so its two forms can be
+told apart.
 """
 
 from __future__ import annotations
@@ -14,9 +16,9 @@ import torch
 
 LAUNCHES = {"flash_attend": 0, "fused_scores": 0, "ragged_decode_attend": 0,
             "pool_decode_attend": 0, "flash_attend_int4": 0,
-            "flash_attend_int4_extra": 0, "pool_decode_attend_int4": 0,
-            "w4a8_matmul_stacked_v2": 0, "windowed_attend": 0,
-            "rmsnorm_quant": 0, "silu_mul_quant": 0,
+            "flash_attend_int4_decode": 0, "flash_attend_int4_extra": 0,
+            "pool_decode_attend_int4": 0, "w4a8_matmul_stacked_v2": 0,
+            "windowed_attend": 0, "rmsnorm_quant": 0, "silu_mul_quant": 0,
             "pool_decode_attend_int4_q8": 0, "flat_decode_attend": 0,
             "flat_decode_attend_int4": 0, "flat_decode_attend_int4_q8": 0,
             "w4a8_layer_fused": 0, "w4a8_matmul_stacked": 0, "w4a8_matmul": 0}
@@ -58,6 +60,15 @@ def check_kernel_args(what: str, bf16: dict, int32: dict = None,
     for name, t in {**bf16, **{n: t for n, (t, _) in checks.items()}}.items():
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def check_tma_aligned(what: str, **tensors: torch.Tensor) -> None:
+    """Raise unless every named tensor starts on a 16-byte boundary: the
+    Hopper kernels (K1, K5's prefill form, K6, K9) load them through TMA."""
+    bad = [n for n, t in tensors.items() if t.data_ptr() % 16]
+    if bad:
+        raise ValueError(f"{what}: {', '.join(bad)} must start on 16-byte "
+                         f"boundaries (TMA)")
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -14,7 +14,7 @@ import torch
 
 from kvzip_tpu_torch import _build
 from kvzip_tpu_torch.ops import (LAUNCHES, attention, check_kernel_args,
-                                 on_cuda, stream_ptr)
+                                 check_tma_aligned, on_cuda, stream_ptr)
 
 _ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float,
                                                       ctypes.c_void_p]
@@ -38,9 +38,7 @@ def flash_attend(q: torch.Tensor, k_cache: torch.Tensor,
     if H % Hkv or v_cache.shape != k_cache.shape or base_lens.shape != (Hkv,):
         raise ValueError(f"flash_attend: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k_cache.shape)} lens {tuple(base_lens.shape)}")
-    if any(t.data_ptr() % 16 for t in (q, k_cache, v_cache)):
-        raise ValueError("flash_attend: q, k_cache and v_cache must start on "
-                         "16-byte boundaries (TMA)")
+    check_tma_aligned("flash_attend", q=q, k_cache=k_cache, v_cache=v_cache)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         fn = _build.kernel("flash", "kvz_flash_attend", _ARGS)

@@ -6,7 +6,9 @@ uint8 with one (scale, zero) per row ``(Hkv, C)`` (``cache.Int4KVCache``).
 
 - K5 ``flash_attend_int4``: the T new rows were appended at ``base_lens``;
   key j of head h is visible to query i iff ``j < base_lens[h] + i + 1``.
-  T <= ``SPLIT_T`` (decode) runs the kernel's flash-decoding form.
+  T <= ``SPLIT_T`` (decode) runs the kernel's flash-decoding form (also
+  counted in ``LAUNCHES["flash_attend_int4_decode"]``); T > ``SPLIT_T``
+  the TMA and wgmma body that K6 shares.
 - K6 ``flash_attend_int4_extra``: the read-only scoring forward. Nothing is
   appended: cache rows ``[0, base_lens[h])`` are visible to every query and
   the chunk's own quantized rows ``(T, Hkv, D//2)`` are causal within the
@@ -21,7 +23,8 @@ import torch
 
 from kvzip_tpu_torch import _build
 from kvzip_tpu_torch.ops import (LAUNCHES, HEAD_DIM, attention,
-                                 check_kernel_args, on_cuda, stream_ptr)
+                                 check_kernel_args, check_tma_aligned, on_cuda,
+                                 stream_ptr)
 from kvzip_tpu_torch.ops.quant import dequantize_int4
 from kvzip_tpu_torch.ops.ragged_decode import split_size
 
@@ -90,6 +93,8 @@ def flash_attend_int4(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
     if not on_cuda(*args):
         return flash_attend_int4_plain(*args, scale=scale)
     T, H, Hkv, C = _cache_args("flash_attend_int4", *args)
+    if T > SPLIT_T:
+        check_tma_aligned("flash_attend_int4", q=q, k_q=k_q, v_q=v_q)
     out = torch.empty_like(q)
     ptrs = [a.data_ptr() for a in args] + [out.data_ptr()]
     with torch.cuda.device(q.device):
@@ -109,6 +114,8 @@ def flash_attend_int4(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
             err = fn(*ptrs, T, H, Hkv, C, scale, stream_ptr(q.device))
     _build.check(err, "flash_attend_int4")
     LAUNCHES["flash_attend_int4"] += 1
+    if T <= SPLIT_T:
+        LAUNCHES["flash_attend_int4_decode"] += 1
     return out
 
 
@@ -136,6 +143,8 @@ def flash_attend_int4_extra(q: torch.Tensor, k_q: torch.Tensor,
             or any(a.shape != (T, Hkv) for a in (kx_s, kx_z, vx_s, vx_z)):
         raise ValueError(f"flash_attend_int4_extra: bad extra shapes "
                          f"{tuple(kx_q.shape)} {tuple(kx_s.shape)}")
+    check_tma_aligned("flash_attend_int4_extra", q=q, k_q=k_q, v_q=v_q, kx_q=kx_q,
+                      vx_q=vx_q)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         fn = _build.kernel("flash_int4", "kvz_flash_int4_extra", _ARGS_EXTRA)

@@ -1,7 +1,8 @@
 """K9: attention output of the windowed scoring pass.
 
 Port of ``kvzip_tpu/ops/windowed_attend.py``; the kernel is
-``csrc/windowed_attend.cu``. ``keys``/``vals`` are
+``csrc/windowed_attend.cu`` (K1's TMA and wgmma body, ``csrc/flash_sm90.cuh``,
+over the live 128-key tiles). ``keys``/``vals`` are
 ``[sink | ctx window | repeat]`` per kv head; masks as in
 ``attention.windowed_scoring_attend``, its plain version.
 """
@@ -14,7 +15,7 @@ import torch
 
 from kvzip_tpu_torch import _build
 from kvzip_tpu_torch.ops import (LAUNCHES, attention, check_kernel_args,
-                                 on_cuda, stream_ptr)
+                                 check_tma_aligned, on_cuda, stream_ptr)
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                       ctypes.c_void_p]
@@ -44,6 +45,7 @@ def windowed_attend(q: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
         raise ValueError(f"windowed_attend: bad shapes q {tuple(q.shape)} keys "
                          f"{tuple(keys.shape)} vals {tuple(vals.shape)} sink "
                          f"{sink} s_ctx {s_ctx} ctx_len {ctx_len}")
+    check_tma_aligned("windowed_attend", q=q, keys=keys, vals=vals)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         fn = _build.kernel("windowed_attend", "kvz_windowed_attend", _ARGS)

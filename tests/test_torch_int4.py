@@ -22,7 +22,7 @@ from kvzip_tpu import cache as jcache
 from kvzip_tpu.ops import flash_int4 as jflash4
 from kvzip_tpu.ops import pool_decode as jpool
 from kvzip_tpu_torch import cache
-from kvzip_tpu_torch.ops import flash_int4, pool_decode
+from kvzip_tpu_torch.ops import check_tma_aligned, flash_int4, pool_decode
 from kvzip_tpu_torch.ops.quant import quantize_int4
 
 from test_torch_engine import one_torch_thread  # noqa: F401
@@ -138,3 +138,17 @@ def test_int4_append_matches_reference():
         w = np.asarray(w)
         w = np.swapaxes(w, 1, 2) if i < 2 else w[..., 0]
         np.testing.assert_array_equal(got.numpy(), w)
+
+
+def test_tma_alignment_check_names_the_misaligned_operands():
+    """K5's prefill form, K6, K9 and K1 load q and the rows through TMA,
+    which needs 16-byte aligned starts; the wrappers' check (a plain
+    function, run before any launch) names each operand that is not."""
+    buf = torch.zeros(4 * 64 + 32, dtype=torch.uint8)
+    aligned = buf[16 - buf.data_ptr() % 16:][:4 * 64].view(4, 64)
+    off = buf[(16 - buf.data_ptr() % 16) + 8:][:4 * 64].view(4, 64)
+    check_tma_aligned("k", k_q=aligned, v_q=aligned)
+    with pytest.raises(ValueError, match=r"k: v_q must start on 16-byte"):
+        check_tma_aligned("k", k_q=aligned, v_q=off)
+    with pytest.raises(ValueError, match=r"k: k_q, v_q must start"):
+        check_tma_aligned("k", k_q=off, v_q=off)

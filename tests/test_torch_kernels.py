@@ -1,5 +1,6 @@
 """On the card: each CUDA kernel (K1-K16; K7 and K11 also in their
-int8-attention mode, K3 and K7 also with one tail length per kv head)
+int8-attention mode, K3 and K7 also with one tail length per kv head, K5
+in its decode and prefill forms)
 against its plain version, on the same bf16 inputs (int4 rows with bf16 or float32 scales
 for K5-K7, int4 weights with bf16 scales for K8, K15 and K16), the plain version
 computed in float32.
@@ -170,6 +171,11 @@ def _quant(gen, *shape):
     return p.cuda(), s[..., 0].cuda(), z[..., 0].cuda()
 
 
+def _int4_drop_first(kv, n=64):
+    """The int4 cache without its first n rows (each of k_q, k_s, ..., v_z)."""
+    return tuple(a[:, n:] for a in kv)
+
+
 @pytest.mark.parametrize("H,Hkv", [(4, 2), (28, 4)])
 @pytest.mark.parametrize("T,C,base", [(1, 1024, 700), (4, 4096, 3000),
                                       (16, 1024, 500), (48, 256, 100),
@@ -184,6 +190,9 @@ def test_flash_int4_kernel(gen, H, Hkv, T, C, base):
     got = flash_int4.flash_attend_int4(q, *kv, lens, scale=D ** -0.5)
     want = flash_int4.flash_attend_int4_plain(q.float(), *kv, lens, scale=D ** -0.5)
     assert _ok(got, want) and LAUNCHES["flash_attend_int4"] == 1
+    drop = flash_int4.flash_attend_int4_plain(q.float(), *_int4_drop_first(kv),
+                                              (lens - 64).clamp_min(0), scale=D ** -0.5)
+    assert not parity(got, drop, OUT_RTOL)["ok"]
 
 
 @pytest.mark.parametrize("H,Hkv", [(4, 2), (28, 4)])
@@ -244,6 +253,93 @@ def test_w4a8_kernel(gen, T, IN, OUT):
     assert LAUNCHES["w4a8_matmul_stacked_v2"] == L
 
 
+# The prefill form (T > SPLIT_T): T = 17 is the first T past SPLIT_T (a
+# 128-query block of mostly padded rows); C = 300 is no multiple of the
+# 128-key tile and C = 1001 no multiple of 8 (the scales' rows); head 0 has
+# base + T == C; the kv heads' bases differ by 7. A reference without the
+# first 64 keys must fail.
+@pytest.mark.parametrize("H,Hkv", [(4, 2), (28, 4), (32, 8)])
+@pytest.mark.parametrize("T,C,base", [(17, 1024, 700), (200, 300, 100),
+                                      (200, 1001, 801), (300, 2048, 1748)])
+def test_flash_int4_prefill_kernel(gen, H, Hkv, T, C, base):
+    from kvzip_tpu_torch.ops import flash_int4
+
+    q = _rn(gen, T, H, D)
+    kv = (*_quant(gen, Hkv, C), *_quant(gen, Hkv, C))
+    lens = torch.tensor([base - 7 * i for i in range(Hkv)], dtype=torch.int32,
+                        device="cuda")
+    got = flash_int4.flash_attend_int4(q, *kv, lens, scale=D ** -0.5)
+    want = flash_int4.flash_attend_int4_plain(q.float(), *kv, lens, scale=D ** -0.5)
+    assert _ok(got, want) and LAUNCHES["flash_attend_int4"] == 1
+    assert LAUNCHES["flash_attend_int4_decode"] == 0
+    drop = flash_int4.flash_attend_int4_plain(q.float(), *_int4_drop_first(kv),
+                                              (lens - 64).clamp_min(0),
+                                              scale=D ** -0.5)
+    assert not parity(got, drop, OUT_RTOL)["ok"]
+
+
+def test_flash_int4_decode_form_is_counted(gen):
+    from kvzip_tpu_torch.ops import flash_int4
+
+    q = _rn(gen, 4, 4, D)
+    kv = (*_quant(gen, 2, 512), *_quant(gen, 2, 512))
+    lens = torch.tensor([300, 293], dtype=torch.int32, device="cuda")
+    got = flash_int4.flash_attend_int4(q, *kv, lens, scale=D ** -0.5)
+    want = flash_int4.flash_attend_int4_plain(q.float(), *kv, lens, scale=D ** -0.5)
+    assert _ok(got, want)
+    assert LAUNCHES["flash_attend_int4"] == LAUNCHES["flash_attend_int4_decode"] == 1
+
+
+# K6 at T = 17 (one 128-query block, one chunk tile), T = 200 (the chunk's
+# rows cross a tile edge; base no multiple of 128) and the scoring chunk's
+# 2304; a reference without the cache's last 64 rows must fail.
+@pytest.mark.parametrize("H,Hkv", [(4, 2), (28, 4), (32, 8)])
+@pytest.mark.parametrize("T,C,base", [(17, 512, 300), (200, 1000, 650),
+                                      (2304, 4096, 1500)])
+def test_flash_int4_extra_edges_kernel(gen, H, Hkv, T, C, base):
+    from kvzip_tpu_torch.ops import flash_int4
+
+    q = _rn(gen, T, H, D)
+    kv = (*_quant(gen, Hkv, C), *_quant(gen, Hkv, C))
+    extra = (*_quant(gen, T, Hkv), *_quant(gen, T, Hkv))
+    lens = torch.tensor([base - 7 * i for i in range(Hkv)], dtype=torch.int32,
+                        device="cuda")
+    got = flash_int4.flash_attend_int4_extra(q, *kv, lens, *extra, scale=D ** -0.5)
+    want, drop = (flash_int4.flash_attend_int4_extra_plain(q.float(), *kv, n, *extra,
+                                                           scale=D ** -0.5)
+                  for n in (lens, lens - 64))
+    assert _ok(got, want) and LAUNCHES["flash_attend_int4_extra"] == 1
+    assert not parity(got, drop, OUT_RTOL)["ok"]
+
+
+def test_tma_wrappers_reject_misaligned_rows(gen):
+    """K5's prefill form, K6 and K9 load through TMA: a tensor whose start is
+    not 16-byte aligned raises before any launch."""
+    from kvzip_tpu_torch.ops import flash_int4, windowed_attend
+
+    T, H, Hkv, C = 32, 4, 2, 256
+    q = _rn(gen, T, H, D)
+    q_off = torch.empty(T * H * D + 1, dtype=torch.bfloat16, device="cuda")[1:].view(T, H, D)
+    kv = (*_quant(gen, Hkv, C), *_quant(gen, Hkv, C))
+    lens = torch.full((Hkv,), 100, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_int4.flash_attend_int4(q_off, *kv, lens, scale=D ** -0.5)
+    kq_off = torch.empty(Hkv * C * D // 2 + 8, dtype=torch.uint8,
+                         device="cuda")[8:].view(Hkv, C, D // 2)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_int4.flash_attend_int4(q, kq_off, *kv[1:], lens, scale=D ** -0.5)
+    extra = (*_quant(gen, T, Hkv), *_quant(gen, T, Hkv))
+    x_off = torch.empty(T * Hkv * D // 2 + 8, dtype=torch.uint8,
+                        device="cuda")[8:].view(T, Hkv, D // 2)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_int4.flash_attend_int4_extra(q, *kv, lens, x_off, *extra[1:], scale=D ** -0.5)
+    keys = _rn(gen, Hkv, 8 + 64 + T, D)
+    with pytest.raises(ValueError, match="16-byte"):
+        windowed_attend.windowed_attend(q_off, keys, keys, 30, sink=8, s_ctx=64,
+                                        scale=D ** -0.5)
+    assert sum(LAUNCHES.values()) == 0
+
+
 def test_quantized_wrappers_reject_wrong_dtypes(gen):
     """On the card a wrapper checks its operands before any launch: int4
     rows must be uint8, the dense cache's scales bf16, the pool's float32,
@@ -292,6 +388,28 @@ def test_windowed_attend_kernel(gen, H, Hkv, ctx_len, sink):
         drop = windowed_attend.windowed_attend_plain(q.float(), keys.float(), vals.float(),
                                                      ctx_len - 64, **kw)
         assert not parity(got, drop, OUT_RTOL)["ok"]
+
+
+# "blocks": T = 300 spans three 128-query blocks, the last one partly
+# padded; the sink (37) is not tile-aligned. "pad": ctx_len 150 of s_ctx
+# 768 leaves four whole 128-key tiles inside the dropped columns. "full":
+# ctx_len == s_ctx (no pad), with a tile-aligned sink. A reference without
+# the window's last 128 keys must fail.
+@pytest.mark.parametrize("H,Hkv", [(32, 8), (28, 4), (16, 2)])
+@pytest.mark.parametrize("T,s_ctx,ctx_len,sink", [(300, 512, 500, 37), (200, 768, 150, 37),
+                                                  (260, 384, 384, 128), (129, 256, 200, 5)])
+def test_windowed_attend_tiles_kernel(gen, H, Hkv, T, s_ctx, ctx_len, sink):
+    from kvzip_tpu_torch.ops import windowed_attend
+
+    q = _rn(gen, T, H, D)
+    keys, vals = _rn(gen, Hkv, sink + s_ctx + T, D), _rn(gen, Hkv, sink + s_ctx + T, D)
+    kw = dict(sink=sink, s_ctx=s_ctx, scale=D ** -0.5)
+    got = windowed_attend.windowed_attend(q, keys, vals, ctx_len, **kw)
+    want, drop = (windowed_attend.windowed_attend_plain(q.float(), keys.float(), vals.float(),
+                                                        n, **kw)
+                  for n in (ctx_len, ctx_len - 128))
+    assert _ok(got, want) and LAUNCHES["windowed_attend"] == 1
+    assert not parity(got, drop, OUT_RTOL)["ok"]
 
 
 def _hold_quant(got, want):
