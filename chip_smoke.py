@@ -241,14 +241,15 @@ WGMMA_KERNELS = {"flash": "flash_bf16_kernel", "windowed_attend": "flash_bf16_ke
 
 def hopper_build_report(_build, build_logs) -> dict:
     """ptxas's entry, register, shared-memory and spill lines for the Hopper
-    kernels (K1, K4, K5/K6's prefill form, K9), and for each wgmma kernel
+    kernels (K1, K4, K5/K6's prefill form, K9, K7/K11), and for each wgmma kernel
     the count of HGMMA instructions in its SASS and its spilled bytes
     (stores plus loads). A wgmma kernel with fewer than 16 HGMMA (one q.k
     and one p.v product of eight 16-deep steps a tile) fails the run."""
     import shutil
 
     rep = {}
-    for name in ("flash", "ragged_decode", "flash_int4", "windowed_attend"):
+    for name in ("flash", "ragged_decode", "flash_int4", "windowed_attend", "pool_decode_int4",
+                 "flat_decode_int4"):
         rep[f"{name}_ptxas"] = [ln.strip() for ln in build_logs[name].splitlines()
                                 if any(w in ln for w in ("Compiling entry", "registers", "spill"))]
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"

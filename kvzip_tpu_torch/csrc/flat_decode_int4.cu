@@ -12,70 +12,61 @@
 //
 // Bound on the H100: device-memory bytes (the layer's live rows and tail).
 // Design: the TPU kernel streamed every flat block through one sequential
-// grid axis; here it is K7's flash-decoding (int4_decode.cuh): splits of
-// CH rows of the sequence's segment plus one split for its tail, one CTA
-// per (split, sequence and kv head, group of 64 packed rows), a merge
-// kernel. The rows are head-major, so a CTA that finds no row of its head
-// in a tile's row_head skips the tile: each tile is read by one head's
-// CTAs, and padding by none, so bytes read stay near the live footprint.
-// In q8 mode p is quantized per 64-row tile aligned to the segment's row 0.
+// grid axis; here it is K7's body (int4_decode.cuh), a CTA's row group
+// holding every query row of its sequence, the grid (row groups, S splits,
+// sequences) sized to the card and the splits merged inside the launch. The
+// padding rows past a layer's kept rows are read and masked (their
+// row_head is -1); in q8 mode p is quantized per 64-row tile aligned to the
+// sequence segment's row 0.
 #include "int4_decode.cuh"
 
 using namespace kvz;
-
-template <bool Q8>
-__global__ void flat_int4_partial_kernel(
-    const bf16* __restrict__ q, const uint8_t* __restrict__ kq, const float* __restrict__ ks,
-    const float* __restrict__ kz, const uint8_t* __restrict__ vq, const float* __restrict__ vs,
-    const float* __restrict__ vz, const int* __restrict__ row_head,
-    const bf16* __restrict__ k_tail, const bf16* __restrict__ v_tail,
-    const int* __restrict__ tail_lens, float* part_acc, float* part_ml, int T, int H_all,
-    int Hkv, int n_seq, int Tcap, int layer, int R_seg, int tail_len, int CH, int S_seg,
-    float scale) {
-  const int split = blockIdx.x, hg = blockIdx.y;
-  const int G = H_all / (n_seq * Hkv);
-  const bool is_tail = split == S_seg;
-  const size_t base = (static_cast<size_t>(layer) * n_seq + hg / Hkv) * R_seg;
-  const size_t t_off = static_cast<size_t>(hg) * Tcap * D;
-  const int tl = tail_lens ? tail_lens[hg] : tail_len;
-  const int k0 = is_tail ? 0 : split * CH;
-  const int k1 = is_tail ? min(tl + T, Tcap) : min(k0 + CH, R_seg);
-  int4_decode_partial<Q8>(q, H_all, G, T, kq + base * DP, ks + base, kz + base, vq + base * DP,
-                          vs + base, vz + base, row_head + base, k0, k1, is_tail,
-                          k_tail + t_off, v_tail + t_off, tl, part_acc, part_ml, split,
-                          S_seg + 1, scale);
-}
 
 // q (T, H_all, D) bf16 (H_all = n_seq * H); kq/vq (L, n_seq * R_seg, D/2)
 // uint8; ks/kz/vs/vz and row_head (L, n_seq * R_seg) f32 / int32;
 // k_tail/v_tail (n_seq * Hkv, Tcap, D) bf16, this layer's; tail_lens
 // (n_seq * Hkv,) int32 or null for the one tail_len; out (T, H_all, D);
-// part_acc (n_seq * Hkv, S_seg + 1, G*T, D) and part_ml (..., 2) f32
-// scratch. Hkv is per sequence.
+// part_acc (n_seq, rgs, S, 16 mtc, D) and part_ml (..., 2) f32 scratch;
+// tickets (n_seq * rgs,) zero before the first launch (each launch leaves
+// them zero). Hkv is per sequence.
 extern "C" int kvz_flat_decode_int4(const void* q, const void* kq, const void* ks,
                                     const void* kz, const void* vq, const void* vs,
                                     const void* vz, const void* row_head, const void* k_tail,
                                     const void* v_tail, const void* tail_lens, void* out,
-                                    void* part_acc, void* part_ml, int T, int H_all, int Hkv,
-                                    int n_seq, int Tcap, int layer, int R_seg, int tail_len,
-                                    int CH, int S_seg, int q8, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int G = H_all / (n_seq * Hkv), R = G * T;
-  dim3 grid(S_seg + 1, n_seq * Hkv, (R + 63) / 64);
-  auto kernel = q8 ? flat_int4_partial_kernel<true> : flat_int4_partial_kernel<false>;
-  kernel<<<grid, 128, 0, st>>>(
-      static_cast<const bf16*>(q), static_cast<const uint8_t*>(kq),
-      static_cast<const float*>(ks), static_cast<const float*>(kz),
-      static_cast<const uint8_t*>(vq), static_cast<const float*>(vs),
-      static_cast<const float*>(vz), static_cast<const int*>(row_head),
-      static_cast<const bf16*>(k_tail), static_cast<const bf16*>(v_tail),
-      static_cast<const int*>(tail_lens), static_cast<float*>(part_acc),
-      static_cast<float*>(part_ml), T, H_all, Hkv, n_seq, Tcap, layer, R_seg, tail_len, CH,
-      S_seg, scale);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  merge_partials_kernel<<<dim3(R, n_seq * Hkv), D, 0, st>>>(
-      static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
-      static_cast<bf16*>(out), T, H_all, G, S_seg + 1, R);
-  return static_cast<int>(cudaGetLastError());
+                                    void* part_acc, void* part_ml, void* tickets, int T,
+                                    int H_all, int Hkv, int n_seq, int Tcap, int layer, int R_seg,
+                                    int tail_len, int S, int mtc, int rgs, int q8, float scale,
+                                    void* stream) {
+  i4d::Args a;
+  a.q = static_cast<const bf16*>(q);
+  a.kq = static_cast<const uint8_t*>(kq);
+  a.ks = static_cast<const float*>(ks);
+  a.kz = static_cast<const float*>(kz);
+  a.vq = static_cast<const uint8_t*>(vq);
+  a.vs = static_cast<const float*>(vs);
+  a.vz = static_cast<const float*>(vz);
+  a.row_head = static_cast<const int*>(row_head);
+  a.layer_off = nullptr;
+  a.layer_rows = nullptr;
+  a.k_tail = static_cast<const bf16*>(k_tail);
+  a.v_tail = static_cast<const bf16*>(v_tail);
+  a.tail_lens = static_cast<const int*>(tail_lens);
+  a.out = static_cast<bf16*>(out);
+  a.part_acc = static_cast<float*>(part_acc);
+  a.part_ml = static_cast<float*>(part_ml);
+  a.tickets = static_cast<unsigned*>(tickets);
+  a.T = T;
+  a.H_all = H_all;
+  a.Hkv = Hkv;
+  a.G = H_all / (n_seq * Hkv);
+  a.n_seq = n_seq;
+  a.Tcap = Tcap;
+  a.layer = layer;
+  a.R_seg = R_seg;
+  a.tail_len = tail_len;
+  a.S = S;
+  a.mtc = mtc;
+  a.rgs = rgs;
+  a.scale = scale;
+  return i4d::launch(a, q8, static_cast<cudaStream_t>(stream));
 }

@@ -12,6 +12,8 @@ told apart.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 LAUNCHES = {"flash_attend": 0, "fused_scores": 0, "ragged_decode_attend": 0,
@@ -73,6 +75,25 @@ def check_tma_aligned(what: str, **tensors: torch.Tensor) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_tickets = {}  # (kernel, device) -> its arrival counts, zero between launches
+
+
+def ticket_buffer(owner: str, device: torch.device, n: int) -> torch.Tensor:
+    """At least n zeroed int32 arrival counts of the kernel ``owner`` on
+    ``device`` (the first call at a size must not be inside a CUDA-graph
+    capture); each of its launches leaves its counts zero."""
+    t = _tickets.get((owner, device))
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _tickets[(owner, device)] = t
+    return t
 
 
 # Holding a kernel's output against its plain version computed in float32

@@ -2,8 +2,10 @@
 ``Engine(flat_decode="legacy")``).
 
 Port of ``kvzip_tpu/ops/flat_decode.py::flat_decode_attend`` (K10, bf16
-rows, ``csrc/flat_decode.cu``) and ``::flat_decode_attend_int4`` (K11,
-int4 rows, exact or ``q8``, ``csrc/flat_decode_int4.cu``), with the
+rows, ``csrc/flat_decode.cu``: split partials and a merge kernel) and
+``::flat_decode_attend_int4`` (K11, int4 rows, exact or ``q8``,
+``csrc/flat_decode_int4.cu``: K7's one launch with the merge inside,
+planned by ``ops/int4_decode.py``), with the
 reference's calling convention: stacked ``(L, ...)`` flat arrays plus a
 ``layer`` index (or one layer's arrays and ``layer=None``), the layer's
 tail, ``tail_len`` one int or one per (sequence, kv head), and ``n_seq``
@@ -25,16 +27,16 @@ from typing import Optional, Union
 import torch
 
 from kvzip_tpu_torch import _build
-from kvzip_tpu_torch.ops import (LAUNCHES, attention, check_kernel_args,
-                                 on_cuda, stream_ptr)
+from kvzip_tpu_torch.ops import (LAUNCHES, attention, check_kernel_args, int4_decode,
+                                 on_cuda, sm_count, stream_ptr)
 from kvzip_tpu_torch.ops.attention import Q8_TILE, attend_int4_q8
 from kvzip_tpu_torch.ops.quant import dequantize_int4
 from kvzip_tpu_torch.ops.ragged_decode import split_size
 
 _ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float,
                                                        ctypes.c_void_p]
-_ARGS_INT4 = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 11 + [ctypes.c_float,
-                                                            ctypes.c_void_p]
+_ARGS_INT4 = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 12 + [ctypes.c_float,
+                                                             ctypes.c_void_p]
 TailLen = Union[int, torch.Tensor]
 
 
@@ -142,8 +144,8 @@ def tail_arg(tail_len: TailLen, n_heads: int, T: int, Tcap: int, device,
 
 
 def _launch_geometry(q, k_tail, rows_total, n_seq, layer, L, what, tail_len):
-    """Shared checks and split geometry of K10/K11: (T, H_all, Hkv, Tcap,
-    R_seg, CH, S_seg, tail pointer, tail scalar, layer)."""
+    """Shared checks and geometry of K10/K11: (T, H_all, Hkv, Tcap, R_seg,
+    tail pointer, tail scalar, layer), Hkv per sequence."""
     T, H_all, D = q.shape
     Hkv_all, Tcap, _ = k_tail.shape
     layer = 0 if layer is None else int(layer)
@@ -152,10 +154,7 @@ def _launch_geometry(q, k_tail, rows_total, n_seq, layer, L, what, tail_len):
         raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} tail {tuple(k_tail.shape)} "
                          f"rows {rows_total} n_seq {n_seq} layer {layer}")
     lens_t, scalar = tail_arg(tail_len, Hkv_all, T, Tcap, q.device, what)
-    R_seg = rows_total // n_seq
-    G = (H_all // n_seq) // (Hkv_all // n_seq)
-    ch = split_size(R_seg, -(-G * T // 64), target=512)
-    return (T, H_all, Hkv_all // n_seq, Tcap, R_seg, ch, -(-R_seg // ch),
+    return (T, H_all, Hkv_all // n_seq, Tcap, rows_total // n_seq,
             lens_t.data_ptr() if lens_t is not None else None, scalar, layer)
 
 
@@ -185,9 +184,11 @@ def flat_decode_attend(q: torch.Tensor, k_flat: torch.Tensor, v_flat: torch.Tens
         raise ValueError(f"flat_decode_attend: bad shapes flat {tuple(k_flat.shape)} "
                          f"row_head {tuple(row_head.shape)} tail {tuple(k_tail.shape)}")
     L = k_flat.shape[0] if stacked else 1
-    (T, H_all, Hkv, Tcap, R_seg, ch, S_seg, lens_ptr, scalar,
+    (T, H_all, Hkv, Tcap, R_seg, lens_ptr, scalar,
      layer) = _launch_geometry(q, k_tail, k_flat.shape[-2], n_seq, layer, L,
                                "flat_decode_attend", tail_len)
+    ch = split_size(R_seg, -(-(H_all // (n_seq * Hkv)) * T // 64), target=512)
+    S_seg = -(-R_seg // ch)
     out = torch.empty_like(q)
     part_acc, part_ml = _scratch(q, n_seq * Hkv, S_seg, H_all // (n_seq * Hkv) * T)
     with torch.cuda.device(q.device):
@@ -230,15 +231,19 @@ def flat_decode_attend_int4(q: torch.Tensor, k_flat_q: torch.Tensor, k_flat_s: t
         raise ValueError(f"{what}: bad shapes flat {tuple(k_flat_q.shape)} "
                          f"row_head {tuple(rows_shape)} tail {tuple(k_tail.shape)}")
     L = rows_shape[0] if stacked else 1
-    (T, H_all, Hkv, Tcap, R_seg, ch, S_seg, lens_ptr, scalar,
+    (T, H_all, Hkv, Tcap, R_seg, lens_ptr, scalar,
      layer) = _launch_geometry(q, k_tail, rows_shape[-1], n_seq, layer, L, what, tail_len)
+    if Hkv > int4_decode.MAX_HEADS:
+        raise ValueError(f"{what}: bad shapes: {Hkv} kv heads a sequence, at most "
+                         f"{int4_decode.MAX_HEADS}")
+    mtc, groups, S = int4_decode.plan(H_all // n_seq * T, n_seq, R_seg, sm_count(q.device))
     out = torch.empty_like(q)
-    part_acc, part_ml = _scratch(q, n_seq * Hkv, S_seg, H_all // (n_seq * Hkv) * T)
+    part_acc, part_ml, tickets = int4_decode.scratch(q.device, what, n_seq, groups, S, mtc)
     with torch.cuda.device(q.device):
         fn = _build.kernel("flat_decode_int4", "kvz_flat_decode_int4", _ARGS_INT4)
         _build.check(fn(*[a.data_ptr() for a in (q, *flat, row_head, k_tail, v_tail)],
                         lens_ptr, out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-                        T, H_all, Hkv, n_seq, Tcap, layer, R_seg, scalar, ch, S_seg,
-                        int(q8), scale, stream_ptr(q.device)), what)
+                        tickets.data_ptr(), T, H_all, Hkv, n_seq, Tcap, layer, R_seg, scalar,
+                        S, mtc, groups, int(q8), scale, stream_ptr(q.device)), what)
     LAUNCHES["flat_decode_attend_int4_q8" if q8 else "flat_decode_attend_int4"] += 1
     return out

@@ -11,20 +11,18 @@ each, once the head's count of published partials is complete.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
 from kvzip_tpu_torch import _build
 from kvzip_tpu_torch.ops import (LAUNCHES, attention, check_kernel_args,
-                                 on_cuda, stream_ptr)
+                                 on_cuda, sm_count, stream_ptr, ticket_buffer)
 
 _ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float,
                                                       ctypes.c_void_p]
 MAX_T = 8
 ROWS_PER_CTA = 32   # packed (query, head) rows a CTA (csrc/ragged_decode.cu RG)
 SPLIT_ALIGN = 16    # split lengths are multiples of a warp's 16-key tile
-_tickets = {}       # device -> the kernel's arrival counts, zero between launches
 
 
 def split_size(n_keys: int, groups: int, target: int = 1024) -> int:
@@ -53,22 +51,6 @@ def split_bounds(live: int, S: int):
     return [(min(s * chunk, live), min(s * chunk + chunk, live)) for s in range(S)]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _ticket_buffer(device: torch.device, n: int) -> torch.Tensor:
-    """At least n zeroed int32 arrival counts, kept a device (the first call
-    at a size must not be inside a CUDA-graph capture); each launch leaves
-    its counts zero."""
-    t = _tickets.get(device)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _tickets[device] = t
-    return t
-
-
 def ragged_decode_attend_plain(q, k_cache, v_cache, base_lens, *, scale):
     return attention.attend_dense(q, k_cache, v_cache, base_lens, scale=scale)
 
@@ -91,7 +73,7 @@ def ragged_decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"ragged_decode_attend: bad shapes q {tuple(q.shape)} "
                          f"k {tuple(k_cache.shape)}")
     R = (H // Hkv) * T
-    S, groups = plan_splits(C, Hkv, R, _sm_count(q.device))
+    S, groups = plan_splits(C, Hkv, R, sm_count(q.device))
     out = torch.empty_like(q)
     # a (kv head, row group)'s S x 32 x D values and 32 x S (m, l) pairs
     # (laid out in the kernel), and 4 floats the merge's copy may read past
@@ -99,7 +81,7 @@ def ragged_decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
                            device=q.device)
     part_ml = torch.empty(Hkv * groups * ROWS_PER_CTA * S * 2 + 4, dtype=torch.float32,
                           device=q.device)
-    tickets = _ticket_buffer(q.device, Hkv * groups)
+    tickets = ticket_buffer("ragged_decode_attend", q.device, Hkv * groups)
     with torch.cuda.device(q.device):
         fn = _build.kernel("ragged_decode", "kvz_ragged_decode", _ARGS)
         _build.check(fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),

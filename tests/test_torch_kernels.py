@@ -644,6 +644,127 @@ def test_pool_decode_kernels_with_per_head_tails(gen, kind, T):
            max_rows=384, **kw)
 
 
+# K7 and K11 since their one-launch redesign: cases that reach the planned
+# splits, the in-launch merge and the q8 tiles from every side.
+ONE_LAUNCH_CASES = [
+    ("pool", "unsorted"), ("flat", "unsorted"),
+    ("pool", "few_rows"), ("flat", "few_rows"),
+    ("pool", "tile_edges"), ("flat", "tile_edges"),
+    ("pool", "tail_vector"), ("flat", "tail_vector"),
+    ("flat", "n_seq2"),
+    ("pool", "T16"), ("flat", "T16"), ("pool", "T24"), ("flat", "T24"),
+    ("pool", "graph"), ("flat", "graph"),
+]
+
+
+def _segment_heads(gen, case, n, Hkv):
+    """The kv head of each of a segment's n rows: "unsorted" a random order
+    over all but the last kv head (which holds no row); "tile_edges" head
+    runs of 37, 0, 901 and the rest, so head boundaries fall inside 64-row
+    tiles; otherwise sorted."""
+    if case == "unsorted":
+        return torch.randint(0, Hkv - 1, (n,), generator=gen, dtype=torch.int32)
+    if case == "tile_edges":
+        counts = torch.tensor([37, 0, 901, n - 938])
+        return torch.repeat_interleave(torch.arange(Hkv, dtype=torch.int32), counts)
+    return torch.randint(0, Hkv, (n,), generator=gen, dtype=torch.int32).sort().values
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("kind,case", ONE_LAUNCH_CASES)
+def test_int4_decode_one_launch(gen, kind, case, q8):
+    """K7 (pool) and K11 (flat), exact and q8, each one launch: an unsorted
+    row_head with a kv head absent; a layer of 70 rows where the plan (from
+    21,056 rows) has 83 splits; head boundaries inside 64-row tiles and, on
+    the pool, a layer offset of 37 rows (the q8 tiles start at the
+    segment's row 0); one tail length a kv head (0 and Tcap - T among
+    them); K11 with two sequences; T 16 and 24 (more row groups); and a
+    CUDA-graph capture with a tail vector. The reference without the
+    segment's first 64 rows must fail the gate."""
+    from kvzip_tpu_torch.ops import flat_decode, int4_decode
+
+    H, Hkv, Tcap = 28, 4, 64
+    T = {"T16": 16, "T24": 24}.get(case, 1)
+    n_seq = 2 if case == "n_seq2" else 1
+    n, max_rows = (70, 21056) if case == "few_rows" else (1500, 2048)
+    if case in ("tail_vector", "graph", "n_seq2"):
+        tails = torch.tensor([0, 9, Tcap - T, 23] * n_seq, dtype=torch.int32, device="cuda")
+    else:
+        tails = 7
+    q = _rn(gen, T, n_seq * H, D)
+    name = ("pool_decode_attend_int4" if kind == "pool" else "flat_decode_attend_int4") + \
+        ("_q8" if q8 else "")
+    if kind == "pool":
+        off = 37 if case == "tile_edges" else 64
+        P = off + max_rows
+        rh = torch.full((P,), -1, dtype=torch.int32)
+        rh[off:off + n] = _segment_heads(gen, case, n, Hkv)
+        kv = (*_quant(gen, P), *_quant(gen, P))
+        kv = (kv[0], kv[1].float(), kv[2].float(), kv[3], kv[4].float(), kv[5].float())
+        kt, vt = _rn(gen, 1, Hkv, Tcap, D), _rn(gen, 1, Hkv, Tcap, D)
+        geo = (torch.tensor([off], dtype=torch.int32, device="cuda"),
+               torch.tensor([n], dtype=torch.int32, device="cuda"))
+
+        def run():
+            return pool_decode.pool_decode_attend_int4(q, *kv, rh_d, *geo, kt, vt, tails, 0,
+                                                       scale=D ** -0.5, max_rows=max_rows, q8=q8)
+
+        def plain(r):
+            out = pool_decode.pool_decode_attend_int4_plain(
+                q.float(), *kv, r.cuda(), *geo, kt.float(), vt.float(), tails, 0,
+                scale=D ** -0.5, q8=q8, with_slack=q8)
+            return out if q8 else (out, None)
+
+        first = off
+    else:
+        L, R_seg = 2, max_rows
+        rh = torch.full((L, n_seq * R_seg), -1, dtype=torch.int32)
+        for sb in range(n_seq):
+            rh[1, sb * R_seg:sb * R_seg + n] = _segment_heads(gen, case, n, Hkv) + sb * Hkv
+        kv = (*_quant(gen, L, n_seq * R_seg), *_quant(gen, L, n_seq * R_seg))
+        kv = (kv[0], kv[1].float(), kv[2].float(), kv[3], kv[4].float(), kv[5].float())
+        kt, vt = _rn(gen, n_seq * Hkv, Tcap, D), _rn(gen, n_seq * Hkv, Tcap, D)
+
+        def run():
+            return flat_decode.flat_decode_attend_int4(q, *kv, rh_d, kt, vt, tails,
+                                                       scale=D ** -0.5, q8=q8, n_seq=n_seq,
+                                                       layer=1)
+
+        def plain(r):
+            out = flat_decode.flat_decode_attend_int4_plain(
+                q.float(), *kv, r.cuda(), kt.float(), vt.float(), tails, scale=D ** -0.5, q8=q8,
+                n_seq=n_seq, layer=1, with_slack=q8)
+            return out if q8 else (out, None)
+
+        first = None
+    rh_d = rh.cuda()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mtc, groups, S = int4_decode.plan(H * T, n_seq, max_rows, sms)
+    if case == "few_rows":
+        assert S * int4_decode.ROW_TILE > n
+    if case == "graph":
+        run()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            got = run()
+        g.replay()
+        torch.cuda.synchronize()
+    else:
+        got = run()
+    want, slack = plain(rh)
+    assert _ok(got, want, slack=slack)
+    rh_drop = rh.clone()
+    if first is None:
+        rh_drop[1, :64] = -1
+    else:
+        rh_drop[first:first + 64] = -1
+    drop, slack = plain(rh_drop)
+    assert not parity(got, drop, OUT_RTOL, slack)["ok"]
+    assert LAUNCHES[name] == (2 if case == "graph" else 1)
+    assert sum(LAUNCHES.values()) == LAUNCHES[name]
+
+
 def _fused_weights(gen, L, D_, HD, I, QKV):
     from kvzip_tpu_torch.ops import w4a8, w4a8_v2
 

@@ -7,9 +7,14 @@ shapes of ``chip_smoke.py``'s main paths: K1 (``flash_attend``) and K4
 on the int4 path (qwen2.5-7b: 28 heads over 4 kv heads, head_dim 128; a
 16,544-row prefill in a 19,456-row cache), and K9 (``windowed_attend``) at
 llama3.1-8b's windowed pass (32 heads over 8, 2,304 queries, a 2,048-row
-window, ctx_len 2,000 and 384, a 40-row sink).
+window, ctx_len 2,000 and 384, a 40-row sink); K7 and K11
+(``pool_decode_attend_int4``, ``flat_decode_attend_int4``) in their exact
+and q8 modes at ``chip_smoke.py``'s decode shapes: a ~30% int4 pool of 28
+layers (5,000-10,000 rows a kv head, tail 40 of 768) at T = 1 and 24, the
+evicted flat stack at T = 1 and 24, and the full flat stack (98,304 rows a
+layer) at T = 1.
 
-    python3 tools/attn_profile.py [--root DIR] [--out FILE]
+    python3 tools/attn_profile.py [--root DIR] [--out FILE] [--only k4,k1,k5,k9,k7,k11]
 
 ``--root`` imports ``kvzip_tpu_torch`` from another checkout (for example
 a parent commit unpacked with ``git archive``), so two versions can be
@@ -22,7 +27,11 @@ calls (``kernels``: name -> mean us per wrapper call). K4 cycles through
 K1 and K4 stands SDPA (with the mask), beside K9 SDPA with its bool mask,
 and beside K5 and K6 the yardstick of the same attention computed by
 dequantizing the live rows to bf16 and calling K1 (``deq_k1_ms``, and
-``k1_ms`` for K1 alone on the dequantized rows). Needs a card.
+``k1_ms`` for K1 alone on the dequantized rows); beside K7 the layer's
+rows dequantized to bf16 and K3 (``deq_k3_ms``, ``k3_ms``), beside K11 at
+one sequence the same with K10 (``deq_k10_ms``, ``k10_ms``). K7 and K11
+cycle over the 28 layers, so each call reads its rows from device memory
+(the stacks exceed the 50 MB L2). Needs a card.
 """
 
 import argparse
@@ -33,6 +42,7 @@ import sys
 
 L, H, HKV, D = 28, 28, 4, 128
 PREFILL, CAPACITY = 16544, 19456
+SEED_ROWS = 2   # the rows a kv head keeps in the K7/K11 stacks
 
 
 def graph_ms(fn, iters):
@@ -79,7 +89,10 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--out", default=None)
+    ap.add_argument("--only", default="k4,k1,k5,k9,k7,k11",
+                    help="comma-separated sections to run")
     args = ap.parse_args()
+    only = set(args.only.split(","))
     import torch
     import torch.nn.functional as F
 
@@ -87,11 +100,12 @@ def main():
         sys.exit("no CUDA device")
     sys.path.insert(0, os.path.abspath(args.root))
     from kvzip_tpu_torch import _build
-    from kvzip_tpu_torch.ops import flash, ragged_decode
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
-    logs = _build.build_all(("flash", "ragged_decode", "flash_int4", "windowed_attend"))
+    logs = _build.build_all(("flash", "ragged_decode", "flash_int4", "windowed_attend",
+                             "pool_decode", "pool_decode_int4", "flat_decode",
+                             "flat_decode_int4"))
     rows = [dict(card=card, root=os.path.abspath(args.root), torch=torch.__version__,
                  cuda=torch.version.cuda,
                  ptxas=[ln.strip() for lg in logs.values() for ln in lg.splitlines()
@@ -106,6 +120,139 @@ def main():
     def sdpa(q, k, v, mask=None):
         return F.scaled_dot_product_attention(q.transpose(0, 1)[None], k[None], v[None],
                                               attn_mask=mask, enable_gqa=True)
+
+    def emit(r):
+        rows.append(r)
+        print(json.dumps(r), flush=True)
+
+    if "k7" in only or "k11" in only:
+        int4_decode_rows(emit, rn, scale, only)
+    if "k4" in only:
+        k4_rows(emit, rn, sdpa, scale)
+    if "k1" in only:
+        k1_rows(emit, rn, sdpa, scale)
+    if "k5" in only:
+        k5_rows(emit, rn, scale)
+    if "k9" in only:
+        k9_rows(emit, rn, sdpa, scale)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(rows, f, indent=1)
+
+
+def int4_decode_rows(emit, rn, scale, only):
+    """K7 on a ~30% int4 pool and K11 on flat stacks, exact and q8, each
+    beside dequantize-then-K3 (K7) or -K10 (K11 at one sequence)."""
+    import numpy as np
+    import torch
+
+    from kvzip_tpu_torch.engine import _round_flat_rows
+    from kvzip_tpu_torch.ops import flat_decode, pool_decode
+    from kvzip_tpu_torch.pool import POOL_ALIGN, plan_offsets
+
+    gen = torch.Generator().manual_seed(SEED_ROWS)
+    tail_len, tcap = 40, 768
+    f32 = torch.float32
+    if "k7" in only:
+        rows_h = torch.randint(int(0.2 * PREFILL), int(0.4 * PREFILL), (L, HKV), generator=gen)
+        per_layer = rows_h.sum(1).numpy()
+        off, alloc, max_rows = plan_offsets(per_layer, POOL_ALIGN)
+        rh = torch.full((alloc,), -1, dtype=torch.int32)
+        for l in range(L):
+            rh[int(off[l]):int(off[l]) + int(per_layer[l])] = torch.repeat_interleave(
+                torch.arange(HKV, dtype=torch.int32), rows_h[l])
+        rh = rh.cuda()
+        pool = (*quant(rn, alloc, dtype=f32), *quant(rn, alloc, dtype=f32))
+        kt, vt = rn(L, HKV, tcap, D), rn(L, HKV, tcap, D)
+        geo = (torch.from_numpy(off).cuda(), torch.from_numpy(per_layer.astype(np.int32)).cuda())
+        zero_off = torch.zeros(L, dtype=torch.int32, device="cuda")
+        for T in (1, 24):
+            q = rn(T, H, D)
+            for q8 in (False, True):
+                cyc = iter(range(10 ** 9))
+
+                def k7():
+                    return pool_decode.pool_decode_attend_int4(
+                        q, *pool, rh, *geo, kt, vt, tail_len, next(cyc) % L, scale=scale,
+                        max_rows=max_rows, q8=q8)
+
+                r = dict(kernel="pool_decode_attend_int4" + ("_q8" if q8 else ""), T=T,
+                         live_rows=float(per_layer.mean()), ms=graph_ms(k7, 56),
+                         kernels=kernel_us(k7, 56))
+                if not q8:
+                    def layer_rows(l):
+                        o, n = int(off[l]), int(per_layer[l])
+                        return (deq(*(a[o:o + n] for a in pool[:3])),
+                                deq(*(a[o:o + n] for a in pool[3:])), rh[o:o + n], l)
+
+                    def k3(rows):
+                        kd, vd, rhl, l = rows
+                        return pool_decode.pool_decode_attend(
+                            q, kd, vd, rhl, zero_off, geo[1], kt, vt, tail_len, l,
+                            scale=scale, max_rows=max_rows)
+
+                    fixed = [layer_rows(l) for l in range(L)]
+                    r["deq_k3_ms"] = graph_ms(lambda: k3(layer_rows(next(cyc) % L)), 28)
+                    r["k3_ms"] = graph_ms(lambda: k3(fixed[next(cyc) % L]), 56)
+                    del fixed
+                emit(r)
+        del pool, kt, vt, rh
+    if "k11" not in only:
+        return
+    for full in (False, True):
+        if full:
+            rows_h = torch.full((L, HKV), PREFILL, dtype=torch.int64)
+        else:
+            rows_h = torch.randint(int(0.2 * PREFILL), int(0.4 * PREFILL), (L, HKV),
+                                   generator=gen)
+        live = rows_h.sum(-1)
+        r_pad = _round_flat_rows(int(live.max()))
+        rh = torch.full((L, r_pad), -1, dtype=torch.int32)
+        for l in range(L):
+            rh[l, :int(live[l])] = torch.repeat_interleave(torch.arange(HKV, dtype=torch.int32),
+                                                           rows_h[l])
+        rh = rh.cuda()
+        flat = (*quant(rn, L, r_pad, dtype=f32), *quant(rn, L, r_pad, dtype=f32))
+        kt, vt = rn(HKV, tcap, D), rn(HKV, tcap, D)
+        for T in ((1,) if full else (1, 24)):
+            q = rn(T, H, D)
+            for q8 in (False, True):
+                cyc = iter(range(10 ** 9))
+
+                def k11():
+                    return flat_decode.flat_decode_attend_int4(
+                        q, *flat, rh, kt, vt, tail_len, scale=scale, q8=q8,
+                        layer=next(cyc) % L)
+
+                r = dict(kernel="flat_decode_attend_int4" + ("_q8" if q8 else ""), T=T,
+                         layout="full" if full else "evicted", r_pad=r_pad,
+                         live_rows=float(live.float().mean()), ms=graph_ms(k11, 56),
+                         kernels=kernel_us(k11, 56))
+                if not q8:
+                    def layer_rows(l):
+                        n = int(live[l])
+                        return (deq(*(a[l, :n] for a in flat[:3])),
+                                deq(*(a[l, :n] for a in flat[3:])), rh[l, :n])
+
+                    def k10(rows):
+                        kd, vd, rhl = rows
+                        return flat_decode.flat_decode_attend(q, kd, vd, rhl, kt, vt, tail_len,
+                                                              scale=scale)
+
+                    fixed = [layer_rows(l) for l in range(L)]
+                    r["deq_k10_ms"] = graph_ms(lambda: k10(layer_rows(next(cyc) % L)), 28)
+                    r["k10_ms"] = graph_ms(lambda: k10(fixed[next(cyc) % L]), 56)
+                    del fixed
+                emit(r)
+        del flat, rh
+        torch.cuda.empty_cache()
+
+
+def k4_rows(emit, rn, sdpa, scale):
+    import torch
+
+    from kvzip_tpu_torch.ops import ragged_decode
 
     # K4: T new rows after the prefill, 28 layers cycled
     kc, vc = rn(L, HKV, CAPACITY, D), rn(L, HKV, CAPACITY, D)
@@ -124,11 +271,14 @@ def main():
             l = next(cyc) % L
             return sdpa(q, kc[l, :, :S], vc[l, :, :S], None if T == 1 else mask)
 
-        r = dict(kernel="ragged_decode_attend", T=T, live=S, ms=graph_ms(k4, 56),
-                 sdpa_ms=graph_ms(lib, 56), kernels=kernel_us(k4, 56))
-        rows.append(r)
-        print(json.dumps(r), flush=True)
-    del kc, vc
+        emit(dict(kernel="ragged_decode_attend", T=T, live=S, ms=graph_ms(k4, 56),
+                  sdpa_ms=graph_ms(lib, 56), kernels=kernel_us(k4, 56)))
+
+
+def k1_rows(emit, rn, sdpa, scale):
+    import torch
+
+    from kvzip_tpu_torch.ops import flash
 
     # K1: the prefill's largest chunk and a scoring window
     k, v = rn(HKV, CAPACITY, D), rn(HKV, CAPACITY, D)
@@ -142,25 +292,36 @@ def main():
         def k1():
             return flash.flash_attend(q, k, v, lens, scale=scale)
 
-        r = dict(kernel="flash_attend", T=T, base=base, ms=graph_ms(k1, 10),
-                 sdpa_ms=graph_ms(lambda: sdpa(q, ke, ve, mask), 10), kernels=kernel_us(k1, 5))
-        rows.append(r)
-        print(json.dumps(r), flush=True)
+        emit(dict(kernel="flash_attend", T=T, base=base, ms=graph_ms(k1, 10),
+                  sdpa_ms=graph_ms(lambda: sdpa(q, ke, ve, mask), 10),
+                  kernels=kernel_us(k1, 5)))
         del ke, ve, mask
-    del k, v
 
-    # K5's prefill form and K6 on int4 rows, beside dequantize-then-K1
-    from kvzip_tpu_torch.ops import flash_int4, windowed_attend
-    from kvzip_tpu_torch.ops.quant import dequantize_int4, quantize_int4
 
-    def quant(*shape):
-        p, s_, z = quantize_int4(rn(*shape, D), pack="split")
-        return p, s_[..., 0], z[..., 0]
+def quant(rn, *shape, dtype=None):
+    """Random N(0, 1) rows (..., D) as the int4 caches hold them: packed
+    (..., D//2) uint8, scale and zero (...) (bf16, or ``dtype``)."""
+    from kvzip_tpu_torch.ops.quant import quantize_int4
 
-    def deq(p, s_, z):
-        return dequantize_int4(p, s_[..., None], z[..., None], torch.bfloat16, pack="split")
+    p, s_, z = quantize_int4(rn(*shape, D), pack="split")
+    s_, z = s_[..., 0], z[..., 0]
+    return (p, s_, z) if dtype is None else (p, s_.to(dtype), z.to(dtype))
 
-    kv = (*quant(HKV, CAPACITY), *quant(HKV, CAPACITY))
+
+def deq(p, s_, z):
+    import torch
+
+    from kvzip_tpu_torch.ops.quant import dequantize_int4
+
+    return dequantize_int4(p, s_[..., None], z[..., None], torch.bfloat16, pack="split")
+
+
+def k5_rows(emit, rn, scale):
+    import torch
+
+    from kvzip_tpu_torch.ops import flash, flash_int4
+
+    kv = (*quant(rn, HKV, CAPACITY), *quant(rn, HKV, CAPACITY))
     for T, base in ((4096, 12288), (2304, PREFILL)):
         q = rn(T, H, D)
         lens = torch.full((HKV,), base, dtype=torch.int32, device="cuda")
@@ -173,7 +334,7 @@ def main():
             def live_rows():
                 return (deq(*(a[:, :S] for a in kv[:3])), deq(*(a[:, :S] for a in kv[3:])))
         else:
-            name, extra = "flash_attend_int4_extra", (*quant(T, HKV), *quant(T, HKV))
+            name, extra = "flash_attend_int4_extra", (*quant(rn, T, HKV), *quant(rn, T, HKV))
 
             def kern():
                 return flash_int4.flash_attend_int4_extra(q, *kv, lens, *extra, scale=scale)
@@ -188,9 +349,13 @@ def main():
                  k1_ms=graph_ms(lambda: flash.flash_attend(q, kd, vd, lens, scale=scale), 10),
                  kernels=kernel_us(kern, 5))
         del kd, vd
-        rows.append(r)
-        print(json.dumps(r), flush=True)
-    del kv
+        emit(r)
+
+
+def k9_rows(emit, rn, sdpa, scale):
+    import torch
+
+    from kvzip_tpu_torch.ops import windowed_attend
 
     # K9 at llama3.1-8b's windowed pass
     Hw, Hkvw, T, s_ctx, sink = 32, 8, 2304, 2048, 40
@@ -204,15 +369,9 @@ def main():
             return windowed_attend.windowed_attend(q, keys, vals, ctx_len, sink=sink,
                                                    s_ctx=s_ctx, scale=scale)
 
-        r = dict(kernel="windowed_attend", T=T, ctx_len=ctx_len, ms=graph_ms(k9, 10),
-                 sdpa_ms=graph_ms(lambda: sdpa(q, keys, vals, mask), 10),
-                 kernels=kernel_us(k9, 5))
-        rows.append(r)
-        print(json.dumps(r), flush=True)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(rows, f, indent=1)
+        emit(dict(kernel="windowed_attend", T=T, ctx_len=ctx_len, ms=graph_ms(k9, 10),
+                  sdpa_ms=graph_ms(lambda: sdpa(q, keys, vals, mask), 10),
+                  kernels=kernel_us(k9, 5)))
 
 
 if __name__ == "__main__":
