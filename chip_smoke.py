@@ -34,7 +34,9 @@
    (``LAUNCHES["flash_attend_int4_decode"]`` counts the decode form).
    K10/K11 at T = 1 and 24, one and two merged sequences, on an evicted
    and on the full flat stack (``kernel_parity_flat``). K3, K7 and K7-q8
-   also with one tail length per kv head (one of them 0). K12, the fused
+   also with one tail length per kv head (one of them 0); K3 timed at T =
+   1, 4, 16 and 24 (``per_shape``); K7 and K7-q8 also over 40 kv heads (a
+   merged pool, G 1 and 7). K8 timed at T = 1, 4, 16, 24 and 256. K12, the fused
    W4A8 decode layer, at qwen2.5-7b's shapes, T 1/4/8 at layers 0/14/27,
    beside the device time of the composed chain it replaces
    (``kernel_parity_fused``). K15/K16, the v1 W4A8 linears, at qwen2.5-7b's
@@ -484,7 +486,8 @@ def kernel_parity(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int)
     del kc, vc, kf, vf
 
     # K3 at decode steps on a pruned pool (~30% of each head's rows kept,
-    # a partly filled tail): T = 1, and T = 4 and 16 for a query's pieces
+    # a partly filled tail): T = 1, and T = 4, 16 and 24 for a query's
+    # pieces, each timed (the kernels line carries T = 1)
     rows_h = torch.randint(int(0.2 * prefill_len), int(0.4 * prefill_len), (L, Hkv),
                            generator=torch.Generator().manual_seed(SEED))
     per_layer = rows_h.sum(1).numpy()
@@ -503,7 +506,8 @@ def kernel_parity(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int)
     meta, meta_drop = (rh.to(dev),) + geo, (rh_drop.to(dev),) + geo
     tail_len = 40
     live = float(per_layer.mean())
-    for T in (1, 4, 16):
+    timed = {}
+    for T in (1, 4, 16, 24):
         q = rn(T, H, D)
         for l in (0, L // 2, L - 1):
             got = pool_decode.pool_decode_attend(q, kp, vp, *meta, kt, vt, tail_len, l,
@@ -517,20 +521,18 @@ def kernel_parity(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int)
             hold("pool_decode_attend",
                  f"q ({T},{H},{D}) layer {l} live rows {int(per_layer[l])} tail {tail_len}",
                  got, want, OUT_RTOL, drop)
-        if T != 1:
-            continue
         keys3 = live + Hkv * (tail_len + T)
         b = bound(4 * D * G * T * keys3, 2 * 2 * keys3 * D + 4 * live + 2 * 2 * T * H * D)
-        out.append(dict(
-            name="pool_decode_attend", route="cuda",
-            source="kvzip_tpu_torch/csrc/pool_decode.cu",
-            replaces="kvzip_tpu/ops/pool_decode.py:424",
-            **kernel_ms(lambda: pool_decode.pool_decode_attend(
-                q, kp, vp, *meta, kt, vt, tail_len, next_layer(), scale=scale,
-                max_rows=max_rows), 56),
-            plain_ms=time_ms(lambda: pool_decode.pool_decode_attend_plain(
-                q, kp, vp, *meta, kt, vt, tail_len, 0, scale=scale), 5, 1),
-            bound_ms=b[0], bound_by=b[1], library_ms=None))
+        timed[f"T {T}"] = dict(**kernel_ms(lambda: pool_decode.pool_decode_attend(
+            q, kp, vp, *meta, kt, vt, tail_len, next_layer(), scale=scale,
+            max_rows=max_rows), 56), bound_ms=b[0], bound_by=b[1])
+        if T == 1:
+            plain_ms = time_ms(lambda: pool_decode.pool_decode_attend_plain(
+                q, kp, vp, *meta, kt, vt, tail_len, 0, scale=scale), 5, 1)
+    out.append(dict(
+        name="pool_decode_attend", route="cuda", source="kvzip_tpu_torch/csrc/pool_decode.cu",
+        replaces="kvzip_tpu/ops/pool_decode.py:424", **timed["T 1"], plain_ms=plain_ms,
+        library_ms=None, per_shape=timed))
     # one tail length per kv head (the merged pool of serving), one of them 0
     tails = torch.tensor([0] + [tail_len + 13 * h for h in range(1, Hkv)], dtype=torch.int32,
                          device=dev)
@@ -557,8 +559,9 @@ def kernel_parity_int4(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap:
     2304-query scoring chunk after the whole prefill, K5's prefill form and
     K6 each beside the dequantize-then-K1 yardstick (``deq_k1_ms``,
     ``k1_ms``, logged); K7 at
-    T = 1/4/16 on a ~30% int4 pool, layers 0/14/27, tail 40; K8 at T = 1,
-    16 and 256 for each of the four W4A8 linears. At one shape each the
+    T = 1/4/16 on a ~30% int4 pool, layers 0/14/27, tail 40, and over 40
+    kv heads (G 1 and 7); K8 at T = 1, 4, 16, 24 and 256 for each of the
+    four W4A8 linears. At one shape each the
     gate must reject a reference with one 64-key tile (K5-K7) or one
     128-row input group (K8) left out (K8 at the lm_head's shape is held in
     ``int4h_path``). Times: ``kernel_ms``; the decode-shape
@@ -790,6 +793,33 @@ def kernel_parity_int4(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap:
                      OUT_RTOL)
     del pool, kq, vq, kt, vt
 
+    # K7 and K7-q8 over 40 kv heads (a merged pool of ten qwen2.5-7b
+    # sequences, G 7, and the G 1 case where a row group spans more than 32
+    # kv heads), 1,500 rows a head in a shuffled order, one tail length a
+    # kv head (one of them 0)
+    Hm, n40 = 40, 40 * 1500
+    rh40 = torch.randint(0, Hm, (n40,), dtype=torch.int32, device=dev, generator=gen)
+    rh40_drop = rh40.clone()
+    rh40_drop[:64] = -1
+    kq, ks, kz = quant(n40)
+    vq, vs, vz = quant(n40)
+    pool = (kq, ks.float(), kz.float(), vq, vs.float(), vz.float())
+    kt, vt = rn(1, Hm, tail_cap, D), rn(1, Hm, tail_cap, D)
+    geo = (torch.zeros(1, dtype=torch.int32, device=dev),
+           torch.full((1,), n40, dtype=torch.int32, device=dev))
+    tails = torch.tensor([(37 * h) % 300 for h in range(Hm)], dtype=torch.int32, device=dev)
+    for Gm in (1, G):
+        q = rn(1, Hm * Gm, D)
+        for q8, name in ((False, "pool_decode_attend_int4"), (True, "pool_decode_attend_int4_q8")):
+            got = pool_decode.pool_decode_attend_int4(q, *pool, rh40, *geo, kt, vt, tails, 0,
+                                                      scale=scale, max_rows=n40, q8=q8)
+            want, drop = (pool_decode.pool_decode_attend_int4_plain(
+                q.float(), *pool, r, *geo, kt.float(), vt.float(), tails, 0, scale=scale,
+                q8=q8, **(dict(with_slack=True) if q8 else {})) for r in (rh40, rh40_drop))
+            hold(name, f"q (1,{Hm * Gm},{D}) {Hm} kv heads, {n40} rows shuffled, tails",
+                 got, want, OUT_RTOL, drop)
+    del pool, kq, vq, kt, vt, rh40, rh40_drop
+
     # K8: the four W4A8 linears of qwen2.5-7b as 28-layer v2 stacks with
     # random bytes and scales (the kernel's work does not depend on them)
     D_m, I = cfg.hidden_size, cfg.intermediate_size
@@ -804,7 +834,7 @@ def kernel_parity_int4(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap:
                      ).to(torch.bfloat16),
                  z2=(-0.03 + 0.002 * torch.randn(L, 2, Gp8, half, device=dev,
                                                  generator=gen)).to(torch.bfloat16))
-        for T in (1, 16, 256):
+        for T in (1, 4, 16, 24, 256):
             x = rn(T, IN)
             got = w4a8_v2.w4a8_matmul_stacked_v2(x, w["q4"], w["s2"], w["z2"], 0)
             w0 = {k: v[0] for k, v in w.items()}
@@ -820,7 +850,7 @@ def kernel_parity_int4(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap:
             b = bound(2 * T * IN * OUT, nbytes, PEAK_INT8_OPS)
             timed[(name, T)] = dict(
                 **kernel_ms(lambda: w4a8_v2.w4a8_matmul_stacked_v2(
-                    x, w["q4"], w["s2"], w["z2"], next_layer()), 56 if T == 1 else 10),
+                    x, w["q4"], w["s2"], w["z2"], next_layer()), 56 if T <= 24 else 10),
                 bound_ms=b[0], bound_by=b[1])
             if T == 1:
                 timed[(name, T)]["plain_ms"] = time_ms(lambda: w4a8_v2.w4a8_jnp_v2(x, w0),

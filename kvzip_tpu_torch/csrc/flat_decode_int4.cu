@@ -68,5 +68,7 @@ extern "C" int kvz_flat_decode_int4(const void* q, const void* kq, const void* k
   a.mtc = mtc;
   a.rgs = rgs;
   a.scale = scale;
-  return i4d::launch(a, q8, static_cast<cudaStream_t>(stream));
+  a.kb = a.vb = nullptr;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return q8 ? i4d::launch<i4d::Q8>(a, st) : i4d::launch<i4d::EXACT>(a, st);
 }

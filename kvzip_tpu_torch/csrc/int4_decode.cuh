@@ -1,7 +1,9 @@
-// Shared body of the int4 decode kernels K7 (pool) and K11 (flat): one
-// launch over one layer's segment of int4 context rows and the bf16 tail
-// of each kv head, in the exact mode or the int8-attention (q8) mode, with
-// the flash-decoding merge inside the launch.
+// Shared body of the decode kernels K7 (int4 pool), K11 (int4 flat) and K3
+// (bf16 pool): one launch over one layer's segment of context rows and the
+// bf16 tail of each kv head, with the flash-decoding merge inside the
+// launch. Three modes: int4 rows exact (EXACT) or in the int8-attention
+// mode (Q8), and bf16 rows (BF16, K3: no dequantization, 32-row items so
+// that a key group's three stages of K and V rows fit beside the others').
 //
 // Exact mode: keys as nibbles with scale and zero folded out of q.k in
 // float32 (q.x = scale (q.n) + zero sum(q)), values dequantized to bf16
@@ -29,8 +31,10 @@
 //   unless its row_head is the row's kv head, so each byte of the segment
 //   is read once whatever the order of row_head; larger T takes more row
 //   groups, each reading the segment again (from L2).
-// - Work items: the segment's 64-row tiles, then 16-row tiles of each kv
-//   head's tail (only the heads of the row group). CTA `split` of S takes
+// - Work items: the segment's 64-row tiles (32 in BF16 mode), then 16-row
+//   tiles of each kv head's tail (only the heads of the row group; a row
+//   group of 16 MTC rows spans at most 16 MTC + 1 kv heads, so any number
+//   of kv heads is taken). CTA `split` of S takes
 //   items split, split + S, ... (interleaved, so a head-major pool's tiles
 //   of one head do not fall to a few CTAs when T > 1 gives row groups of
 //   one or two heads), and its KG = 8 / MTC key groups (MTC warps each,
@@ -38,8 +42,9 @@
 //   ring: the group's warps load a stage together and meet at a named
 //   barrier before computing it, while the next stages are in flight. A
 //   warp skips the compute of a tile that holds no row of its heads.
-// - Fragments come straight from the packed bytes: a lane reads 16 bytes
-//   of a key row for q.k (the D dimension permuted alike in q's
+// - Fragments come straight from the staged rows (bf16 rows: K by 16-byte
+//   reads, V's B fragments by prmt of four rows' words): a lane reads 16
+//   bytes of a key row for q.k (the D dimension permuted alike in q's
 //   fragments). Exact mode dequantizes a stage's V once for the group into
 //   a bf16 tile read by ldmatrix.trans; q8 reads 8 bytes of four key rows
 //   and turns them into s8 B fragments with a 4x4 byte transpose (prmt),
@@ -68,25 +73,12 @@
 
 namespace kvz {
 
-__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using sm90::div_rn;
+using sm90::mma_s8;
 
 __device__ __forceinline__ int quad_sum_int(int x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// x / d from the correctly rounded reciprocal r = 1 / d and one
-// correction step of the product (Markstein): the IEEE quotient for the
-// normal operands here, at a fraction of the division routine's cost.
-__device__ __forceinline__ float div_rn(float x, float d, float r) {
-  const float q = x * r;
-  return fmaf(fmaf(-q, d, x), r, q);
 }
 
 // The warp's two q rows (lo = gid, hi = gid + 8) quantized for the q8
@@ -149,7 +141,7 @@ constexpr int NTHR = NW * 32;
 constexpr int ROW_TILE = 64;           // int4 rows an item (the q8 p tile)
 constexpr int TAIL_TILE = 16;          // bf16 tail rows an item
 constexpr int KG_MAX = 4;              // key groups a CTA (MTC >= 2)
-constexpr int MAX_HEADS = 32;          // kv heads a sequence
+constexpr int RG_HEADS = 16 * 8 + 1;   // kv heads a row group spans, at most
 constexpr int MAX_SPLITS = 256;        // splits a row group (the merge's registers)
 constexpr float LOG2E = 1.4426950408889634f;
 // A stage (bytes). An int4 item: K rows (64 bytes each, contiguous: a
@@ -164,22 +156,33 @@ constexpr int OFF_RH = OFF_SC + 4 * ROW_TILE * 4;
 constexpr int STAGE = OFF_RH + ROW_TILE * 4;
 constexpr int OFF_TV = TAIL_TILE * TSTR;
 static_assert(2 * TAIL_TILE * TSTR <= STAGE, "a tail item must fit a stage");
+// A bf16 segment item: 32 K and 32 V rows padded to 272 bytes, their row_head.
+constexpr int BF_TILE = 32;
+constexpr int OFF_BV = BF_TILE * TSTR;
+constexpr int OFF_BRH = 2 * BF_TILE * TSTR;
+constexpr int BSTAGE = OFF_BRH + BF_TILE * 4;
+enum Mode { EXACT = 0, Q8 = 1, BF16 = 2 };
 constexpr int VBSTR = D + 8;           // bf16 row of a dequantized V tile (ldmatrix on 32 banks)
 constexpr int RSTR = D + 8;            // row stride of the key groups' merge (floats)
 // A key group's shared memory: NST stages and, in the exact mode, the V
 // tile of the stage being computed, dequantized once for the group's warps.
-template <bool Q8>
+template <int MODE>
 struct Ring {
-  static constexpr int NST = Q8 ? 4 : 3;
-  static constexpr int VB = Q8 ? 0 : ROW_TILE * VBSTR * 2;
-  static constexpr int GROUP = NST * STAGE + VB;
+  static constexpr int NST = MODE == Q8 ? 4 : 3;
+  static constexpr int SEG = MODE == BF16 ? BF_TILE : ROW_TILE;  // rows a segment item
+  static constexpr int STG = MODE == BF16 ? BSTAGE : STAGE;
+  static constexpr int VB = MODE == EXACT ? ROW_TILE * VBSTR * 2 : 0;
+  static constexpr int GROUP = NST * STG + VB;
   static constexpr int SMEM = KG_MAX * GROUP;
+  static_assert(SMEM <= 232448, "shared memory");
+  static_assert(KG_MAX * 16 * 2 * (RSTR + 3) * 4 <= SMEM, "the groups' merge");
+  static_assert(2 * TAIL_TILE * TSTR <= STG, "a tail item must fit a stage");
 };
-static_assert(Ring<false>::SMEM <= 232448 && Ring<true>::SMEM <= 232448, "shared memory");
-static_assert(KG_MAX * 16 * 2 * (RSTR + 3) * 4 <= Ring<true>::SMEM, "the groups' merge");
 
 struct Args {
   const bf16* q;                       // (T, H_all, D)
+  const bf16* kb;                      // BF16 mode: the rows (D bf16)
+  const bf16* vb;
   const uint8_t* kq;                   // packed rows (D/2 bytes), their scale and zero
   const float* ks;
   const float* kz;
@@ -524,15 +527,17 @@ __device__ __forceinline__ void q8_tile(Run& st, const Q8Rows& q8, const uint8_t
     }
 }
 
-// A tail item (bf16, both modes) of kv head `head`: tail rows c0 ... of
-// which nv are loaded; row j is visible to query i iff j < tail_len + i + 1.
-__device__ __forceinline__ void tail_tile(Run& st, const uint32_t qa[KK_D][4], const uint8_t* stg,
-                                          int c0, int nv, int head, int tl, const Rows& w,
-                                          int gid, int tig, float scale) {
-  float s[2][4];
+// NK bf16 key rows (a tail item, or a segment item in BF16 mode): K rows at
+// kst, V rows at vst, TSTR bytes apart; ok(col, i) says whether key col is
+// visible to the warp's row i (0: gid, 1: gid + 8).
+template <int NK, class Ok>
+__device__ __forceinline__ void bf16_tile(Run& st, const uint32_t qa[KK_D][4], const uint8_t* kst,
+                                          const uint8_t* vst, const Ok& ok, int gid, int tig,
+                                          float scale) {
+  float s[NK / 8][4];
 #pragma unroll
-  for (int nt = 0; nt < 2; ++nt) {
-    const uint8_t* kr = stg + (nt * 8 + gid) * TSTR + tig * 32;
+  for (int nt = 0; nt < NK / 8; ++nt) {
+    const uint8_t* kr = kst + (nt * 8 + gid) * TSTR + tig * 32;
     const uint4 h0 = *reinterpret_cast<const uint4*>(kr);
     const uint4 h1 = *reinterpret_cast<const uint4*>(kr + 16);
     const uint4 l0 = *reinterpret_cast<const uint4*>(kr + 2 * DP);
@@ -543,44 +548,48 @@ __device__ __forceinline__ void tail_tile(Run& st, const uint32_t qa[KK_D][4], c
 #pragma unroll
     for (int kk = 0; kk < KK_D; ++kk) mma16816(c, qa[kk], b[kk][0], b[kk][1]);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int i = j >> 1, col = nt * 8 + tig * 2 + (j & 1);
-      const bool ok = col < nv && w.head[i] == head && c0 + col < tl + w.t[i] + 1;
-      s[nt][j] = ok ? c[j] * scale : -INFINITY;
-    }
+    for (int j = 0; j < 4; ++j) s[nt][j] = ok(nt * 8 + tig * 2 + (j & 1), j >> 1) ? c[j] * scale
+                                                                             : -INFINITY;
   }
   float alpha[2];
-  st.probs<2>(s, alpha);
+  st.probs<NK / 8>(s, alpha);
   st.rescale(alpha);
-  const uint32_t a[4] = {pack_f32(s[0][0], s[0][1]), pack_f32(s[0][2], s[0][3]),
-                         pack_f32(s[1][0], s[1][1]), pack_f32(s[1][2], s[1][3])};
-  const int r0 = tig * 2;
-  const int rows[4] = {r0, r0 + 1, r0 + 8, r0 + 9};
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {  // columns half * 64 + gid * 8 + k
-    uint4 vw[4];
+  for (int kc = 0; kc < NK / 16; ++kc) {  // 16 keys a p.v step
+    const uint32_t a[4] = {pack_f32(s[2 * kc][0], s[2 * kc][1]),
+                           pack_f32(s[2 * kc][2], s[2 * kc][3]),
+                           pack_f32(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+                           pack_f32(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+    const int r0 = kc * 16 + tig * 2;
+    const int rows[4] = {r0, r0 + 1, r0 + 8, r0 + 9};
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      vw[i] = *reinterpret_cast<const uint4*>(stg + OFF_TV + rows[i] * TSTR + half * 2 * DP +
-                                             gid * 16);
+    for (int half = 0; half < 2; ++half) {  // columns half * 64 + gid * 8 + k
+      uint4 vw[4];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      uint32_t x[4];
+      for (int i = 0; i < 4; ++i)
+        vw[i] = *reinterpret_cast<const uint4*>(vst + rows[i] * TSTR + half * 2 * DP + gid * 16);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const uint32_t wds[4] = {vw[i].x, vw[i].y, vw[i].z, vw[i].w};
-        x[i] = wds[k >> 1];
+      for (int k = 0; k < 8; ++k) {
+        uint32_t x[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t wds[4] = {vw[i].x, vw[i].y, vw[i].z, vw[i].w};
+          x[i] = wds[k >> 1];
+        }
+        const uint32_t sel = (k & 1) ? 0x7632 : 0x5410;
+        mma16816(st.acc[half * 8 + k], a, __byte_perm(x[0], x[1], sel),
+                 __byte_perm(x[2], x[3], sel));
       }
-      const uint32_t sel = (k & 1) ? 0x7632 : 0x5410;
-      mma16816(st.acc[half * 8 + k], a, __byte_perm(x[0], x[1], sel), __byte_perm(x[2], x[3], sel));
     }
   }
 }
 
-template <bool Q8>
+template <int MODE>
 __global__ void __launch_bounds__(NTHR, 1) int4_decode_kernel(const Args a) {
+  constexpr bool Q8M = MODE == Q8;
+  constexpr int SEG = Ring<MODE>::SEG, STG = Ring<MODE>::STG;
   extern __shared__ __align__(16) uint8_t smem_raw[];
-  __shared__ int s_tl[MAX_HEADS], s_len[MAX_HEADS];
+  __shared__ int s_tl[RG_HEADS], s_len[RG_HEADS];
 
   const int rg = blockIdx.x, split = blockIdx.y, sb = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
@@ -600,10 +609,10 @@ __global__ void __launch_bounds__(NTHR, 1) int4_decode_kernel(const Args a) {
   const int match = pool ? 0 : sb * a.Hkv;  // row_head of the sequence's kv head 0
   const size_t tail0 = pool ? static_cast<size_t>(a.layer) * a.Hkv : match;
   const int h_lo = r0 / GT, n_heads = (r0 + nrows - 1) / GT - h_lo + 1;
-  if (tid < n_heads) {
-    const int tl = a.tail_lens ? a.tail_lens[match + h_lo + tid] : a.tail_len;
-    s_tl[tid] = tl;
-    s_len[tid] = max(0, min(tl + a.T, a.Tcap));
+  for (int h = tid; h < n_heads; h += NTHR) {
+    const int tl = a.tail_lens ? a.tail_lens[match + h_lo + h] : a.tail_len;
+    s_tl[h] = tl;
+    s_len[h] = max(0, min(tl + a.T, a.Tcap));
   }
 
   // this warp's rows, and their q words in flight across the barrier
@@ -629,7 +638,7 @@ __global__ void __launch_bounds__(NTHR, 1) int4_decode_kernel(const Args a) {
   }
   uint32_t qa[KK_D][4];
   uint4 qraw[2][4];
-  if constexpr (Q8) {
+  if constexpr (Q8M) {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -643,14 +652,14 @@ __global__ void __launch_bounds__(NTHR, 1) int4_decode_kernel(const Args a) {
   __syncthreads();
   int n_tail = 0;
   for (int h = 0; h < n_heads; ++h) n_tail += (s_len[h] + TAIL_TILE - 1) / TAIL_TILE;
-  const int n_seg = (n_rows + ROW_TILE - 1) / ROW_TILE;
+  const int n_seg = (n_rows + SEG - 1) / SEG;
   const int n_items = n_seg + n_tail;
 
   // item it: (tail?, first row, rows loaded, tail head index)
   auto item = [&](int it, int& c0, int& nv, int& h) {
     if (it < n_seg) {
-      c0 = it * ROW_TILE;
-      nv = min(ROW_TILE, n_rows - c0);
+      c0 = it * SEG;
+      nv = min(SEG, n_rows - c0);
       h = -1;
       return false;
     }
@@ -667,7 +676,20 @@ __global__ void __launch_bounds__(NTHR, 1) int4_decode_kernel(const Args a) {
   // the key group's threads copy item `it` into a stage; rows past nv zero
   auto load = [&](uint8_t* stg, int it) {
     int c0, nv, h;
-    if (!item(it, c0, nv, h)) {
+    const bool seg = !item(it, c0, nv, h);
+    if (seg && MODE == BF16) {
+      const bf16* kg_ = a.kb + (base + c0) * D;
+      const bf16* vg_ = a.vb + (base + c0) * D;
+      for (int j = gt; j < BF_TILE * (D / 8); j += GTH) {
+        const int r = j >> 4, c = (j & 15) * 8;
+        const bool ok = r < nv;
+        const size_t o = ok ? static_cast<size_t>(r) * D + c : 0;
+        cp_async16(stg + r * TSTR + c * 2, kg_ + o, ok);
+        cp_async16(stg + OFF_BV + r * TSTR + c * 2, vg_ + o, ok);
+      }
+      for (int r = gt; r < BF_TILE; r += GTH)
+        cp_async4(stg + OFF_BRH + r * 4, a.row_head + base + c0 + (r < nv ? r : 0), r < nv);
+    } else if (seg) {
       const uint8_t* kg_ = a.kq + (base + c0) * DP;
       const uint8_t* vg_ = a.vq + (base + c0) * DP;
       for (int j = gt; j < ROW_TILE * (DP / 16); j += GTH) {
@@ -698,7 +720,7 @@ __global__ void __launch_bounds__(NTHR, 1) int4_decode_kernel(const Args a) {
     }
   };
 
-  float qs[2];
+  float qs[2] = {0.f, 0.f};
   Q8Rows q8;
   // The CTA's items are split, split + S, ... (interleaved, so every CTA
   // holds its share of each kv head's tiles); key group kg takes every
@@ -706,29 +728,29 @@ __global__ void __launch_bounds__(NTHR, 1) int4_decode_kernel(const Args a) {
   const int n_cta = split < n_items ? (n_items - split + S - 1) / S : 0;
   const int n_my = n_cta > kg ? (n_cta - kg + KG - 1) / KG : 0;
   auto item_of = [&](int k) { return split + S * (kg + KG * k); };
-  constexpr int NST = Ring<Q8>::NST;
-  uint8_t* ring = smem_raw + kg * Ring<Q8>::GROUP;
-  bf16* vb = reinterpret_cast<bf16*>(ring + NST * STAGE);
+  constexpr int NST = Ring<MODE>::NST;
+  uint8_t* ring = smem_raw + kg * Ring<MODE>::GROUP;
+  bf16* vb = reinterpret_cast<bf16*>(ring + NST * STG);
 #pragma unroll
   for (int k = 0; k < NST - 1; ++k) {
-    if (k < n_my) load(ring + k * STAGE, item_of(k));
+    if (k < n_my) load(ring + k * STG, item_of(k));
     sm90::cp_async_commit();
   }
-  if constexpr (Q8)
+  if constexpr (Q8M)
     q8.make(qraw);
-  else
+  else if constexpr (MODE == EXACT)
     q_row_sums(qa, qs);
   Run st;
   st.init();
   for (int k = 0; k < n_my; ++k) {
     sm90::cp_async_wait<NST - 2>();
     sm90::named_bar(1 + kg, GTH);  // stage k landed for the group; stage k - 1 is free
-    if (k + NST - 1 < n_my) load(ring + ((k + NST - 1) % NST) * STAGE, item_of(k + NST - 1));
+    if (k + NST - 1 < n_my) load(ring + ((k + NST - 1) % NST) * STG, item_of(k + NST - 1));
     sm90::cp_async_commit();
-    const uint8_t* stg = ring + (k % NST) * STAGE;
+    const uint8_t* stg = ring + (k % NST) * STG;
     int c0, nv, h;
     const bool tail = item(item_of(k), c0, nv, h);
-    if constexpr (!Q8) {
+    if constexpr (MODE == EXACT) {
       if (!tail) {
         expand_v(vb, stg, gt, GTH);
         sm90::named_bar(1 + kg, GTH);  // vb holds stage k's values
@@ -736,23 +758,34 @@ __global__ void __launch_bounds__(NTHR, 1) int4_decode_kernel(const Args a) {
     }
     if (w.h_lo > w.h_hi) continue;
     if (!tail) {
-      const int* rh = reinterpret_cast<const int*>(stg + OFF_RH);
+      const int* rh = reinterpret_cast<const int*>(stg + (MODE == BF16 ? OFF_BRH : OFF_RH));
       const int lo = match + w.h_lo, hi = match + w.h_hi;
-      const bool mine = (lane < nv && rh[lane] >= lo && rh[lane] <= hi) ||
-                        (lane + 32 < nv && rh[lane + 32] >= lo && rh[lane + 32] <= hi);
+      bool mine = false;
+#pragma unroll
+      for (int r = lane; r < SEG; r += 32) mine |= r < nv && rh[r] >= lo && rh[r] <= hi;
       if (!__any_sync(0xffffffffu, mine)) continue;  // no row of this warp's heads
-      if constexpr (Q8)
+      if constexpr (Q8M) {
         q8_tile(st, q8, stg, nv, match, w, gid, tig, a.scale);
-      else
+      } else if constexpr (MODE == EXACT) {
         exact_tile(st, qa, qs, stg, vb, nv, match, w, lane, a.scale);
+      } else {
+        const auto ok = [&](int col, int i) {
+          return col < nv && rh[col] == match + w.head[i] && w.head[i] >= 0;
+        };
+        bf16_tile<BF_TILE>(st, qa, stg, stg + OFF_BV, ok, gid, tig, a.scale);
+      }
     } else {
       if (h_lo + h < w.h_lo || h_lo + h > w.h_hi) continue;
-      if constexpr (Q8) {
+      const int hd = h_lo + h, tl = s_tl[h];
+      const auto ok = [&](int col, int i) {
+        return col < nv && w.head[i] == hd && c0 + col < tl + w.t[i] + 1;
+      };
+      if constexpr (Q8M) {
         uint32_t qt[KK_D][4];
         load_qa(qt, w.ptr[0], w.ptr[1], tig);
-        tail_tile(st, qt, stg, c0, nv, h_lo + h, s_tl[h], w, gid, tig, a.scale);
+        bf16_tile<TAIL_TILE>(st, qt, stg, stg + OFF_TV, ok, gid, tig, a.scale);
       } else {
-        tail_tile(st, qa, stg, c0, nv, h_lo + h, s_tl[h], w, gid, tig, a.scale);
+        bf16_tile<TAIL_TILE>(st, qa, stg, stg + OFF_TV, ok, gid, tig, a.scale);
       }
     }
   }
@@ -913,35 +946,31 @@ __global__ void __launch_bounds__(NTHR, 1) int4_decode_kernel(const Args a) {
   }
 }
 
-// Launch on `stream`: grid (rgs, S, n_seq) of NTHR threads, Ring<q8>::SMEM
+// Launch on `stream`: grid (rgs, S, n_seq) of NTHR threads, Ring<MODE>::SMEM
 // bytes of dynamic shared memory each. The wrapper plans it (ops/int4_decode.py):
-// with S > 1 the grid must fit the card at once. Static: K7 and K11 are two
-// libraries in one process, and an inline function's local static would be
-// one object for both (so the second library would skip setting its own
-// kernels' shared-memory limit).
-static int launch(const Args& a, int q8, cudaStream_t stream) {
+// with S > 1 the grid must fit the card at once. Static: K3, K7 and K11 are
+// three libraries in one process, and an inline function's local static
+// would be one object for all (so a later library would skip setting its
+// own kernel's shared-memory limit); a template instantiates only the
+// modes its library launches.
+template <int MODE>
+static int launch(const Args& a, cudaStream_t stream) {
   static bool attr[64] = {};
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev < 64 && !attr[dev]) {
-    cudaError_t e = cudaFuncSetAttribute(int4_decode_kernel<false>,
+    cudaError_t e = cudaFuncSetAttribute(int4_decode_kernel<MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Ring<false>::SMEM);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(int4_decode_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, Ring<true>::SMEM);
+                                         Ring<MODE>::SMEM);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr[dev] = true;
   }
   const int rows = a.Hkv * a.G * a.T;
   if ((a.mtc != 2 && a.mtc != 4 && a.mtc != 8) || a.S < 1 || a.S > MAX_SPLITS || a.Hkv < 1 ||
-      a.Hkv > MAX_HEADS || a.rgs != (rows + 16 * a.mtc - 1) / (16 * a.mtc))
+      a.rgs != (rows + 16 * a.mtc - 1) / (16 * a.mtc))
     return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(a.rgs, a.S, a.n_seq);
-  if (q8)
-    int4_decode_kernel<true><<<grid, NTHR, Ring<true>::SMEM, stream>>>(a);
-  else
-    int4_decode_kernel<false><<<grid, NTHR, Ring<false>::SMEM, stream>>>(a);
+  int4_decode_kernel<MODE><<<grid, NTHR, Ring<MODE>::SMEM, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

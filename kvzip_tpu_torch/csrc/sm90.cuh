@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks of the redesigned attention kernels (K1,
-// K4, K5/K6's prefill form, K9): mbarriers, TMA tensor loads, wgmma descriptors and issue, ldmatrix
-// and a cp.async ring, and the host-side tensor-map encoder (reached through
-// cudaGetDriverEntryPoint, so no library beyond the CUDA runtime is linked).
+// Hopper (sm_90a) building blocks of the redesigned kernels (K1, K3, K4,
+// K5/K6's prefill form, K7, K8, K9, K11): mbarriers, TMA tensor loads, wgmma
+// descriptors and issue, ldmatrix, s8 mma and a cp.async ring, and the
+// host-side tensor-map encoder (reached through cudaGetDriverEntryPoint, so
+// no library beyond the CUDA runtime is linked).
 //
 // wgmma fragments (PTX ISA, "wgmma .m64nNk16"): warp w of the warpgroup
 // holds rows 16w..16w+15 of the 64-row tile; lane l holds rows l/4 and
@@ -260,6 +261,23 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// c += a . b, m16n8k32 with s8 operands and s32 sums (exact).
+__device__ __forceinline__ void mma_s8(int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x / d from the correctly rounded reciprocal r = 1 / d and one
+// correction step of the product (Markstein): the IEEE quotient for the
+// normal operands here, at a fraction of the division routine's cost.
+__device__ __forceinline__ float div_rn(float x, float d, float r) {
+  const float q = x * r;
+  return fmaf(fmaf(-q, d, x), r, q);
 }
 
 __device__ __forceinline__ float ex2(float x) {

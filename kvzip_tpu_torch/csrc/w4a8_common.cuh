@@ -1,9 +1,9 @@
-// Shared by the W4A8 linears K8 (w4a8.cu) and K15/K16 (w4a8_v1.cu): the
-// per-token s8 quantization of the activations
-// (ops/quant.py::quantize_act_int8), the byte transposition of four rows and
-// the main kernels' loop over input groups (w4a8_groups), which takes the
-// storage's scales through a functor: each source keeps only its scales,
-// its output and its entry point.
+// The W4A8 linears K15/K16 (w4a8_v1.cu): the per-token s8 quantization of
+// the activations (ops/quant.py::quantize_act_int8), the byte transposition
+// of four rows and the main kernel's loop over input groups (w4a8_groups),
+// which takes the storage's scales through a functor. K8 (w4a8.cu) shared
+// them until its Hopper redesign (tensor cores, one launch at T <= 4) and
+// uses none of them now.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -15,8 +15,8 @@
 // Bound on the H100: device-memory bytes at decode (T = 1 reads every
 // weight byte for 2 operations per nibble); integer operations toward the
 // 511 rows the dispatch sends here at most.
-// Design: K8's (w4a8.cu), whose group loop (w4a8_common.cuh::w4a8_groups)
-// it shares, with the v1 scales. A small kernel quantizes the
+// Design: the group loop of w4a8_common.cuh::w4a8_groups (K8's before its
+// Hopper redesign), with the v1 scales. A small kernel quantizes the
 // activations; the main kernel gives each thread 4 byte columns (8 output
 // columns) and loops over the true input groups only (G = IN / 128: the
 // pad groups add exactly 0, so they are not read). Four rows' words are

@@ -233,9 +233,6 @@ def flat_decode_attend_int4(q: torch.Tensor, k_flat_q: torch.Tensor, k_flat_s: t
     L = rows_shape[0] if stacked else 1
     (T, H_all, Hkv, Tcap, R_seg, lens_ptr, scalar,
      layer) = _launch_geometry(q, k_tail, rows_shape[-1], n_seq, layer, L, what, tail_len)
-    if Hkv > int4_decode.MAX_HEADS:
-        raise ValueError(f"{what}: bad shapes: {Hkv} kv heads a sequence, at most "
-                         f"{int4_decode.MAX_HEADS}")
     mtc, groups, S = int4_decode.plan(H_all // n_seq * T, n_seq, R_seg, sm_count(q.device))
     out = torch.empty_like(q)
     part_acc, part_ml, tickets = int4_decode.scratch(q.device, what, n_seq, groups, S, mtc)

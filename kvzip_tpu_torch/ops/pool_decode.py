@@ -1,11 +1,10 @@
 """K3 and K7: decode attention over the POOL cache (after eviction).
 
 Port of ``kvzip_tpu/ops/pool_decode.py::pool_decode_attend`` (K3, bf16
-pool, ``csrc/pool_decode.cu``: flash-decoding over the layer's pool segment
-plus one split for the bf16 tail, then a merge kernel) and
-``::pool_decode_attend_int4`` (K7, int4 pool, exact or the int8-attention
-``q8`` mode, ``csrc/pool_decode_int4.cu``: one launch, planned by
-``ops/int4_decode.py``, with the merge inside it). The port stores the
+pool, ``csrc/pool_decode.cu``) and ``::pool_decode_attend_int4`` (K7, int4
+pool, exact or the int8-attention ``q8`` mode, ``csrc/pool_decode_int4.cu``):
+each one launch of ``csrc/int4_decode.cuh``'s body (its bf16 mode for K3),
+planned by ``ops/int4_decode.py``, with the merge inside it. The port stores the
 pool row-major: K and V are both (P, D), or (P, D//2) packed int4 rows with
 float32 per-row scales and zeros (P,). ``tail_len`` is one int or one per
 kv head (an ``(Hkv,)`` int32 tensor on q's device, as the merged pool of
@@ -25,9 +24,8 @@ from kvzip_tpu_torch.ops import (LAUNCHES, attention, check_kernel_args, int4_de
 from kvzip_tpu_torch.ops.attention import Q8_TILE, attend_int4_q8
 from kvzip_tpu_torch.ops.flat_decode import TailLen, _tail_lens, tail_arg
 from kvzip_tpu_torch.ops.quant import dequantize_int4
-from kvzip_tpu_torch.ops.ragged_decode import split_size
 
-_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [ctypes.c_float,
+_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9 + [ctypes.c_float,
                                                        ctypes.c_void_p]
 _ARGS_INT4 = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 + [ctypes.c_float,
                                                              ctypes.c_void_p]
@@ -134,23 +132,18 @@ def pool_decode_attend(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"pool_decode_attend: bad shapes q {tuple(q.shape)} "
                          f"pool {tuple(k_pool.shape)} tail {tuple(k_tail.shape)}")
     lens_t, scalar = tail_arg(tail_len, Hkv, T, Tcap, q.device, "pool_decode_attend")
-    R = (H // Hkv) * T
-    ch = split_size(max_rows, -(-R // 64), target=512)
-    s_pool = -(-max_rows // ch)
+    mtc, groups, S = int4_decode.plan(H * T, 1, max_rows, sm_count(q.device),
+                                      int4_decode.BF_TILE)
     out = torch.empty_like(q)
-    part_acc = torch.empty((Hkv, s_pool + 1, R, D), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((Hkv, s_pool + 1, R, 2), dtype=torch.float32,
-                          device=q.device)
+    part_acc, part_ml, tickets = int4_decode.scratch(q.device, "pool_decode_attend", 1,
+                                                     groups, S, mtc)
     with torch.cuda.device(q.device):
         fn = _build.kernel("pool_decode", "kvz_pool_decode", _ARGS)
-        _build.check(fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-                        row_head.data_ptr(), layer_off.data_ptr(),
-                        layer_rows.data_ptr(), k_tail.data_ptr(),
-                        v_tail.data_ptr(), _ptr(lens_t), out.data_ptr(),
-                        part_acc.data_ptr(), part_ml.data_ptr(), T, H, Hkv, Tcap, layer, scalar,
-                        ch, s_pool, scale, stream_ptr(q.device)),
-                     "pool_decode_attend")
+        _build.check(fn(*[a.data_ptr() for a in (q, k_pool, v_pool, row_head, layer_off,
+                                                 layer_rows, k_tail, v_tail)],
+                        _ptr(lens_t), out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+                        tickets.data_ptr(), T, H, Hkv, Tcap, layer, scalar, S, mtc, groups,
+                        scale, stream_ptr(q.device)), "pool_decode_attend")
     LAUNCHES["pool_decode_attend"] += 1
     return out
 
@@ -181,7 +174,7 @@ def pool_decode_attend_int4(q: torch.Tensor, k_pool_q: torch.Tensor,
     T, H, D = q.shape
     L, Hkv, Tcap, _ = k_tail.shape
     P = k_pool_q.shape[0]
-    if H % Hkv or Hkv > int4_decode.MAX_HEADS or k_pool_q.shape != (P, D // 2) \
+    if H % Hkv or k_pool_q.shape != (P, D // 2) \
             or v_pool_q.shape != (P, D // 2) \
             or any(a.shape != (P,) for a in (k_pool_s, k_pool_z, v_pool_s,
                                              v_pool_z, row_head)) \

@@ -129,7 +129,7 @@ def _w4a8_jnp(x: torch.Tensor, w: dict, bias=None) -> torch.Tensor:
 
 
 def split_groups(T: int, half: int, G: int) -> tuple:
-    """The grid of K8 and K15: tokens a CTA (``tt``, 1 or 4), input groups
+    """The grid of K15/K16: tokens a CTA (``tt``, 1 or 4), input groups
     a split (``gps``) and splits (``S``), chosen so that the CTAs (512
     byte columns x ``tt`` tokens x one split each) number about
     ``_TARGET_CTAS``: a single token splits its groups to fill the card,

@@ -1,4 +1,4 @@
-"""The launch plan of K7 and K11 (``kvzip_tpu_torch/ops/int4_decode.py``),
+"""The launch plan of K7, K11 and K3 (``kvzip_tpu_torch/ops/int4_decode.py``),
 which mirrors the arithmetic of ``csrc/int4_decode.cuh``: the grid fits the
 card whenever its CTAs wait for each other, every row of a segment and of
 each kv head's visible tail lies in exactly one work item, segment items
@@ -73,7 +73,8 @@ def _rand_int4(gen, *shape):
     return p, s[..., 0].float(), z[..., 0].float()
 
 
-def _emulate(q, seg_k, seg_v, rh, match, kt, vt, tails, T, G, Hkv, scale, sms):
+def _emulate(q, seg_k, seg_v, rh, match, kt, vt, tails, T, G, Hkv, scale, sms,
+             row_tile=int4_decode.ROW_TILE):
     """One sequence through the kernel's schedule in float64: every row
     group's items split over S CTAs, each CTA's online softmax over its
     items, the S partials merged. seg_k/seg_v (n, D) dequantized rows with
@@ -81,13 +82,13 @@ def _emulate(q, seg_k, seg_v, rh, match, kt, vt, tails, T, G, Hkv, scale, sms):
     kt/vt (Hkv, Tcap, D); tails one length a kv head. Returns (G*T*Hkv, D)
     rows, head-major."""
     rows, Tcap = Hkv * G * T, kt.shape[1]
-    mtc, groups, S = int4_decode.plan(rows, 1, max(seg_k.shape[0], 1), sms)
+    mtc, groups, S = int4_decode.plan(rows, 1, max(seg_k.shape[0], 1), sms, row_tile)
     qr = torch.stack([q[r % T, (r // T)] for r in range(rows)]).double()  # (rows, D)
     out = torch.empty(rows, D, dtype=torch.float64)
     for rg in range(groups):
         r0, nrows = rg * 16 * mtc, min(16 * mtc, rows - rg * 16 * mtc)
         h0, nh = int4_decode.row_group_heads(rg, mtc, rows, G * T)
-        items = int4_decode.work_items(seg_k.shape[0], tails[h0:h0 + nh], T, Tcap)
+        items = int4_decode.work_items(seg_k.shape[0], tails[h0:h0 + nh], T, Tcap, row_tile)
         row_head = torch.arange(r0, r0 + nrows) // (G * T)
         row_t = torch.arange(r0, r0 + nrows) % T
         parts = []
@@ -177,3 +178,64 @@ def test_schedule_reproduces_k11_plain_two_sequences(T):
         got = _emulate(q[:, sb * H:(sb + 1) * H], k[seg], v[seg], rh[seg], sb * Hkv,
                        kt[heads], vt[heads], tails[heads].tolist(), T, G, Hkv, D ** -0.5, SMS)
         torch.testing.assert_close(_to_out(got, T, H), want[:, sb * H:(sb + 1) * H], **TOL)
+
+
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("T", [1, 3])
+def test_plan_takes_40_kv_heads(G, T):
+    """40 kv heads (five llama3.1-8b sequences merged): the plan keeps the
+    grid within the SM count, no row group spans more kv heads than the
+    kernel's per-row-group arrays hold (at G 1 and 2 more than 32), and
+    every row of the segment and of each head's tail lies in one item, for
+    K7's 64-row and K3's 32-row segment items. With more row groups and
+    sequences than SMs, one split: nothing waits."""
+    Hkv, seg_rows = 40, 3000
+    rows = Hkv * G * T
+    for row_tile in (int4_decode.ROW_TILE, int4_decode.BF_TILE):
+        mtc, groups, S = int4_decode.plan(rows, 1, seg_rows, SMS, row_tile)
+        assert groups * S <= SMS
+        spans = [int4_decode.row_group_heads(rg, mtc, rows, G * T)[1] for rg in range(groups)]
+        assert max(spans) <= int4_decode.RG_HEADS
+        assert max(spans) > 32 or G * T > 3
+        for rg in range(groups):
+            h0, nh = int4_decode.row_group_heads(rg, mtc, rows, G * T)
+            lens = [(7 * (h0 + h)) % 40 for h in range(nh)]
+            items = int4_decode.work_items(seg_rows, lens, T, 48, row_tile)
+            assert all(i[1] % row_tile == 0 for i in items if i[0] == "seg")
+            splits = int4_decode.split_items(len(items), S)
+            _covers_rows([items[i] for sp in splits for i in sp], seg_rows, lens, T, 48)
+    assert int4_decode.plan(rows, 200, seg_rows, SMS)[2] == 1
+
+
+def _covers_rows(items, seg_rows, lens, T, Tcap):
+    seg = sorted(r for kind, *rest in items if kind == "seg"
+                 for r in range(rest[0], rest[0] + rest[1]))
+    assert seg == list(range(seg_rows))
+    for h, tl in enumerate(lens):
+        rows = sorted(r for kind, *rest in items if kind == "tail" and rest[0] == h
+                      for r in range(rest[1], rest[1] + rest[2]))
+        assert rows == list(range(max(0, min(tl + T, Tcap))))
+
+
+@pytest.mark.parametrize("T,Hkv,G,rows", [(1, 40, 1, 300), (3, 40, 2, 200), (4, 4, 7, 700),
+                                          (24, 2, 2, 100)])
+def test_schedule_reproduces_k3_plain(T, Hkv, G, rows):
+    """K3's schedule (32-row bf16 items, interleaved over the CTAs, merged)
+    against its plain version: a shuffled row_head, one tail length a kv
+    head (one of them 0)."""
+    gen = torch.Generator().manual_seed(T * 1000 + Hkv + rows)
+    H, Tcap, off = Hkv * G, 32, 64
+    P = off + rows + 64
+    rh = torch.full((P,), -1, dtype=torch.int32)
+    rh[off:off + rows] = torch.randint(0, Hkv, (rows,), generator=gen, dtype=torch.int32)
+    kp, vp = torch.randn(P, D, generator=gen), torch.randn(P, D, generator=gen)
+    q = torch.randn(T, H, D, generator=gen)
+    kt, vt = (torch.randn(1, Hkv, Tcap, D, generator=gen) for _ in range(2))
+    tails = [0] + [(5 * h + 3) % (Tcap - T + 1) for h in range(1, Hkv)]
+    lo, n = torch.tensor([off], dtype=torch.int32), torch.tensor([rows], dtype=torch.int32)
+    want = pool_decode.pool_decode_attend_plain(q, kp, vp, rh, lo, n, kt, vt,
+                                                torch.tensor(tails, dtype=torch.int32), 0,
+                                                scale=D ** -0.5)
+    got = _emulate(q, kp[off:off + rows], vp[off:off + rows], rh[off:off + rows], 0, kt[0],
+                   vt[0], tails, T, G, Hkv, D ** -0.5, SMS, int4_decode.BF_TILE)
+    torch.testing.assert_close(_to_out(got, T, H), want, **TOL)

@@ -911,3 +911,210 @@ def test_w4a8_v1_rejects_wrong_dtypes_and_shapes(gen):
     with pytest.raises(ValueError, match="bad shapes"):
         w4a8.w4a8_matmul_stacked(_rn(gen, 4, 384), w["q4"], w["s"], w["z"], 0)
     assert sum(LAUNCHES.values()) == 0
+
+
+# Since K3 and K8 were redesigned for Hopper (K3 on K7's one-launch body,
+# K8 on tensor cores with its merge inside the launch) and K7/K11 take any
+# number of kv heads.
+
+
+def _kv40_pool(gen, Hkv, n, order):
+    """row_head of one layer's n pool rows after a 64-row offset: head-major
+    runs of random length, or the same ids shuffled."""
+    rh = torch.randint(0, Hkv, (n,), generator=gen, dtype=torch.int32).sort().values
+    if order == "shuffled":
+        rh = rh[torch.randperm(n, generator=gen)]
+    return rh
+
+
+@pytest.mark.parametrize("kind", ["pool", "flat"])
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("G", [1, 2, 4])
+@pytest.mark.parametrize("T", [1, 3])
+def test_int4_decode_40_kv_heads(gen, kind, q8, G, T):
+    """K7 and K11, exact and q8, with 40 kv heads (five llama3.1-8b
+    sequences merged) at G 1, 2 and 4 and one tail length a kv head (0 and
+    Tcap - T among them): at G 1 and 2 a row group spans more than 32 kv
+    heads. The reference without the segment's first 64 rows must fail."""
+    from kvzip_tpu_torch.ops import flat_decode, int4_decode
+
+    Hkv, Tcap, n, off = 40, 48, 3000, 64
+    H = Hkv * G
+    q = _rn(gen, T, H, D)
+    tails = torch.tensor([(7 * h) % (Tcap - T + 1) for h in range(Hkv)], dtype=torch.int32)
+    tails[3], tails[5] = 0, Tcap - T
+    tails = tails.cuda()
+    rh = torch.full((off + n,), -1, dtype=torch.int32)
+    rh[off:] = _kv40_pool(gen, Hkv, n, "shuffled" if G == 2 else "head-major")
+    kv = (*_quant(gen, off + n), *_quant(gen, off + n))
+    kv = (kv[0], kv[1].float(), kv[2].float(), kv[3], kv[4].float(), kv[5].float())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mtc, groups, S = int4_decode.plan(H * T, 1, n, sms)
+    assert groups * S <= sms or S == 1
+    name = ("pool_decode_attend_int4" if kind == "pool" else "flat_decode_attend_int4") + \
+        ("_q8" if q8 else "")
+    if kind == "pool":
+        kt, vt = _rn(gen, 1, Hkv, Tcap, D), _rn(gen, 1, Hkv, Tcap, D)
+        geo = (torch.tensor([off], dtype=torch.int32, device="cuda"),
+               torch.tensor([n], dtype=torch.int32, device="cuda"))
+        got = pool_decode.pool_decode_attend_int4(q, *kv, rh.cuda(), *geo, kt, vt, tails, 0,
+                                                  scale=D ** -0.5, max_rows=n, q8=q8)
+
+        def plain(r):
+            out = pool_decode.pool_decode_attend_int4_plain(
+                q.float(), *kv, r.cuda(), *geo, kt.float(), vt.float(), tails, 0,
+                scale=D ** -0.5, q8=q8, with_slack=q8)
+            return out if q8 else (out, None)
+    else:
+        kt, vt = _rn(gen, Hkv, Tcap, D), _rn(gen, Hkv, Tcap, D)
+        kv = tuple(a[None] for a in kv)
+        got = flat_decode.flat_decode_attend_int4(q, *kv, rh[None].cuda(), kt, vt, tails,
+                                                  scale=D ** -0.5, q8=q8, layer=0)
+
+        def plain(r):
+            out = flat_decode.flat_decode_attend_int4_plain(
+                q.float(), *kv, r[None].cuda(), kt.float(), vt.float(), tails,
+                scale=D ** -0.5, q8=q8, layer=0, with_slack=q8)
+            return out if q8 else (out, None)
+    want, slack = plain(rh)
+    assert _ok(got, want, slack=slack)
+    rh_drop = rh.clone()
+    rh_drop[off:off + 64] = -1
+    drop, slack = plain(rh_drop)
+    assert not parity(got, drop, OUT_RTOL, slack)["ok"]
+    assert LAUNCHES[name] == 1 and sum(LAUNCHES.values()) == 1
+
+
+@pytest.mark.parametrize("H,Hkv", [(4, 2), (28, 4), (32, 8), (160, 40)])
+@pytest.mark.parametrize("T", [1, 4, 16, 24])
+@pytest.mark.parametrize("tails", ["scalar", "per_head"])
+@pytest.mark.parametrize("order", ["head-major", "shuffled"])
+def test_pool_decode_one_launch(gen, H, Hkv, T, tails, order):
+    """K3, one launch: a layer of 2,000 rows after an offset of 64 (no
+    multiple of its 32-row items: the last is partial), head-major or
+    shuffled, one tail length or one a kv head (one of them 0); the
+    reference without the layer's first 64 rows must fail."""
+    L, Tcap, n, off = 2, 64, 2000, 64
+    P = off + n + 64
+    rh = torch.full((P,), -1, dtype=torch.int32)
+    rh[off:off + n] = _kv40_pool(gen, Hkv, n, order)
+    q, kp, vp = _rn(gen, T, H, D), _rn(gen, P, D), _rn(gen, P, D)
+    kt, vt = _rn(gen, L, Hkv, Tcap, D), _rn(gen, L, Hkv, Tcap, D)
+    geo = (torch.tensor([0, off], dtype=torch.int32, device="cuda"),
+           torch.tensor([0, n], dtype=torch.int32, device="cuda"))
+    if tails == "scalar":
+        tl = 29
+    else:
+        tl = torch.tensor([(11 * h + 5) % (Tcap - T + 1) for h in range(Hkv)], dtype=torch.int32)
+        tl[Hkv // 2] = 0
+        tl = tl.cuda()
+
+    def plain(r):
+        return pool_decode.pool_decode_attend_plain(q.float(), kp.float(), vp.float(), r.cuda(),
+                                                    *geo, kt.float(), vt.float(), tl, 1,
+                                                    scale=D ** -0.5)
+
+    got = pool_decode.pool_decode_attend(q, kp, vp, rh.cuda(), *geo, kt, vt, tl, 1,
+                                         scale=D ** -0.5, max_rows=n)
+    assert _ok(got, plain(rh))
+    rh_drop = rh.clone()
+    rh_drop[off:off + 64] = -1
+    assert not parity(got, plain(rh_drop), OUT_RTOL)["ok"]
+    assert LAUNCHES["pool_decode_attend"] == 1 and sum(LAUNCHES.values()) == 1
+
+
+def _graph_replay(run):
+    """run() eagerly, then captured in a CUDA graph and replayed: the eager
+    output and the replay's."""
+    eager = run().clone()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = run()
+    g.replay()
+    torch.cuda.synchronize()
+    return eager, out
+
+
+def test_pool_decode_repeat_and_graph(gen):
+    """K3: two calls give the same bits, and a CUDA-graph replay (with a
+    tail vector) equals the eager call."""
+    H, Hkv, T, Tcap, n = 28, 4, 1, 64, 5000
+    rh = _kv40_pool(gen, Hkv, n, "head-major").cuda()
+    kp, vp = _rn(gen, n, D), _rn(gen, n, D)
+    kt, vt = _rn(gen, 1, Hkv, Tcap, D), _rn(gen, 1, Hkv, Tcap, D)
+    geo = (torch.zeros(1, dtype=torch.int32, device="cuda"),
+           torch.full((1,), n, dtype=torch.int32, device="cuda"))
+    tl = torch.tensor([0, 9, Tcap - T, 23], dtype=torch.int32, device="cuda")
+    q = _rn(gen, T, H, D)
+
+    def run():
+        return pool_decode.pool_decode_attend(q, kp, vp, rh, *geo, kt, vt, tl, 0,
+                                              scale=D ** -0.5, max_rows=n)
+
+    first, second = run(), run()
+    assert torch.equal(first, second)
+    eager, replay = _graph_replay(run)
+    assert torch.equal(eager, replay)
+    assert _ok(replay, pool_decode.pool_decode_attend_plain(
+        q.float(), kp.float(), vp.float(), rh, *geo, kt.float(), vt.float(), tl, 0,
+        scale=D ** -0.5))
+
+
+def _v2_stack(gen, L, IN, OUT):
+    """A v2 stack with random bytes and per-(group, column) scales whose
+    zeros centre each group's nibbles (weights of standard deviation
+    ~0.02), on the card."""
+    half, G = OUT // 2, IN // 128
+    Gp8 = -(-G // 8) * 8
+    q4 = torch.randint(0, 256, (L, IN, half), dtype=torch.uint8, generator=gen)
+    s = 0.0043 * (0.75 + 0.5 * torch.rand(L, 2, Gp8, half, generator=gen))
+    z = -7.5 * s
+    s2, z2 = s.clone(), z.clone()
+    s2[:, 0] = s[:, 0] / 16.0
+    z2[:, 0] = z[:, 0] + 8.0 * s[:, 0]
+    s2[:, :, G:] = z2[:, :, G:] = 0
+    return dict(q4=q4.cuda(), s2=s2.to(torch.bfloat16).cuda(), z2=z2.to(torch.bfloat16).cuda())
+
+
+# qwen2.5-7b's four v2 linears, the int4 lm_head, and OUT/2 = 1,168 (no
+# multiple of the kernel's 128-column block)
+K8_SHAPES = [(3584, 4608), (3584, 3584), (3584, 37888), (18944, 3584), (3584, 152064),
+             (384, 2336)]
+
+
+@pytest.mark.parametrize("IN,OUT", K8_SHAPES)
+@pytest.mark.parametrize("T", [1, 3, 4, 16, 24, 100, 256, 511])
+def test_w4a8_v2_flagship_shapes(gen, IN, OUT, T):
+    """K8 at the flagship's shapes: one launch at T <= 4, two above; the
+    reference with one 128-row input group of x zeroed must fail."""
+    from kvzip_tpu_torch.ops import w4a8_v2
+
+    w = _v2_stack(gen, 1, IN, OUT)
+    x = _rn(gen, T, IN)
+    got = w4a8_v2.w4a8_matmul_stacked_v2(x, w["q4"], w["s2"], w["z2"], 0)
+    w0 = {k: t[0] for k, t in w.items()}
+    assert _ok(got, w4a8_v2.w4a8_jnp_v2(x.float(), w0))
+    xd = x.float().clone()
+    xd[:, 128:256] = 0
+    assert not parity(got, w4a8_v2.w4a8_jnp_v2(xd, w0), OUT_RTOL)["ok"]
+    assert LAUNCHES["w4a8_matmul_stacked_v2"] == 1 and sum(LAUNCHES.values()) == 1
+
+
+@pytest.mark.parametrize("T", [1, 24])
+def test_w4a8_v2_repeat_and_graph(gen, T):
+    """K8: two calls give the same bits, and a CUDA-graph replay equals the
+    eager call."""
+    from kvzip_tpu_torch.ops import w4a8_v2
+
+    w = _v2_stack(gen, 2, 3584, 4608)
+    x = _rn(gen, T, 3584)
+
+    def run():
+        return w4a8_v2.w4a8_matmul_stacked_v2(x, w["q4"], w["s2"], w["z2"], 1)
+
+    first, second = run(), run()
+    assert torch.equal(first, second)
+    eager, replay = _graph_replay(run)
+    assert torch.equal(eager, replay)
+    assert _ok(replay, w4a8_v2.w4a8_jnp_v2(x.float(), {k: t[1] for k, t in w.items()}))

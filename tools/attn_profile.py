@@ -12,9 +12,11 @@ window, ctx_len 2,000 and 384, a 40-row sink); K7 and K11
 and q8 modes at ``chip_smoke.py``'s decode shapes: a ~30% int4 pool of 28
 layers (5,000-10,000 rows a kv head, tail 40 of 768) at T = 1 and 24, the
 evicted flat stack at T = 1 and 24, and the full flat stack (98,304 rows a
-layer) at T = 1.
+layer) at T = 1; K3 (``pool_decode_attend``) on the same ~30% pool
+geometry with bf16 rows at T = 1, 4, 16 and 24, cycling over the 28
+layers.
 
-    python3 tools/attn_profile.py [--root DIR] [--out FILE] [--only k4,k1,k5,k9,k7,k11]
+    python3 tools/attn_profile.py [--root DIR] [--out FILE] [--only k4,k1,k5,k9,k7,k11,k3]
 
 ``--root`` imports ``kvzip_tpu_torch`` from another checkout (for example
 a parent commit unpacked with ``git archive``), so two versions can be
@@ -89,7 +91,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--out", default=None)
-    ap.add_argument("--only", default="k4,k1,k5,k9,k7,k11",
+    ap.add_argument("--only", default="k4,k1,k5,k9,k7,k11,k3",
                     help="comma-separated sections to run")
     args = ap.parse_args()
     only = set(args.only.split(","))
@@ -125,6 +127,8 @@ def main():
         rows.append(r)
         print(json.dumps(r), flush=True)
 
+    if "k3" in only:
+        k3_rows(emit, rn, scale)
     if "k7" in only or "k11" in only:
         int4_decode_rows(emit, rn, scale, only)
     if "k4" in only:
@@ -139,6 +143,50 @@ def main():
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump(rows, f, indent=1)
+
+
+def pool_geometry(gen):
+    """The ~30% pool of ``chip_smoke.py``: per layer and kv head 20-40% of
+    the prefill's rows, head-major, layers aligned as the port's pool
+    aligns them -> (row_head on the card, (layer_off, layer_rows) on the
+    card, rows a layer, allocated rows, max rows)."""
+    import numpy as np
+    import torch
+
+    from kvzip_tpu_torch.pool import POOL_ALIGN, plan_offsets
+
+    rows_h = torch.randint(int(0.2 * PREFILL), int(0.4 * PREFILL), (L, HKV), generator=gen)
+    per_layer = rows_h.sum(1).numpy()
+    off, alloc, max_rows = plan_offsets(per_layer, POOL_ALIGN)
+    rh = torch.full((alloc,), -1, dtype=torch.int32)
+    for l in range(L):
+        rh[int(off[l]):int(off[l]) + int(per_layer[l])] = torch.repeat_interleave(
+            torch.arange(HKV, dtype=torch.int32), rows_h[l])
+    geo = (torch.from_numpy(off).cuda(), torch.from_numpy(per_layer.astype(np.int32)).cuda())
+    return rh.cuda(), geo, per_layer, alloc, max_rows
+
+
+def k3_rows(emit, rn, scale):
+    """K3 on a ~30% bf16 pool of 28 layers (tail 40 of 768), cycled."""
+    import torch
+
+    from kvzip_tpu_torch.ops import pool_decode
+
+    rh, geo, per_layer, alloc, max_rows = pool_geometry(torch.Generator().manual_seed(SEED_ROWS))
+    kp, vp = rn(alloc, D), rn(alloc, D)
+    kt, vt = rn(L, HKV, 768, D), rn(L, HKV, 768, D)
+    for T in (1, 4, 16, 24):
+        q = rn(T, H, D)
+        cyc = iter(range(10 ** 9))
+
+        def k3():
+            return pool_decode.pool_decode_attend(q, kp, vp, rh, *geo, kt, vt, 40, next(cyc) % L,
+                                                  scale=scale, max_rows=max_rows)
+
+        emit(dict(kernel="pool_decode_attend", T=T, live_rows=float(per_layer.mean()),
+                  ms=graph_ms(k3, 56), kernels=kernel_us(k3, 56)))
+    del kp, vp, kt, vt
+    torch.cuda.empty_cache()
 
 
 def int4_decode_rows(emit, rn, scale, only):

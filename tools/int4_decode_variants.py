@@ -44,13 +44,13 @@ VARIANTS = {
 # 3 the partial written, 4 the group's count complete, 5 the weights made,
 # 6 the output slice written.
 TIMELINE = [
-    ("namespace kvz {\n\n__device__ __forceinline__ void mma_s8",
+    ("namespace kvz {\n\nusing sm90::div_rn;",
      "__device__ unsigned long long kvz_tl[8192 * 8];\n"
      "#define KVZ_MARK(k) do { if (threadIdx.x == 0) { unsigned long long t_; "
      "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t_)); "
      "kvz_tl[((blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x) * 8 + (k)] = t_; "
      "} } while (0)\n"
-     "namespace kvz {\n\n__device__ __forceinline__ void mma_s8"),
+     "namespace kvz {\n\nusing sm90::div_rn;"),
     ("  const int grp = sb * a.rgs + rg;\n",
      "  const int grp = sb * a.rgs + rg;\n  KVZ_MARK(0);\n"),
     ("    sm90::named_bar(1 + kg, GTH);  // stage k landed",
