@@ -7,9 +7,9 @@
 2. Build: builds the CUDA kernels K1-K16 from ``kvzip_tpu_torch/csrc``
    (thirteen sources, one ``nvcc`` each, all started together), and logs
    (``build_wgmma``) ptxas's register, shared-memory and spill lines for
-   the Hopper kernels K1, K4, K5/K6's prefill form and K9, with the count
-   of HGMMA (wgmma) instructions and the spilled bytes of each wgmma
-   kernel (K1, K9 and the int4 body) from its SASS; fewer than 16 HGMMA
+   the Hopper kernels K1, K2, K4, K5/K6 and K9, with the count of HGMMA
+   (wgmma) instructions and the spilled bytes of each wgmma kernel (K1,
+   K2, K9 and the int4 body) from its SASS; fewer than 16 HGMMA
    fails the run.
 3. Kernel parity: each kernel against its plain PyTorch version (computed
    in float32 from the same inputs) at every shape its main path gives
@@ -31,7 +31,12 @@
    attention computed by dequantizing the live rows and calling K1 (logged
    as ``deq_k1_ms`` and ``k1_ms``). K5's two forms (T > 16, T <= 16) are
    two rows of the kernels line, each with its own launches
-   (``LAUNCHES["flash_attend_int4_decode"]`` counts the decode form).
+   (``LAUNCHES["flash_attend_int4_decode"]`` counts the decode form); the
+   decode form timed at T = 1, 4 and 16 (``per_shape``). K2 at qwen2.5-7b's
+   and llama3.1-8b's heads (``per_shape``), its bound counting only the
+   visible (query, key) pairs, with the floor of its pass-1 exponentials
+   beside it (``exp_floor_ms``: one a visible pair, 16 a clock an SM at
+   the maximum SM clock ``nvidia-smi`` reports).
    K10/K11 at T = 1 and 24, one and two merged sequences, on an evicted
    and on the full flat stack (``kernel_parity_flat``). K3, K7 and K7-q8
    also with one tail length per kv head (one of them 0); K3 timed at T =
@@ -205,6 +210,14 @@ def rel_rms(got, want) -> float:
     return ((g - w).square().mean().sqrt() / w.square().mean().sqrt().clamp_min(1e-30)).item()
 
 
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock, as ``nvidia-smi`` reports it."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout.split()[0]
+    return float(mhz) * 1e6
+
+
 def bound(flops: float, nbytes: float, peak_ops: float = PEAK_FLOPS):
     t_ops, t_bytes = flops / peak_ops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes")
@@ -238,12 +251,12 @@ def write_safetensors(path: str, tensors: dict) -> None:
 
 # library -> SASS function-name fragment of each of its wgmma kernels
 WGMMA_KERNELS = {"flash": "flash_bf16_kernel", "windowed_attend": "flash_bf16_kernel",
-                 "flash_int4": "flash_int4_wgmma_kernel"}
+                 "flash_int4": "flash_int4_wgmma_kernel", "score": "score_kernel"}
 
 
 def hopper_build_report(_build, build_logs) -> dict:
     """ptxas's entry, register, shared-memory and spill lines for the Hopper
-    kernels (K1, K4, K5/K6's prefill form, K9, K7/K11), and for each wgmma kernel
+    kernels (K1, K2, K4, K5/K6, K9, K7/K11), and for each wgmma kernel
     the count of HGMMA instructions in its SASS and its spilled bytes
     (stores plus loads). A wgmma kernel with fewer than 16 HGMMA (one q.k
     and one p.v product of eight 16-deep steps a tile) fails the run."""
@@ -251,7 +264,7 @@ def hopper_build_report(_build, build_logs) -> dict:
 
     rep = {}
     for name in ("flash", "ragged_decode", "flash_int4", "windowed_attend", "pool_decode_int4",
-                 "flat_decode_int4"):
+                 "flat_decode_int4", "score"):
         rep[f"{name}_ptxas"] = [ln.strip() for ln in build_logs[name].splitlines()
                                 if any(w in ln for w in ("Compiling entry", "registers", "spill"))]
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -358,6 +371,7 @@ def kernel_parity(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int)
     scale = D ** -0.5
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def rn(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
@@ -416,27 +430,39 @@ def kernel_parity(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap: int)
         plain_ms=plain_ms, per_shape=timed))
     del q, k, v, kf, vf
 
-    # K2 at a scoring chunk: 2304 padded repeat queries, a 2048-wide window
+    # K2 at a scoring chunk: 2304 padded repeat queries, a 2048-wide window,
+    # at qwen2.5-7b's heads and at llama3.1-8b's (32 over 8, the W8A8-KV4
+    # path's). The bound counts the work these inputs need: one q.k of 2 D
+    # operations a visible (query, key) pair, the rows of the valid queries
+    # and of the keys they see read once, the scores written once;
+    # exp_floor_ms the pass-1 exponentials, one a visible pair, at 16 a
+    # clock an SM.
     T, s_ctx, ctx_len = 2304, 2048, 2000
     q_valid = ctx_len + 60
     K = sink + s_ctx + T
-    q, keys = rn(T, H, D), rn(Hkv, K, D)
     kw = dict(sink=sink, s_ctx=s_ctx, scale=scale, model_dtype=torch.bfloat16)
-    got = score_kernel.fused_scores(q, keys, ctx_len, q_valid, **kw)
-    want, drop = (score_kernel.fused_scores_plain(q.float(), keys.float(), ctx_len, n, **kw)
-                  for n in (q_valid, q_valid - 16))
-    hold("fused_scores", f"q ({T},{H},{D}) keys ({Hkv},{K},{D})", got, want, SCORE_RTOL,
-         drop)
-    b = bound(2 * D * K * H * q_valid, 2 * (T * H * D + Hkv * K * D) + 4 * Hkv * s_ctx)
+    timed = {}
+    for Hq, Hk in ((H, Hkv), (32, 8)):
+        q, keys = rn(T, Hq, D), rn(Hk, K, D)
+        got = score_kernel.fused_scores(q, keys, ctx_len, q_valid, **kw)
+        want, drop = (score_kernel.fused_scores_plain(q.float(), keys.float(), ctx_len, n, **kw)
+                      for n in (q_valid, q_valid - 16))
+        hold("fused_scores", f"q ({T},{Hq},{D}) keys ({Hk},{K},{D})", got, want, SCORE_RTOL,
+             drop)
+        pairs = Hq * (q_valid * (sink + ctx_len) + q_valid * (q_valid + 1) // 2)
+        b = bound(2 * D * pairs,
+                  2 * (q_valid * Hq * D + Hk * (sink + ctx_len + q_valid) * D) + 4 * Hk * s_ctx)
+        timed[f"H {Hq} Hkv {Hk}"] = dict(
+            **kernel_ms(lambda: score_kernel.fused_scores(q, keys, ctx_len, q_valid, **kw), 10),
+            bound_ms=b[0], bound_by=b[1], exp_floor_ms=pairs / (16 * sms * sm_clock_hz()) * 1e3)
+        if Hq == H:
+            plain_ms = time_ms(lambda: score_kernel.fused_scores_plain(
+                q, keys, ctx_len, q_valid, **kw), 2, 1)
+        del q, keys
     out.append(dict(
         name="fused_scores", route="cuda", source="kvzip_tpu_torch/csrc/score.cu",
-        replaces="kvzip_tpu/ops/score_kernel.py:124",
-        **kernel_ms(lambda: score_kernel.fused_scores(q, keys, ctx_len, q_valid, **kw),
-                     10),
-        plain_ms=time_ms(lambda: score_kernel.fused_scores_plain(
-            q, keys, ctx_len, q_valid, **kw), 2, 1),
-        bound_ms=b[0], bound_by=b[1], library_ms=None))
-    del q, keys
+        replaces="kvzip_tpu/ops/score_kernel.py:124", **timed[f"H {H} Hkv {Hkv}"],
+        plain_ms=plain_ms, library_ms=None, per_shape=timed))
 
     # K4 at decode steps on the dense cache (T = 1; T = 4 for a query's last
     # pieces, T = 8 for the largest block): all 28 layers' stacks, cycled
@@ -554,7 +580,7 @@ def kernel_parity_int4(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap:
     """K5-K8 against their plain versions at the shapes the quantized main
     path gives them, through ``ops.parity``: K5's prefill form at a
     4096-query chunk after 12,288 int4 rows and at T = 17 (the first T past
-    ``SPLIT_T``), its decode form at T = 1 and 4 on the dense int4 cache
+    ``SPLIT_T``), its decode form at T = 1, 4 and 16 on the dense int4 cache
     (two rows of the kernels line, each with its own launches); K6 at a
     2304-query scoring chunk after the whole prefill, K5's prefill form and
     K6 each beside the dequantize-then-K1 yardstick (``deq_k1_ms``,
@@ -618,7 +644,9 @@ def kernel_parity_int4(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap:
                                                                   scale=scale), 10),
                     k1_ms=graph_ms(lambda: flash.flash_attend(q, kd, vd, lens, scale=scale), 10))
 
-    for T, base in ((4096, 12288), (17, 700), (1, prefill_len), (4, prefill_len)):
+    decode_timed = {}
+    for T, base in ((4096, 12288), (17, 700), (1, prefill_len), (4, prefill_len),
+                    (16, prefill_len)):
         q = rn(T, H, D)
         lens = torch.full((Hkv,), base, dtype=torch.int32, device=dev)
         name = "flash_attend_int4" if T > flash_int4.SPLIT_T else "flash_attend_int4_decode"
@@ -644,18 +672,22 @@ def kernel_parity_int4(cfg, ctx_tokens: int, sink: int, capacity: int, tail_cap:
                 bound_ms=b[0], bound_by=b[1], library_ms=None,
                 **yardstick(q, lens, lambda: (deq(*(a[:, :S] for a in kv0[:3])),
                                               deq(*(a[:, :S] for a in kv0[3:]))))))
-        elif T == 1:
+        elif T <= flash_int4.SPLIT_T:
             S = base + T
-            b = bound(4 * D * H * T * S, 2 * Hkv * S * row_bytes + 2 * 2 * T * H * D)
-            out.append(dict(
-                name="flash_attend_int4_decode", route="cuda",
-                source="kvzip_tpu_torch/csrc/flash_int4.cu",
-                replaces="kvzip_tpu/ops/flash_int4.py:354",
+            pairs = H * (T * base + T * (T + 1) // 2)
+            b = bound(4 * D * pairs, 2 * Hkv * S * row_bytes + 2 * 2 * T * H * D)
+            decode_timed[f"T {T}"] = dict(
                 **kernel_ms(lambda: flash_int4.flash_attend_int4(
                     q, *layers[next_layer()], lens, scale=scale), 56),
-                plain_ms=time_ms(lambda: flash_int4.flash_attend_int4_plain(
-                    q, *kv0, lens, scale=scale), 5, 1),
-                bound_ms=b[0], bound_by=b[1], library_ms=None))
+                bound_ms=b[0], bound_by=b[1])
+            if T == 1:
+                decode_plain_ms = time_ms(lambda: flash_int4.flash_attend_int4_plain(
+                    q, *kv0, lens, scale=scale), 5, 1)
+    out.append(dict(
+        name="flash_attend_int4_decode", route="cuda",
+        source="kvzip_tpu_torch/csrc/flash_int4.cu",
+        replaces="kvzip_tpu/ops/flash_int4.py:354", **decode_timed["T 1"],
+        plain_ms=decode_plain_ms, library_ms=None, per_shape=decode_timed))
 
     # K6: a scoring chunk of 2304 padded queries after the whole prefill
     T = 2304
@@ -2115,7 +2147,8 @@ def main() -> int:
     log(phase="kernel_parity", seconds=time.perf_counter() - t0,
         timing_details=[{k: v for k, v in r.items()
                          if k in ("name", "ms", "host_ms", "library_ms", "bound_ms",
-                                  "deq_k1_ms", "k1_ms", "padded_bound_ms", "per_shape")}
+                                  "deq_k1_ms", "k1_ms", "padded_bound_ms", "exp_floor_ms",
+                                  "per_shape")}
                         for r in kernels + kernels_q + kernels_f + kernels_k12 + kernels_v1])
 
     def counted(tag, engine, kernel_names, path, *args, absent=(), **kw):
@@ -2282,7 +2315,9 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "rms_want",
             "worst_to_tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in kernels]}), flush=True)
+    print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
+                                   **{k: r[k] for k in ("exp_floor_ms",) if k in r}}
+                                  for r in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),

@@ -203,7 +203,8 @@ __device__ __forceinline__ void write_partial(const Online& st, float* part_acc,
   }
 }
 
-// Merge of the flash-decoding partials: one block of D threads per
+// Merge of the flash-decoding partials (K10's second launch; the other
+// decode kernels merge inside their own launch): one block of D threads per
 // (packed row r, kv head). Row r of kv head hk is query qi = r % T of head
 // hk * G + r / T; out is (T, H, D) bf16.
 __global__ void merge_partials_kernel(const float* part_acc, const float* part_ml, bf16* out,

@@ -51,13 +51,20 @@
 // last visible row, then for K6 the chunk's tiles up to its last query) is
 // one function both sides call. Tiles every row sees whole are not masked.
 //
-// Decode (T <= 16) runs K4's flash-decoding instead: the G * T rows pack
-// into 64-row CTAs, the keys split over many CTAs, and a merge kernel
-// combines the partials, so a handful of queries still fills the card.
+// Decode (T <= 16) runs K4's one-launch body instead (split_decode.cuh,
+// its int4 row source): a grid of at most one CTA a SM, each head's live
+// rows cut on the device into equal splits, the G * T rows packed 32 a
+// CTA, a six-stage cp.async ring a warp of packed rows and their scales,
+// keys as nibbles with the quant algebra folded out of q.k, V dequantized
+// once a stage, and the splits' partials merged inside the launch, so a
+// handful of queries still fills the card with one kernel. Bound there:
+// the live rows' bytes (9.0 MB at 16,545 rows of qwen2.5-7b's 4 kv heads:
+// 0.0027 ms at 3.35 TB/s).
 #include <limits.h>
 
 #include "flash_sm90.cuh"
 #include "int4_common.cuh"
+#include "split_decode.cuh"
 
 using namespace kvz;
 
@@ -424,95 +431,6 @@ int launch_wgmma(const void* q, const void* kq, const void* vq, const void* xkq,
 
 }  // namespace
 
-// ------------------------------------------------------------ decode form
-// One int4 key source: its packed rows and per-row scales/zeros, rows
-// strided by `stride` bytes (scales by `sstride` elements).
-struct Int4Src {
-  const uint8_t* kq;
-  const bf16* ks;
-  const bf16* kz;
-  const uint8_t* vq;
-  const bf16* vs;
-  const bf16* vz;
-  size_t stride;
-  size_t sstride;
-};
-
-// One online-softmax step over the int4 rows [c0, c0 + n) of src, with
-// visibility col < lim[i] for the warp's two rows (col counted from the
-// start of src).
-__device__ __forceinline__ void int4_step(Online& st, const uint32_t qa[KK_D][4], const float qs[2],
-                                          const Int4Src& src, int c0, int n, const int lim[2],
-                                          bf16* Ks, bf16* Vs, float* ksc, float* kzc, int tid,
-                                          int nthr, int gid, int tig, float scale, bool active) {
-  __syncthreads();
-  load_tile_int4<false>(Ks, ksc, kzc, src.kq, src.stride, src.ks, src.kz, src.sstride, c0, n, tid,
-                        nthr);
-  load_tile_int4<true>(Vs, nullptr, nullptr, src.vq, src.stride, src.vs, src.vz, src.sstride, c0, n,
-                       tid, nthr);
-  __syncthreads();
-  if (!active) return;
-  float s[NT_K][4];
-  qk_tile(s, qa, Ks, gid, tig);
-  fold_scores(s, qs, ksc, kzc, tig, scale);
-#pragma unroll
-  for (int nt = 0; nt < NT_K; ++nt) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int cl = nt * 8 + tig * 2 + (j & 1);
-      if (!(cl < n && c0 + cl < lim[j >> 1])) s[nt][j] = -INFINITY;
-    }
-  }
-  st.update(s, Vs, gid, tig);
-}
-
-// Decode form of K5 (T <= 16): K4's flash-decoding over the int4 cache.
-__global__ void flash_int4_split_kernel(const bf16* __restrict__ q, Int4Src cache,
-                                        const int* __restrict__ base_lens, float* part_acc,
-                                        float* part_ml, int T, int H, int C, int G, int CH, int S,
-                                        float scale) {
-  __shared__ __align__(16) bf16 Ks[BK * SROW];
-  __shared__ __align__(16) bf16 Vs[BK * SROW];
-  __shared__ float ksc[BK], kzc[BK];
-  const int split = blockIdx.x, hk = blockIdx.y;
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int warp = tid >> 5, lane = tid & 31, gid = lane >> 2, tig = lane & 3;
-  const int R = G * T;
-  const int r_lo = blockIdx.z * 64 + warp * 16 + gid, r_hi = r_lo + 8;
-  const bool active = blockIdx.z * 64 + warp * 16 < R;
-  const int qi_lo = r_lo % T, qi_hi = r_hi % T;
-
-  uint32_t qa[KK_D][4];
-  load_q(qa, r_lo < R ? q + (static_cast<size_t>(qi_lo) * H + hk * G + r_lo / T) * D : nullptr,
-         r_hi < R ? q + (static_cast<size_t>(qi_hi) * H + hk * G + r_hi / T) * D : nullptr, tig);
-  float qs[2];
-  q_row_sums(qa, qs);
-
-  Online st;
-  st.init();
-  const int base = base_lens[hk];
-  const int k0 = split * CH, k1 = min(min(k0 + CH, base + T), C);
-  Int4Src src = cache;
-  src.kq += static_cast<size_t>(hk) * C * DP;
-  src.vq += static_cast<size_t>(hk) * C * DP;
-  src.ks += static_cast<size_t>(hk) * C;
-  src.kz += static_cast<size_t>(hk) * C;
-  src.vs += static_cast<size_t>(hk) * C;
-  src.vz += static_cast<size_t>(hk) * C;
-  int lim[2] = {base + qi_lo + 1, base + qi_hi + 1};
-  for (int c0 = k0; c0 < k1; c0 += BK)
-    int4_step(st, qa, qs, src, c0, min(BK, k1 - c0), lim, Ks, Vs, ksc, kzc, tid, nthr, gid, tig,
-              scale, active);
-  if (active) write_partial(st, part_acc, part_ml, hk, split, S, R, r_lo, gid, tig, k0 < k1);
-}
-
-static Int4Src make_src(const void* kq, const void* ks, const void* kz, const void* vq,
-                        const void* vs, const void* vz, size_t stride, size_t sstride) {
-  return Int4Src{static_cast<const uint8_t*>(kq), static_cast<const bf16*>(ks),
-                 static_cast<const bf16*>(kz), static_cast<const uint8_t*>(vq),
-                 static_cast<const bf16*>(vs), static_cast<const bf16*>(vz), stride, sstride};
-}
-
 // K5 (T > 16 from the wrapper). q (T, H, D) bf16; k_q/v_q (Hkv, C, D/2)
 // uint8; k_s/k_z/v_s/v_z (Hkv, C) bf16; base_lens (Hkv,) int32; out
 // (T, H, D) bf16; q, k_q and v_q 16-byte aligned.
@@ -527,26 +445,19 @@ extern "C" int kvz_flash_int4(const void* q, const void* kq, const void* ks, con
                       stream);
 }
 
-// K5, decode form: as kvz_flash_int4, plus part_acc (Hkv, S, G*T, D) and
-// part_ml (Hkv, S, G*T, 2) f32 scratch, S = ceil(C / CH).
+// K5, decode form (T <= 16 from the wrapper): as kvz_flash_int4, with
+// the scratch, tickets and plan split_decode.cuh's launch takes.
 extern "C" int kvz_flash_int4_decode(const void* q, const void* kq, const void* ks,
                                      const void* kz, const void* vq, const void* vs,
                                      const void* vz, const void* base_lens, void* out,
-                                     void* part_acc, void* part_ml, int T, int H, int Hkv, int C,
-                                     int CH, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int G = H / Hkv, R = G * T, S = (C + CH - 1) / CH;
-  dim3 grid(S, Hkv, (R + 63) / 64);
-  flash_int4_split_kernel<<<grid, 128, 0, st>>>(
-      static_cast<const bf16*>(q), make_src(kq, ks, kz, vq, vs, vz, DP, 1),
-      static_cast<const int*>(base_lens), static_cast<float*>(part_acc),
-      static_cast<float*>(part_ml), T, H, C, G, CH, S, scale);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  merge_partials_kernel<<<dim3(R, Hkv), D, 0, st>>>(static_cast<const float*>(part_acc),
-                                                    static_cast<const float*>(part_ml),
-                                                    static_cast<bf16*>(out), T, H, G, S, R);
-  return static_cast<int>(cudaGetLastError());
+                                     void* part_acc, void* part_ml, void* tickets, int T, int H,
+                                     int Hkv, int C, int S, float scale, void* stream) {
+  const sdec::Int4Src::Args args{static_cast<const uint8_t*>(kq), static_cast<const bf16*>(ks),
+                                 static_cast<const bf16*>(kz),    static_cast<const uint8_t*>(vq),
+                                 static_cast<const bf16*>(vs),    static_cast<const bf16*>(vz),
+                                 Hkv};
+  return sdec::launch<sdec::Int4Src>(q, args, base_lens, out, part_acc, part_ml, tickets, T, H,
+                                     Hkv, C, S, scale, stream);
 }
 
 // K6. As kvz_flash_int4 with nothing appended, plus the chunk's own rows:

@@ -7,7 +7,7 @@
 //
 // Exact mode: keys as nibbles with scale and zero folded out of q.k in
 // float32 (q.x = scale (q.n) + zero sum(q)), values dequantized to bf16
-// (bf16(n * scale + zero), rounded once), as int4_common.cuh's tiles.
+// (bf16(n * scale + zero), rounded once).
 //
 // q8 mode (the reference's opt-in int8 attention, `_flat_int4_kernel` /
 // `_pool_int4_kernel` with q8=True): split packing gives

@@ -6,9 +6,11 @@ uint8 with one (scale, zero) per row ``(Hkv, C)`` (``cache.Int4KVCache``).
 
 - K5 ``flash_attend_int4``: the T new rows were appended at ``base_lens``;
   key j of head h is visible to query i iff ``j < base_lens[h] + i + 1``.
-  T <= ``SPLIT_T`` (decode) runs the kernel's flash-decoding form (also
-  counted in ``LAUNCHES["flash_attend_int4_decode"]``); T > ``SPLIT_T``
-  the TMA and wgmma body that K6 shares.
+  T <= ``SPLIT_T`` (decode) runs K4's one-launch body with an int4 row
+  source (``csrc/split_decode.cuh``; its grid planned by
+  ``ragged_decode.plan_splits``; also counted in
+  ``LAUNCHES["flash_attend_int4_decode"]``); T > ``SPLIT_T`` the TMA and
+  wgmma body that K6 shares.
 - K6 ``flash_attend_int4_extra``: the read-only scoring forward. Nothing is
   appended: cache rows ``[0, base_lens[h])`` are visible to every query and
   the chunk's own quantized rows ``(T, Hkv, D//2)`` are causal within the
@@ -24,15 +26,15 @@ import torch
 from kvzip_tpu_torch import _build
 from kvzip_tpu_torch.ops import (LAUNCHES, HEAD_DIM, attention,
                                  check_kernel_args, check_tma_aligned, on_cuda,
-                                 stream_ptr)
+                                 sm_count, stream_ptr)
 from kvzip_tpu_torch.ops.quant import dequantize_int4
-from kvzip_tpu_torch.ops.ragged_decode import split_size
+from kvzip_tpu_torch.ops.ragged_decode import plan_splits, split_scratch
 
 SPLIT_T = 16  # T at or below which K5 runs as flash-decoding
 
 _ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float,
                                                       ctypes.c_void_p]
-_ARGS_DECODE = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_float,
+_ARGS_DECODE = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_float,
                                                               ctypes.c_void_p]
 _ARGS_EXTRA = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_float,
                                                              ctypes.c_void_p]
@@ -99,16 +101,11 @@ def flash_attend_int4(q: torch.Tensor, k_q: torch.Tensor, k_s: torch.Tensor,
     ptrs = [a.data_ptr() for a in args] + [out.data_ptr()]
     with torch.cuda.device(q.device):
         if T <= SPLIT_T:
-            R = (H // Hkv) * T
-            ch = split_size(C, Hkv * -(-R // 64))
-            S = -(-C // ch)
-            part_acc = torch.empty((Hkv, S, R, HEAD_DIM), dtype=torch.float32,
-                                   device=q.device)
-            part_ml = torch.empty((Hkv, S, R, 2), dtype=torch.float32,
-                                  device=q.device)
+            S, groups = plan_splits(C, Hkv, (H // Hkv) * T, sm_count(q.device))
+            scratch = split_scratch(q.device, "flash_attend_int4_decode", Hkv, groups, S)
             fn = _build.kernel("flash_int4", "kvz_flash_int4_decode", _ARGS_DECODE)
-            err = fn(*ptrs, part_acc.data_ptr(), part_ml.data_ptr(), T, H, Hkv,
-                     C, ch, scale, stream_ptr(q.device))
+            err = fn(*ptrs, *(a.data_ptr() for a in scratch), T, H, Hkv, C, S,
+                     scale, stream_ptr(q.device))
         else:
             fn = _build.kernel("flash_int4", "kvz_flash_int4", _ARGS)
             err = fn(*ptrs, T, H, Hkv, C, scale, stream_ptr(q.device))

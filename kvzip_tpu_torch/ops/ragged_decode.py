@@ -1,7 +1,8 @@
 """K4: decode attention (T <= 8) against the dense cache.
 
 Port of ``kvzip_tpu/ops/ragged_decode.py::ragged_decode_attend``; the kernel
-is ``csrc/ragged_decode.cu``: one launch, a grid of at most one CTA a SM
+is ``csrc/ragged_decode.cu`` on ``csrc/split_decode.cuh``'s body (shared
+with K5's decode form): one launch, a grid of at most one CTA a SM
 (:func:`plan_splits`), each kv head's live rows cut on the device into S
 equal splits (:func:`split_bounds` mirrors that arithmetic), and the
 head's first eight splits merging all the splits' partials, a column slice
@@ -15,14 +16,16 @@ import ctypes
 import torch
 
 from kvzip_tpu_torch import _build
-from kvzip_tpu_torch.ops import (LAUNCHES, attention, check_kernel_args,
-                                 on_cuda, sm_count, stream_ptr, ticket_buffer)
+from kvzip_tpu_torch.ops import (LAUNCHES, HEAD_DIM, attention,
+                                 check_kernel_args, on_cuda, sm_count,
+                                 stream_ptr, ticket_buffer)
 
 _ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float,
                                                       ctypes.c_void_p]
 MAX_T = 8
-ROWS_PER_CTA = 32   # packed (query, head) rows a CTA (csrc/ragged_decode.cu RG)
+ROWS_PER_CTA = 32   # packed (query, head) rows a CTA (csrc/split_decode.cuh RG)
 SPLIT_ALIGN = 16    # split lengths are multiples of a warp's 16-key tile
+MERGE_FLOATS = 34816  # a merging CTA's staging (split_decode.cuh REGION / 4)
 
 
 def split_size(n_keys: int, groups: int, target: int = 1024) -> int:
@@ -34,13 +37,36 @@ def split_size(n_keys: int, groups: int, target: int = 1024) -> int:
     return ch
 
 
+def merge_floats(rows: int, S: int) -> int:
+    """The floats a merging CTA stages (``split_decode.cuh``'s launch
+    check): the (m, l) rows and weights of its row group's ``min(rows,
+    32)`` rows over S splits, and its column slice of every partial."""
+    nr = min(rows, ROWS_PER_CTA)
+    mc = 8 if S >= 8 else 4 if S >= 4 else 2 if S >= 2 else 1
+    return -(-nr * S * 2 // 4) * 4 + -(-nr * S // 4) * 4 + (8 // mc) * S * nr * 16
+
+
 def plan_splits(capacity: int, n_kv_heads: int, rows: int, sms: int):
-    """(S, row groups) of K4's grid (row groups, S, n_kv_heads): S splits of
-    each head's live rows, the most that keep the grid within one CTA a SM
-    (at least one), and no more than the capacity's 64-key units."""
+    """(S, row groups) of the grid (row groups, S, n_kv_heads) of K4 and of
+    K5's decode form: S splits of each head's live rows, the most that keep
+    the grid within one CTA a SM (at least one) and a merging CTA's staging
+    within its shared memory, and no more than the capacity's 64-key
+    units."""
     groups = -(-rows // ROWS_PER_CTA)
-    S = max(1, sms // (n_kv_heads * groups))
-    return min(S, -(-capacity // 64)), groups
+    S = min(max(1, sms // (n_kv_heads * groups)), -(-capacity // 64))
+    while S > 1 and merge_floats(rows, S) > MERGE_FLOATS:
+        S -= 1
+    return max(S, 1), groups
+
+
+def split_scratch(device: torch.device, owner: str, n_kv_heads: int, groups: int, S: int):
+    """The launch's partials: a (kv head, row group)'s S x 32 x D values
+    and 32 x S (m, l) pairs (laid out in the kernel), 4 floats the merge's
+    copy may read past, and the groups' arrival counts."""
+    rows = n_kv_heads * groups * S * ROWS_PER_CTA
+    return (torch.empty(rows * HEAD_DIM, dtype=torch.float32, device=device),
+            torch.empty(rows * 2 + 4, dtype=torch.float32, device=device),
+            ticket_buffer(owner, device, n_kv_heads * groups))
 
 
 def split_bounds(live: int, S: int):
@@ -75,13 +101,8 @@ def ragged_decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
     R = (H // Hkv) * T
     S, groups = plan_splits(C, Hkv, R, sm_count(q.device))
     out = torch.empty_like(q)
-    # a (kv head, row group)'s S x 32 x D values and 32 x S (m, l) pairs
-    # (laid out in the kernel), and 4 floats the merge's copy may read past
-    part_acc = torch.empty(Hkv * groups * S * ROWS_PER_CTA * D, dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty(Hkv * groups * ROWS_PER_CTA * S * 2 + 4, dtype=torch.float32,
-                          device=q.device)
-    tickets = ticket_buffer("ragged_decode_attend", q.device, Hkv * groups)
+    part_acc, part_ml, tickets = split_scratch(q.device, "ragged_decode_attend", Hkv,
+                                               groups, S)
     with torch.cuda.device(q.device):
         fn = _build.kernel("ragged_decode", "kvz_ragged_decode", _ARGS)
         _build.check(fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),

@@ -1118,3 +1118,94 @@ def test_w4a8_v2_repeat_and_graph(gen, T):
     eager, replay = _graph_replay(run)
     assert torch.equal(eager, replay)
     assert _ok(replay, w4a8_v2.w4a8_jnp_v2(x.float(), {k: t[1] for k, t in w.items()}))
+
+
+# K2 at the scoring chunk's shapes (T 2,304 repeat queries, a 2,048-row
+# window) at qwen2.5-7b's G 7 / Hkv 4 and llama3.1-8b's G 4 / Hkv 8; the
+# q_valid values are no multiple of the planned block (64 queries at
+# 2,060), ctx_len 2,000 and 1,000 stop short of the window, sink 160 and 37
+# (odd: no tile starts on a multiple of 8), and q_valid = T. The references
+# with 16 fewer valid queries and with the last window tile's columns
+# dropped must fail.
+@pytest.mark.parametrize("H,Hkv", [(28, 4), (32, 8)])
+@pytest.mark.parametrize("sink,ctx_len,q_valid", [(160, 2000, 2060), (37, 1000, 1777),
+                                                  (37, 2048, 2304)])
+def test_score_kernel_scoring_shapes(gen, H, Hkv, sink, ctx_len, q_valid):
+    T, s_ctx = 2304, 2048
+    q, keys = _rn(gen, T, H, D), _rn(gen, Hkv, sink + s_ctx + T, D)
+    kw = dict(sink=sink, s_ctx=s_ctx, scale=D ** -0.5, model_dtype=torch.bfloat16)
+    got = score_kernel.fused_scores(q, keys, ctx_len, q_valid, **kw)
+    want = score_kernel.fused_scores_plain(q.float(), keys.float(), ctx_len, q_valid, **kw)
+    assert _ok(got, want, SCORE_RTOL) and LAUNCHES["fused_scores"] == 1
+    assert torch.all(got[:, ctx_len:] == 0)
+    fewer = score_kernel.fused_scores_plain(q.float(), keys.float(), ctx_len, q_valid - 16,
+                                            **kw)
+    assert not parity(got, fewer, SCORE_RTOL)["ok"]
+    last = want.clone()
+    last[:, (ctx_len - 1) // 128 * 128:ctx_len] = 0
+    assert not parity(got, last, SCORE_RTOL)["ok"]
+
+
+def test_score_kernel_repeat_and_graph(gen):
+    """K2: two calls give the same bits (atomicMax is independent of
+    order), and a CUDA-graph replay equals the eager call."""
+    H, Hkv, T, s_ctx, sink, ctx_len, q_valid = 28, 4, 2304, 2048, 160, 2000, 2060
+    q, keys = _rn(gen, T, H, D), _rn(gen, Hkv, sink + s_ctx + T, D)
+    kw = dict(sink=sink, s_ctx=s_ctx, scale=D ** -0.5, model_dtype=torch.bfloat16)
+
+    def run():
+        return score_kernel.fused_scores(q, keys, ctx_len, q_valid, **kw)
+
+    first, second = run(), run()
+    assert torch.equal(first, second)
+    eager, replay = _graph_replay(run)
+    assert torch.equal(eager, replay) and torch.equal(first, replay)
+
+
+# K5's decode form on one launch: T 1, 4, 9 and 16 at G 7 and G 4; the kv
+# heads' bases differ, head 1's live rows end within 16 rows of C (no
+# multiple of 8), and the live lengths cross split edges (16,545 rows over
+# the planned splits, and a head whose split holds a single row). A
+# reference without the first 64 keys must fail.
+@pytest.mark.parametrize("H,Hkv", [(28, 4), (32, 8)])
+@pytest.mark.parametrize("T", [1, 4, 9, 16])
+def test_flash_int4_decode_one_launch(gen, H, Hkv, T):
+    from kvzip_tpu_torch.ops import flash_int4
+
+    C = 19456
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    S, _ = ragged_decode.plan_splits(C, Hkv, (H // Hkv) * T, sms)
+    lens = [16544, C - T - 11] + [9000 - 1237 * i for i in range(2, Hkv)]
+    lens[2] = _single_row_live(S, 100) - T
+    q = _rn(gen, T, H, D)
+    kv = (*_quant(gen, Hkv, C), *_quant(gen, Hkv, C))
+    lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    got = flash_int4.flash_attend_int4(q, *kv, lens, scale=D ** -0.5)
+    want = flash_int4.flash_attend_int4_plain(q.float(), *kv, lens, scale=D ** -0.5)
+    assert _ok(got, want)
+    assert LAUNCHES["flash_attend_int4"] == LAUNCHES["flash_attend_int4_decode"] == 1
+    drop = flash_int4.flash_attend_int4_plain(q.float(), *_int4_drop_first(kv),
+                                              (lens - 64).clamp_min(0), scale=D ** -0.5)
+    assert not parity(got, drop, OUT_RTOL)["ok"]
+
+
+def test_flash_int4_decode_graph(gen):
+    """K5's decode form: two calls give the same bits, and a CUDA-graph
+    replay equals the eager call. Three kv heads of C = 4,099 rows: the
+    scale arrays hold an odd count, and the last head reads its last row."""
+    from kvzip_tpu_torch.ops import flash_int4
+
+    H, Hkv, T, C = 21, 3, 4, 4099
+    q = _rn(gen, T, H, D)
+    kv = (*_quant(gen, Hkv, C), *_quant(gen, Hkv, C))
+    lens = torch.tensor([4000, 17, C - T], dtype=torch.int32, device="cuda")
+
+    def run():
+        return flash_int4.flash_attend_int4(q, *kv, lens, scale=D ** -0.5)
+
+    first, second = run(), run()
+    assert torch.equal(first, second)
+    eager, replay = _graph_replay(run)
+    assert torch.equal(eager, replay)
+    assert _ok(replay, flash_int4.flash_attend_int4_plain(q.float(), *kv, lens,
+                                                          scale=D ** -0.5))

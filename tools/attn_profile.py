@@ -14,9 +14,13 @@ layers (5,000-10,000 rows a kv head, tail 40 of 768) at T = 1 and 24, the
 evicted flat stack at T = 1 and 24, and the full flat stack (98,304 rows a
 layer) at T = 1; K3 (``pool_decode_attend``) on the same ~30% pool
 geometry with bf16 rows at T = 1, 4, 16 and 24, cycling over the 28
-layers.
+layers; K2 (``fused_scores``) at the scoring chunk (2,304 repeat
+queries, a 2,048-row window, ctx_len 2,000, q_valid 2,060, a 160-row sink)
+of qwen2.5-7b and of llama3.1-8b (32 heads over 8); K5's decode form
+(``flash_attend_int4`` at T 1, 4 and 16) on 28 layers' dense int4 caches
+after the prefill, cycled.
 
-    python3 tools/attn_profile.py [--root DIR] [--out FILE] [--only k4,k1,k5,k9,k7,k11,k3]
+    python3 tools/attn_profile.py [--root DIR] [--out FILE] [--only k4,k1,k5,k9,k7,k11,k3,k2,k5d]
 
 ``--root`` imports ``kvzip_tpu_torch`` from another checkout (for example
 a parent commit unpacked with ``git archive``), so two versions can be
@@ -91,7 +95,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--out", default=None)
-    ap.add_argument("--only", default="k4,k1,k5,k9,k7,k11,k3",
+    ap.add_argument("--only", default="k4,k1,k5,k9,k7,k11,k3,k2,k5d",
                     help="comma-separated sections to run")
     args = ap.parse_args()
     only = set(args.only.split(","))
@@ -107,7 +111,7 @@ def main():
                            "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     logs = _build.build_all(("flash", "ragged_decode", "flash_int4", "windowed_attend",
                              "pool_decode", "pool_decode_int4", "flat_decode",
-                             "flat_decode_int4"))
+                             "flat_decode_int4", "score"))
     rows = [dict(card=card, root=os.path.abspath(args.root), torch=torch.__version__,
                  cuda=torch.version.cuda,
                  ptxas=[ln.strip() for lg in logs.values() for ln in lg.splitlines()
@@ -139,6 +143,10 @@ def main():
         k5_rows(emit, rn, scale)
     if "k9" in only:
         k9_rows(emit, rn, sdpa, scale)
+    if "k2" in only:
+        k2_rows(emit, rn, scale)
+    if "k5d" in only:
+        k5d_rows(emit, rn, scale)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -420,6 +428,45 @@ def k9_rows(emit, rn, sdpa, scale):
         emit(dict(kernel="windowed_attend", T=T, ctx_len=ctx_len, ms=graph_ms(k9, 10),
                   sdpa_ms=graph_ms(lambda: sdpa(q, keys, vals, mask), 10),
                   kernels=kernel_us(k9, 5)))
+
+
+def k2_rows(emit, rn, scale):
+    import torch
+
+    from kvzip_tpu_torch.ops import score_kernel
+
+    # K2 at a scoring chunk of qwen2.5-7b (G 7) and llama3.1-8b (G 4)
+    T, s_ctx, ctx_len, q_valid, sink = 2304, 2048, 2000, 2060, 160
+    for Hq, Hkv in ((H, HKV), (32, 8)):
+        q, keys = rn(T, Hq, D), rn(Hkv, sink + s_ctx + T, D)
+
+        def k2():
+            return score_kernel.fused_scores(q, keys, ctx_len, q_valid, sink=sink, s_ctx=s_ctx,
+                                             scale=scale, model_dtype=torch.bfloat16)
+
+        emit(dict(kernel="fused_scores", H=Hq, Hkv=Hkv, T=T, q_valid=q_valid, ctx_len=ctx_len,
+                  ms=graph_ms(k2, 10), kernels=kernel_us(k2, 5)))
+
+
+def k5d_rows(emit, rn, scale):
+    import torch
+
+    from kvzip_tpu_torch.ops import flash_int4
+
+    # K5's decode form: T new rows after the prefill, 28 layers cycled
+    layers = [(*quant(rn, HKV, CAPACITY), *quant(rn, HKV, CAPACITY)) for _ in range(L)]
+    lens = torch.full((HKV,), PREFILL, dtype=torch.int32, device="cuda")
+    for T in (1, 4, 16):
+        q = rn(T, H, D)
+        cyc = iter(range(10 ** 9))
+
+        def k5d():
+            return flash_int4.flash_attend_int4(q, *layers[next(cyc) % L], lens, scale=scale)
+
+        emit(dict(kernel="flash_attend_int4_decode", T=T, live=PREFILL + T, ms=graph_ms(k5d, 56),
+                  kernels=kernel_us(k5d, 56)))
+    del layers
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

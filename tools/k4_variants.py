@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where K4's time goes: ``csrc/ragged_decode.cu`` rebuilt with one change
-at a time and timed at the smoke's decode shape (qwen2.5-7b, 16,545 live
+"""Where K4's time goes: ``csrc/ragged_decode.cu`` (with its body,
+``csrc/split_decode.cuh``, written in) rebuilt with one change at a time and timed at the smoke's decode shape (qwen2.5-7b, 16,545 live
 rows of a 19,456-row cache, T = 1, 28 layers cycled, ``graph_ms``).
 
     python3 tools/k4_variants.py [--out FILE]
@@ -30,8 +30,9 @@ PREFILL, CAPACITY = 16544, 19456
 VARIANTS = {
     "as_is": ([], True),
     "no_merge": ([("  const int slot = split;\n", "  return;\n  const int slot = split;\n")], False),
-    "no_compute": ([("    // s = q . k^T: 16 keys as two 8-key tiles",
-                     "    __syncwarp();\n    continue;\n    // s = q . k^T")], False),
+    "no_compute": ([("    float s[MT][2][4];\n    const bf16* Vs = src.",
+                     "    __syncwarp();\n    continue;\n    float s[MT][2][4];\n"
+                     "    const bf16* Vs = src.")], False),
     "stream_only": ([("  __syncthreads();  // every warp is done with its ring: reuse it",
                       "  return;")], False),
     "stages_6": ([("constexpr int NST = 4;", "constexpr int NST = 6;")], True),
@@ -67,14 +68,15 @@ TIMELINE = [
 ]
 TIMELINE_READ = """
 extern "C" int kvz_tl_read(void* host) {
-  return static_cast<int>(cudaMemcpyFromSymbol(host, kvz_tl, sizeof(kvz_tl)));
+  return static_cast<int>(cudaMemcpyFromSymbol(host, sdec::kvz_tl, sizeof(sdec::kvz_tl)));
 }
 """
 
 
 def build(name, subs, tmp, tail=""):
     csrc = os.path.join(ROOT, "kvzip_tpu_torch", "csrc")
-    src = open(os.path.join(csrc, "ragged_decode.cu")).read()
+    src = open(os.path.join(csrc, "ragged_decode.cu")).read().replace(
+        '#include "split_decode.cuh"', open(os.path.join(csrc, "split_decode.cuh")).read())
     for old, new in subs:
         if old not in src:
             raise SystemExit(f"{name}: {old!r} not in the source")
