@@ -256,15 +256,15 @@ WGMMA_KERNELS = {"flash": "flash_bf16_kernel", "windowed_attend": "flash_bf16_ke
 
 def hopper_build_report(_build, build_logs) -> dict:
     """ptxas's entry, register, shared-memory and spill lines for the Hopper
-    kernels (K1, K2, K4, K5/K6, K9, K7/K11), and for each wgmma kernel
-    the count of HGMMA instructions in its SASS and its spilled bytes
-    (stores plus loads). A wgmma kernel with fewer than 16 HGMMA (one q.k
-    and one p.v product of eight 16-deep steps a tile) fails the run."""
+    kernels (K1, K2, K4, K5/K6, K9, K7/K11, K8, K12, K15/K16), and for each
+    wgmma kernel the count of HGMMA instructions in its SASS and its spilled
+    bytes (stores plus loads). A wgmma kernel with fewer than 16 HGMMA (one
+    q.k and one p.v product of eight 16-deep steps a tile) fails the run."""
     import shutil
 
     rep = {}
     for name in ("flash", "ragged_decode", "flash_int4", "windowed_attend", "pool_decode_int4",
-                 "flat_decode_int4", "score"):
+                 "flat_decode_int4", "score", "w4a8", "w4a8_v1", "w4a8_fused"):
         rep[f"{name}_ptxas"] = [ln.strip() for ln in build_logs[name].splitlines()
                                 if any(w in ln for w in ("Compiling entry", "registers", "spill"))]
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -927,11 +927,11 @@ def kernel_parity_w4a8_v1(cfg):
     24, with a bias on q/k/v. The gate must reject a reference with one
     input group dropped (one shape each). Times: ``kernel_ms`` at T 1
     cycling over the 28 layers, so that each launch reads its weights from
-    device memory, and at T 24 and 511; the kernels line carries one decode
-    step's seven unfused linears at T 1, summed. Bound: the weight bytes
-    the product needs (true groups only) plus x and out over 3.35 TB/s,
-    against 2 T IN OUT int8 operations; ``padded_bound_ms`` counts the pad
-    groups' bytes too."""
+    device memory, and at T 24 and 511 (K16 at T 1 and 24); the kernels
+    line carries one decode step's seven unfused linears at T 1, summed.
+    Bound: the weight bytes the product needs (true groups only) plus x and
+    out over 3.35 TB/s, against 2 T IN OUT int8 operations;
+    ``padded_bound_ms`` counts the pad groups' bytes too."""
     import torch
 
     from kvzip_tpu_torch.ops import OUT_RTOL, w4a8
@@ -994,6 +994,7 @@ def kernel_parity_w4a8_v1(cfg):
             if T == 1:
                 r["plain_ms"] = time_ms(lambda: w4a8._w4a8_jnp(x, {k: v[0] for k, v in w.items()}),
                                         2, 1)
+            if T < 511:
                 slices = [{k: v[l] for k, v in w.items()} for l in range(L)]
                 r16 = kernel_ms(lambda: w4a8.w4a8_matmul(
                     x, *(slices[next(cycle) % L][k] for k in ("q4", "s", "z")), bias), iters)
@@ -1128,7 +1129,7 @@ def kernel_parity_fused(cfg):
         plain_ms=time_ms(lambda: plain(x, attn, 0), 3, 1),
         bound_ms=b[0], bound_by=b[1], library_ms=None,
         composed_ms=chain["ms"], composed_host_ms=chain["host_ms"], weight_bytes=nbytes,
-        per_shape=per_shape))
+        per_shape=per_shape, composed_per_shape=per_shape))
     log(phase="k12_times", **{k: out[-1][k] for k in (
         "ms", "host_ms", "plain_ms", "bound_ms", "composed_ms", "composed_host_ms",
         "weight_bytes", "per_shape")})
@@ -2315,8 +2316,9 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "rms_want",
             "worst_to_tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    extra = ("exp_floor_ms", "composed_ms", "composed_per_shape")
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
-                                   **{k: r[k] for k in ("exp_floor_ms",) if k in r}}
+                                   **{k: r[k] for k in extra if k in r}}
                                   for r in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

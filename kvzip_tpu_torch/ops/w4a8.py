@@ -9,7 +9,9 @@ layout and its expansion, fusing q/k/v and gate/up, the v1 linears K15
 v1 layout: packed ``(..., INp, OUT//2)`` uint8, split packing along OUT
 (byte column j holds weight column j in the high nibble and j + OUT/2 in
 the low one) and stored XOR 0x80; bf16 scale/zero ``(..., Gp, OUT)`` per
-(input group, output column), with pad groups of scale = zero = 0.
+(input group, output column), with pad groups of scale = zero = 0. K15 and
+K16 share K8's kernel body (``csrc/w4a8_sm90.cuh``) and its plan
+(``ops/w4a8_v2.py::plan``); they read the true groups only.
 ``prepare_params`` repacks a ``weight_quant="w4a8"`` tree to v2
 (``ops/w4a8_v2.py``, K8); a v1 tree passed with ``weight_quant="none"``
 (what ``load_hf_params(..., weight_quant="w4a8")`` gives) runs as it is.
@@ -28,14 +30,13 @@ import ctypes
 import torch
 
 from kvzip_tpu_torch import _build
-from kvzip_tpu_torch.ops import LAUNCHES, check_kernel_args, on_cuda, stream_ptr
+from kvzip_tpu_torch.ops import LAUNCHES, check_kernel_args, on_cuda, sm_count, stream_ptr
 from kvzip_tpu_torch.ops.quant import quantize_act_int8
 
 GROUP = 128
 MAX_GPB = 16          # the reference kernel's groups per grid step
 DEQUANT_T = 512
-_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-_TARGET_CTAS = 1056  # eight CTAs per SM of the H100's 132
+_ARGS = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 def _pad_groups(n_groups: int) -> int:
@@ -128,22 +129,13 @@ def _w4a8_jnp(x: torch.Tensor, w: dict, bias=None) -> torch.Tensor:
     return y if bias is None else y + bias
 
 
-def split_groups(T: int, half: int, G: int) -> tuple:
-    """The grid of K15/K16: tokens a CTA (``tt``, 1 or 4), input groups
-    a split (``gps``) and splits (``S``), chosen so that the CTAs (512
-    byte columns x ``tt`` tokens x one split each) number about
-    ``_TARGET_CTAS``: a single token splits its groups to fill the card,
-    and the split shrinks as the token blocks grow."""
-    tt = 1 if T == 1 else 4
-    cols = -(-half // 512) * -(-T // tt)
-    gps = -(-G // min(G, -(-_TARGET_CTAS // cols)))
-    return tt, gps, -(-G // gps)
-
-
 def _launch_v1(what: str, x: torch.Tensor, wq4: torch.Tensor, ws: torch.Tensor,
                wz: torch.Tensor, layer: int, bias) -> torch.Tensor:
-    """One call of ``csrc/w4a8_v1.cu`` on layer ``layer`` of (L, INp,
-    OUT//2) bytes and (L, Gp, OUT) scales."""
+    """One call of ``csrc/w4a8_v1.cu`` (K8's body with the v1 scales) on
+    layer ``layer`` of (L, INp, OUT//2) bytes and (L, Gp, OUT) scales,
+    planned as K8 is (``ops/w4a8_v2.py::plan``, the true groups only)."""
+    from kvzip_tpu_torch.ops.w4a8_v2 import plan, scratch
+
     other = dict(x=(x, torch.bfloat16), wq4=(wq4, torch.uint8),
                  ws=(ws, torch.bfloat16), wz=(wz, torch.bfloat16))
     if bias is not None:
@@ -152,25 +144,24 @@ def _launch_v1(what: str, x: torch.Tensor, wq4: torch.Tensor, ws: torch.Tensor,
     T, IN = x.shape
     L, INp, half = wq4.shape
     Gp, OUT = ws.shape[1:]
-    if OUT != 2 * half or half % 4 or IN % GROUP or IN > INp or INp != Gp * GROUP \
+    if OUT != 2 * half or half % 16 or IN % GROUP or IN > INp or INp != Gp * GROUP \
             or ws.shape != (L, Gp, OUT) or wz.shape != ws.shape or not 0 <= layer < L \
             or T < 1 or x.data_ptr() % 16 or (bias is not None and bias.shape != (OUT,)):
         raise ValueError(f"{what}: bad shapes or alignment x {tuple(x.shape)} q4 "
-                         f"{tuple(wq4.shape)} s {tuple(ws.shape)} layer {layer}")
-    tt, gps, S = split_groups(T, half, IN // GROUP)
+                         f"{tuple(wq4.shape)} s {tuple(ws.shape)} layer {layer} "
+                         f"(OUT/2 must be a multiple of 16)")
     dev = x.device
+    p = plan(T, half, IN // GROUP, sm_count(dev))
     out = torch.empty((T, OUT), dtype=x.dtype, device=dev)
-    xq = torch.empty((T, IN), dtype=torch.int8, device=dev)
-    xs = torch.empty((T,), dtype=torch.float32, device=dev)
-    # one split: the main kernel writes out itself, no partials
-    part = torch.empty((S, T, OUT), dtype=torch.float32, device=dev) if S > 1 else None
+    part, tickets, quant = scratch(p, T, IN, dev, what)
     with torch.cuda.device(dev):
         fn = _build.kernel("w4a8_v1", "kvz_w4a8_v1", _ARGS)
-        _build.check(fn(x.data_ptr(), wq4.data_ptr(), ws.data_ptr(), wz.data_ptr(),
-                        None if bias is None else bias.data_ptr(), out.data_ptr(),
-                        xq.data_ptr(), xs.data_ptr(),
-                        None if part is None else part.data_ptr(), T, IN, INp, OUT, Gp,
-                        layer, gps, tt, stream_ptr(dev)), what)
+        _build.check(fn(x.data_ptr(), wq4[layer].data_ptr(), ws[layer].data_ptr(),
+                        wz[layer].data_ptr(), None if bias is None else bias.data_ptr(),
+                        out.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+                        *[None if t is None else t.data_ptr() for t in quant],
+                        T, IN, OUT, p["nt"], p["occ"], int(p["inq"]), p["gps"], p["S"],
+                        p["grid"], stream_ptr(dev)), what)
     LAUNCHES[what] += 1
     return out
 

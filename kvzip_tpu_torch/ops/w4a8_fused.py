@@ -1,7 +1,14 @@
 """K12: the fused W4A8 decode layer, one launch per layer.
 
 Port of ``kvzip_tpu/ops/w4a8_fused.py::w4a8_layer_fused``; the kernel is
-``csrc/w4a8_fused.cu``. For T <= 8 token rows it does everything between
+``csrc/w4a8_fused.cu``, one cooperative launch whose four products run on
+K8's unit (TMA boxes of 128 rows x 128 byte columns on a ring, ``mma.sync``
+s8), planned by :func:`plan`: each product's items (a column block over a
+split of its groups) taken every grid-th (:func:`cta_units`), a block's
+partials added in split order after the next grid barrier (one CTA a row
+for the residual, the RMSNorm and the s8 rows; every CTA for SiLU * up and
+the qkv rows), the next product's first units asked for before each
+barrier (:func:`prefetched`). For T <= 8 token rows it does everything between
 two attentions: o-proj of the attention output, ``x1 = rnd(x + rnd(o))``,
 RMSNorm with ``ln_mlp[layer]`` and the s8 quantization, gate/up, ``h =
 rnd(gate * sigmoid(gate) * up)`` (one rounding, unlike the composed
@@ -21,7 +28,8 @@ nibbles, with the pre-folded scales.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -32,12 +40,15 @@ from kvzip_tpu_torch.ops.w4a8 import GROUP
 
 MAX_T = 8          # a decode-shape kernel, as the reference's
 GPB = 8            # the reference kernel's groups per reduction step
-_CB = 128          # byte columns of one work item of the kernel
+_CB = 128          # byte columns of one unit of the kernel (csrc/w4a8_fused.cu)
 _MAX_SPLITS = 16   # splits of a product's input groups
+_NS = 4            # the kernel's ring stages
+_XB_MAX = 40960    # shared memory for a CTA's quantized groups of one product
 _NAMES = ("w_o", "w_gu", "w_dn", "w_qkv")
 
-_ARGS = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 15 + [ctypes.c_float, ctypes.c_void_p]
-_GRIDS: Dict[Tuple[int, int], int] = {}
+_ARGS = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 16 + [ctypes.c_float, ctypes.c_void_p]
+_GRIDS: Dict[int, int] = {}
+_MAPS: Dict[tuple, ctypes.Array] = {}
 
 
 def _ones_over(s: torch.Tensor) -> torch.Tensor:
@@ -105,27 +116,94 @@ def w4a8_layer_fused_plain(x, attn_out, ln_mlp, ln_attn, w_o, w_gu, w_dn, w_qkv,
 
 
 def _splits(G: int, half: int, T: int, grid: int) -> int:
-    """Splits of a product's G input groups: enough items (128 byte columns
-    times a split) for the grid, at most 16, and partial sums of at most an
-    eighth of the weight bytes; no split left empty."""
-    cap = min(G, _MAX_SPLITS, max(1, 2 * G // T))
-    S = max(1, min(cap, -(-grid // -(-half // _CB))))
-    gps = -(-G // S)
-    return -(-G // gps)
+    """Splits of a product's G input groups: the fewest units of the
+    busiest CTA (waves of items x (groups an item + 1), an item's partial
+    costing about a unit), with at most 16 splits and partial sums of at
+    most an eighth of the weight bytes (S <= 2 G / T); no split left empty.
+    (Planning for the busiest SM instead, with half the CTAs at work on
+    down, was slower: a CTA's four stages in flight do not carry an SM's
+    share of the bandwidth.)"""
+    ncb = -(-half // _CB)
+    best = None
+    for S0 in range(1, min(G, _MAX_SPLITS, max(1, 2 * G // T)) + 1):
+        gps = -(-G // S0)
+        S = -(-G // gps)
+        cost = -(-ncb * S // grid) * (gps + 1)
+        if best is None or cost < best[0]:
+            best = (cost, S)
+    return best[1]
 
 
-def _grid(device: torch.device, tt: int) -> int:
-    key = (device.index, tt)
+@functools.lru_cache(maxsize=None)
+def plan(T: int, dims: Tuple[Tuple[int, int], ...], grid: int) -> dict:
+    """The launch of K12 over T token rows on ``grid`` CTAs, ``dims`` the
+    (IN, OUT//2) of o-proj, gate/up, down and qkv: each product's column
+    blocks (``ncb``), groups (``G``), splits (``S``, each a run of ``gps``
+    groups) and items (``ncb * S``, split-major); ``xbuf``, the most bytes
+    a CTA's quantized groups of one product take (they must fit the
+    kernel's ``_XB_MAX``). Cached: the wrapper asks once a shape."""
+    prods, xbuf = [], 0
+    for IN, half in dims:
+        G = IN // GROUP
+        S = _splits(G, half, T, grid)
+        gps, ncb = -(-G // S), -(-half // _CB)
+        ng = -(-ncb * S // grid) * gps  # the busiest CTA's group slots
+        xbuf = max(xbuf, T * (ng * GROUP + 16) + -(-T * ng // 4) * 16)
+        prods.append(dict(IN=IN, half=half, G=G, S=S, gps=gps, ncb=ncb, n_items=ncb * S))
+    return dict(T=T, grid=grid, products=prods, xbuf=xbuf)
+
+
+def cta_units(p: dict, c: int) -> List[Tuple[int, int, int, int]]:
+    """CTA c's stream of units over the four products, in the order its
+    thread 0 loads them: (product, column block, group, split), items c,
+    c + grid, ... of each product and each item's groups in order."""
+    out = []
+    for k, pr in enumerate(p["products"]):
+        for it in range(c, pr["n_items"], p["grid"]):
+            split, cb = divmod(it, pr["ncb"])
+            for g in range(split * pr["gps"], min(pr["G"], (split + 1) * pr["gps"])):
+                out.append((k, cb, g, split))
+    return out
+
+
+def prefetched(p: dict, c: int, k: int) -> List[Tuple[int, int, int, int]]:
+    """The units of product k that CTA c has asked for when it reaches the
+    barrier before product k: its first ``_NS`` (the ring's stages), asked
+    for once its units of product k - 1 are done (none while they are in
+    flight, so a product's units are not read behind the next one's)."""
+    return [u for u in cta_units(p, c) if u[0] == k][:_NS]
+
+
+def _grid(device: torch.device) -> int:
+    """The cooperative grid on ``device``: every CTA resident with the
+    kernel's dynamic shared memory (two an SM on the H100)."""
+    key = device.index
     if key not in _GRIDS:
         blocks = ctypes.c_int(0)
         with torch.cuda.device(device):
-            fn = _build.kernel("w4a8_fused", "kvz_w4a8_fused_grid",
-                               [ctypes.c_int, ctypes.c_void_p])
-            _build.check(fn(tt, ctypes.addressof(blocks)), "w4a8_layer_fused grid")
+            fn = _build.kernel("w4a8_fused", "kvz_w4a8_fused_grid", [ctypes.c_void_p])
+            _build.check(fn(ctypes.addressof(blocks)), "w4a8_layer_fused grid")
         if blocks.value < 1:
             raise RuntimeError("w4a8_layer_fused: no CTA of the kernel fits on the device")
         _GRIDS[key] = blocks.value
     return _GRIDS[key]
+
+
+def _tensor_map(q4: torch.Tensor) -> ctypes.Array:
+    """The kernel's tensor map of a (L, IN, OUT//2) byte stack, encoded once
+    a stack (a map holds only the address and the shape, so an entry stays
+    right for whatever tensor lies there later)."""
+    L, IN, half = q4.shape
+    key = (q4.device.index, q4.data_ptr(), L, IN, half)
+    m = _MAPS.get(key)
+    if m is None:
+        m = ctypes.create_string_buffer(128)
+        with torch.cuda.device(q4.device):
+            fn = _build.kernel("w4a8_fused", "kvz_w4a8_fused_map",
+                               [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+            _build.check(fn(q4.data_ptr(), L, IN, half, m), "w4a8_layer_fused tensor map")
+        _MAPS[key] = m
+    return m
 
 
 def w4a8_layer_fused(x: torch.Tensor, attn_out: torch.Tensor, ln_mlp: torch.Tensor,
@@ -166,21 +244,23 @@ def w4a8_layer_fused(x: torch.Tensor, attn_out: torch.Tensor, ln_mlp: torch.Tens
         IN, half = dims[name]
         Gp8 = w["s2"].shape[2]
         if w["q4"].shape != (L, IN, half) or w["s2"].shape != (L, 2, Gp8, half) \
-                or w["z2"].shape != w["s2"].shape or IN % GROUP or half % 4 \
+                or w["z2"].shape != w["s2"].shape or IN % GROUP or half % 16 \
                 or Gp8 * GROUP < IN:
             raise ValueError(f"w4a8_layer_fused: {name} q4 {tuple(w['q4'].shape)} s2 "
                              f"{tuple(w['s2'].shape)} does not fit x {tuple(x.shape)} "
-                             f"attn {tuple(attn_out.shape)}")
+                             f"attn {tuple(attn_out.shape)} (OUT/2 a multiple of 16)")
     ql = layer if qkv_layer is None else qkv_layer
     if D % 2 or ln_mlp.shape != (L, D) or ln_attn.shape != (L, D) or not 0 <= layer < L \
             or not 0 <= ql < L:
         raise ValueError(f"w4a8_layer_fused: ln {tuple(ln_mlp.shape)} / "
                          f"{tuple(ln_attn.shape)}, x {tuple(x.shape)}, layer {layer}")
     dev = x.device
-    tt = 1 if T == 1 else 4 if T <= 4 else 8
-    grid = _grid(dev, tt)
-    S = [_splits(dims[n][0] // GROUP, dims[n][1], T, grid) for n in _NAMES]
-    part = max(s * T * 2 * dims[n][1] for s, n in zip(S, _NAMES))
+    p = plan(T, tuple(dims[n] for n in _NAMES), _grid(dev))
+    if p["xbuf"] > _XB_MAX:
+        raise ValueError(f"w4a8_layer_fused: a CTA's quantized groups take {p['xbuf']} bytes "
+                         f"of shared memory, more than {_XB_MAX}")
+    S = [pr["S"] for pr in p["products"]]
+    part = max(pr["S"] * T * 2 * pr["half"] for pr in p["products"])
     f32 = dict(dtype=torch.float32, device=dev)
     x_new = torch.empty_like(x)
     qkv = torch.empty((T, 2 * dims["w_qkv"][1]), dtype=x.dtype, device=dev)
@@ -190,14 +270,15 @@ def w4a8_layer_fused(x: torch.Tensor, attn_out: torch.Tensor, ln_mlp: torch.Tens
     xrow = torch.empty((T, D), **f32)
     hbuf = torch.empty((T, I), **f32)
     partial = torch.empty((part,), **f32)
-    ptrs = [x, attn_out, ln_mlp[layer], ln_attn[min(layer + 1, L - 1)]]
-    for w, wl in zip(weights, (layer, layer, layer, ql)):
-        ptrs += [w["q4"][wl], w["s2"][wl], w["z2"][wl]]
-    ptrs += [x_new, qkv, xq, xs, hmax, xrow, hbuf, partial]
+    ptrs = [t.data_ptr() for t in (x, attn_out, ln_mlp[layer], ln_attn[min(layer + 1, L - 1)])]
     with torch.cuda.device(dev):
+        ptrs += [ctypes.addressof(_tensor_map(w["q4"])) for w in weights]
+        for w, wl in zip(weights, (layer, layer, layer, ql)):
+            ptrs += [w["s2"][wl].data_ptr(), w["z2"][wl].data_ptr()]
+        ptrs += [t.data_ptr() for t in (x_new, qkv, xq, xs, hmax, xrow, hbuf, partial)]
         fn = _build.kernel("w4a8_fused", "kvz_w4a8_layer_fused", _ARGS)
-        _build.check(fn(*[t.data_ptr() for t in ptrs], T, D, HD, I, dims["w_qkv"][1],
-                        *[w["s2"].shape[2] for w in weights], *S, tt, grid, eps,
+        _build.check(fn(*ptrs, T, D, HD, I, dims["w_qkv"][1],
+                        *[w["s2"].shape[2] for w in weights], *S, layer, ql, p["grid"], eps,
                         stream_ptr(dev)), "w4a8_layer_fused")
     LAUNCHES["w4a8_layer_fused"] += 1
     return x_new, qkv

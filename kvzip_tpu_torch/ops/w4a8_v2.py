@@ -101,6 +101,23 @@ def merge_order(p: dict, o: int) -> List[Tuple[int, int]]:
     return [(s * n_out + o, (s * n_out + o) % p["grid"]) for s in range(p["S"])]
 
 
+def scratch(p: dict, T: int, IN: int, device: torch.device, owner: str) -> tuple:
+    """A launch's scratch (``csrc/w4a8_sm90.cuh::run``) for plan p: the
+    items' float32 partials, the blocks' counts (``owner``'s, zero between
+    launches) and, at T > ``INQ_T``, the quantized rows, their scales and
+    their group sums (None at T <= 4, where the CTAs quantize)."""
+    tb = 8 * p["nt"]
+    part = torch.empty((p["S"] * p["n_tb"] * p["n_cb"] if p["S"] > 1 else 1, tb, 2 * CB),
+                       dtype=torch.float32, device=device)
+    tickets = ticket_buffer(owner, device, p["n_tb"] * p["n_cb"])
+    quant = (None, None, None)
+    if not p["inq"]:
+        quant = (torch.empty((T, IN), dtype=torch.int8, device=device),
+                 torch.empty((T,), dtype=torch.float32, device=device),
+                 torch.empty((IN // GROUP, p["n_tb"] * tb), dtype=torch.int32, device=device))
+    return part, tickets, quant
+
+
 def repack_scales_v2(w: dict, in_dim: int = 0) -> dict:
     """{"q4", "s", "z"} (v1 stacked) -> {"q4", "s2", "z2"}: scales split by
     nibble half ((L, Gp, OUT) -> (L, 2, Gp8, OUT//2)) and pre-folded; with
@@ -188,16 +205,8 @@ def w4a8_matmul_stacked_v2(x: torch.Tensor, wq4: torch.Tensor,
                          f"(OUT/2 must be a multiple of 16)")
     dev = x.device
     p = plan(T, half, IN // GROUP, sm_count(dev))
-    tb = 8 * p["nt"]
     out = torch.empty((T, 2 * half), dtype=x.dtype, device=dev)
-    part = torch.empty((p["S"] * p["n_tb"] * p["n_cb"] if p["S"] > 1 else 1, tb, 2 * CB),
-                       dtype=torch.float32, device=dev)
-    tickets = ticket_buffer("w4a8_matmul_stacked_v2", dev, p["n_tb"] * p["n_cb"])
-    quant = (None, None, None)
-    if not p["inq"]:
-        quant = (torch.empty((T, IN), dtype=torch.int8, device=dev),
-                 torch.empty((T,), dtype=torch.float32, device=dev),
-                 torch.empty((IN // GROUP, p["n_tb"] * tb), dtype=torch.int32, device=dev))
+    part, tickets, quant = scratch(p, T, IN, dev, "w4a8_matmul_stacked_v2")
     with torch.cuda.device(dev):
         fn = _build.kernel("w4a8", "kvz_w4a8", _ARGS)
         _build.check(fn(x.data_ptr(), wq4[layer].data_ptr(), s2[layer].data_ptr(),

@@ -846,12 +846,13 @@ def _v1_stack(gen, L, IN, OUT):
     return {k: t.cuda() for k, t in w4a8.quantize_weight_int4(w).items()}
 
 
-@pytest.mark.parametrize("T", [1, 24, 511])
+@pytest.mark.parametrize("T", [1, 4, 5, 24, 511])
 @pytest.mark.parametrize("IN,OUT", [(2304, 256), (256, 640), (128, 512), (256, 10240)])
 def test_w4a8_v1_stacked_kernel(gen, T, IN, OUT):
     """K15 at every layer of a 3-layer stack: pad groups (2304 -> 32
-    groups), one input group, and a grid of one split (10240 columns at
-    T = 511) beside several."""
+    groups), one input group, OUT/2 = 320 (no multiple of the 128-column
+    block), one launch (T <= 4) and two (T >= 5), and a grid of one split
+    beside several."""
     from kvzip_tpu_torch.ops import w4a8
 
     L = 3
@@ -893,6 +894,86 @@ def test_w4a8_v1_gate_rejects_a_dropped_group(gen):
     xd[:, 128:256] = 0  # input group 1
     assert not parity(got, w4a8._w4a8_jnp(xd, {k: t[1] for k, t in w.items()}),
                       OUT_RTOL)["ok"]
+
+
+def _replays(run):
+    """run() eagerly, then captured in a CUDA graph and replayed twice: the
+    eager output and each replay's."""
+    def tup(o):
+        return o if isinstance(o, tuple) else (o,)
+
+    eager = tuple(t.clone() for t in tup(run()))
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = tup(run())
+    g.replay()
+    torch.cuda.synchronize()
+    first = tuple(t.clone() for t in out)
+    g.replay()
+    torch.cuda.synchronize()
+    return eager, first, out
+
+
+@pytest.mark.parametrize("T", [1, 5, 24])
+@pytest.mark.parametrize("bias", [False, True])
+def test_w4a8_v1_repeat_and_graph(gen, T, bias):
+    """K15 (and K16 with a bias): two calls give the same bits, and two
+    replays of a captured CUDA graph equal the eager call."""
+    from kvzip_tpu_torch.ops import w4a8
+
+    w = _v1_stack(gen, 2, 2304, 640)
+    x = _rn(gen, T, 2304)
+    b = _rn(gen, 640) if bias else None
+
+    def run():
+        if bias:
+            return w4a8.w4a8_matmul(x, w["q4"][1], w["s"][1], w["z"][1], b)
+        return w4a8.w4a8_matmul_stacked(x, w["q4"], w["s"], w["z"], 1)
+
+    assert torch.equal(run(), run())
+    eager, first, second = _replays(run)
+    assert torch.equal(eager[0], first[0]) and torch.equal(first[0], second[0])
+
+
+@pytest.mark.parametrize("T", list(range(1, 9)))
+def test_w4a8_layer_fused_every_t(gen, T):
+    """K12 at every T of its range, with the next layer's qkv slice as the
+    forward passes it."""
+    from kvzip_tpu_torch.ops import w4a8_fused
+
+    ws = _fused_weights(gen, **FUSED)
+    L, D_ = FUSED["L"], FUSED["D_"]
+    x, attn = _rn(gen, T, D_) * 0.3, _rn(gen, T, FUSED["HD"]) * 0.3
+    lnm, lna = 1 + 0.1 * _rn(gen, L, D_), 1 + 0.1 * _rn(gen, L, D_)
+    got = w4a8_fused.w4a8_layer_fused(x, attn, lnm, lna, *ws, 1, eps=1e-6, qkv_layer=2)
+    want = w4a8_fused.w4a8_layer_fused_plain(x, attn, lnm, lna, *ws, 1, eps=1e-6,
+                                             qkv_layer=2)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g.float()).all()
+        assert _ok(g, w)
+    assert LAUNCHES["w4a8_layer_fused"] == 1
+
+
+@pytest.mark.parametrize("T", [1, 8])
+def test_w4a8_layer_fused_repeat_and_graph(gen, T):
+    """K12: two calls give the same bits, and two replays of a captured
+    CUDA graph (one cooperative launch) equal the eager call."""
+    from kvzip_tpu_torch.ops import w4a8_fused
+
+    ws = _fused_weights(gen, **FUSED)
+    L, D_ = FUSED["L"], FUSED["D_"]
+    x, attn = _rn(gen, T, D_) * 0.3, _rn(gen, T, FUSED["HD"]) * 0.3
+    lnm, lna = 1 + 0.1 * _rn(gen, L, D_), 1 + 0.1 * _rn(gen, L, D_)
+
+    def run():
+        return w4a8_fused.w4a8_layer_fused(x, attn, lnm, lna, *ws, 0, eps=1e-6, qkv_layer=1)
+
+    a, b = run(), run()
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    eager, first, second = _replays(run)
+    for e, f, s in zip(eager, first, second):
+        assert torch.equal(e, f) and torch.equal(f, s)
 
 
 def test_w4a8_v1_rejects_wrong_dtypes_and_shapes(gen):
