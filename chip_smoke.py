@@ -58,7 +58,9 @@
    run. Then the legacy flat layout (``flat_decode="legacy"``) on a copy
    of the same scored state (``flat_path``): the same kept rows, three
    queries, the full flat baseline (``synthetic_full_flat_state``), live and
-   allocated KV bytes; K10 must have run and no pool kernel. The two
+   allocated KV bytes; K10 must have run, exactly once a layer of each
+   forward over a flat cache (one kernel a layer, no merge kernel), and
+   no pool kernel. The two
    layouts are then held against each other: K10 against K3 layer by
    layer on the real rows (``cross_layout_attention``) and teacher-forced
    logits (``allkept_check`` between pool and flat).
@@ -73,7 +75,8 @@
    layout on the same kept rows (K11), the same flat state with
    ``attn_quant="int8"`` (K11-q8) and the pool with it (K7-q8), each its
    own counted phase that must not run the other modes' or layout's
-   kernels, with the q8 answers' agreement with the exact ones; then K11
+   kernels (K11 and K11-q8 once a layer of each flat forward), with the
+   q8 answers' agreement with the exact ones; then K11
    against K7 and both q8 kernels against their plain versions on the
    real rows, with the relative RMS of q8 against exact attention. Then
    ``fuse_layer="on"`` on the same int4 pool state (``fused_path``, its
@@ -107,7 +110,8 @@
    K9, K13 and K14 parity and times at its shapes, then
    ``Engine(weight_quant="w8a8", kv_quant="int4", act_fused="pallas")``
    through the same main path (its own 16384-token context and queries);
-   K2, K5 (both forms), K6, K7, K13 and K14 must have run. Then the
+   K2, K5 (both forms), K6, K7, K13 and K14 must have run; K13's and
+   K14's launches are logged by T (``w8a8_launches_by_T``). Then the
    windowed pass: one
    prefill of the same context scored exactly and with
    ``scoring_attend="window"`` (K9 must have run), reporting both scoring
@@ -1144,14 +1148,16 @@ def kernel_parity_flat(cfg, ctx_tokens: int, sink: int, tail_cap: int):
     sequences merged, one tail length per (sequence, kv head)), on an
     evicted flat stack (~30% of each head's rows kept, every layer padded
     to the engine's r_pad for the largest layer) and on the full one (every
-    row kept, 98,304 rows a layer at 16k). The q8 holds discount two p steps
+    row kept, 98,304 rows a layer at 16k), each kernel given the stack's
+    live rows a segment (``seg_rows``). The q8 holds discount two p steps
     a row (``hold_parity``). At T = 1, n_seq = 1 on the evicted stack the
     gate must reject a reference with the layer's first 64-row tile dropped.
     Times: the kernels line carries T = 1, n_seq = 1, evicted; every shape's
     time is logged. Timed launches cycle over the stack's layers (28 for
     n_seq = 1, 4 for n_seq = 2), so each reads its rows from device memory.
     Bound: the live rows, the tail, q and out over 3.35 TB/s (and, beside
-    it, ``padded_bound_ms``: every row of R_pad read)."""
+    it, ``padded_bound_ms``: every row of R_pad read, as a kernel without
+    ``seg_rows`` reads them)."""
     import torch
 
     from kvzip_tpu_torch.engine import _round_flat_rows
@@ -1170,7 +1176,8 @@ def kernel_parity_flat(cfg, ctx_tokens: int, sink: int, tail_cap: int):
         return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
 
     def stack(n_layers, n_seq, full):
-        """row_head of a flat stack and its live rows a (layer, seq)."""
+        """row_head of a flat stack, r_pad, the mean live rows a (layer,
+        seq) and the live rows of each (``seg_rows``, (layers, n_seq))."""
         if full:
             rows_h = torch.full((n_layers, n_seq, Hkv), prefill_len, dtype=torch.int64)
         else:
@@ -1184,7 +1191,8 @@ def kernel_parity_flat(cfg, ctx_tokens: int, sink: int, tail_cap: int):
                 ids = torch.repeat_interleave(torch.arange(Hkv, dtype=torch.int32) + sb * Hkv,
                                               rows_h[l, sb])
                 rh[l, sb * r_pad:sb * r_pad + len(ids)] = ids
-        return rh.to(dev), r_pad, float(rows_h.sum(-1).float().mean())
+        return (rh.to(dev), r_pad, float(rows_h.sum(-1).float().mean()),
+                rows_h.sum(-1).to(torch.int32).to(dev))
 
     def quant(*shape):
         p, s_, z = quantize_int4(rn(*shape, D), pack="split")
@@ -1196,7 +1204,7 @@ def kernel_parity_flat(cfg, ctx_tokens: int, sink: int, tail_cap: int):
     for full in (False, True):
         for n_seq in (1, 2):
             n_layers = L if n_seq == 1 else 4
-            rh, r_pad, live = stack(n_layers, n_seq, full)
+            rh, r_pad, live, seg = stack(n_layers, n_seq, full)
             rows = n_seq * r_pad
             kt, vt = rn(n_seq * Hkv, tail_cap, D), rn(n_seq * Hkv, tail_cap, D)
             tl = (tail_len if n_seq == 1 else torch.randint(
@@ -1210,10 +1218,11 @@ def kernel_parity_flat(cfg, ctx_tokens: int, sink: int, tail_cap: int):
                 def run(q, layer, r=rh):
                     if mode == "bf16":
                         return flat_decode.flat_decode_attend(q, k, v, r, kt, vt, tl, scale=scale,
-                                                              n_seq=n_seq, layer=layer)
+                                                              n_seq=n_seq, layer=layer,
+                                                              seg_rows=seg)
                     return flat_decode.flat_decode_attend_int4(
                         q, *kv4, r, kt, vt, tl, scale=scale, q8=mode == "q8", n_seq=n_seq,
-                        layer=layer)
+                        layer=layer, seg_rows=seg)
 
                 def plain(q, layer, r=rh):
                     if mode == "bf16":
@@ -1245,7 +1254,7 @@ def kernel_parity_flat(cfg, ctx_tokens: int, sink: int, tail_cap: int):
                     if T == 1 and n_seq == 1 and not full:
                         r["plain_ms"] = time_ms(lambda: plain(q, 0), 2, 1)
                     timed.setdefault(name, {})[f"T {T} {layout}"] = r
-            del k, v, kv4, kt, vt, rh
+            del k, v, kv4, kt, vt, rh, seg
             torch.cuda.empty_cache()
     out = []
     for name, mode in modes:
@@ -1267,7 +1276,8 @@ def kernel_parity_w8a8(cfg, sink: int):
     padded queries, keys sink + 2048 + 2304) with a full window (ctx_len
     2000) and the context's short last window (384); K13 at D = 4096 and
     K14 at F = 14336, each at T = 1 (decode), 16 and 2304 (a scoring
-    chunk). K9 through ``ops.parity`` (a reference with one 64-key window
+    chunk), K14 also at T = 4 and 24 (its cluster form's other sizes).
+    K9 through ``ops.parity`` (a reference with one 64-key window
     tile left out must fail), K13/K14 through ``ops.quant_parity`` (a
     reference with one row's scale doubled must fail). The kernels line
     carries K9 at ctx_len 2000 and K13/K14 at T = 2304; every shape's time
@@ -1322,9 +1332,10 @@ def kernel_parity_w8a8(cfg, sink: int):
     del q, keys, vals
 
     # K13 and K14
-    for name, W, line in (("rmsnorm_quant", D_m, 72), ("silu_mul_quant", I, 115)):
+    for name, W, line, shapes in (("rmsnorm_quant", D_m, 72, (1, 16, 2304)),
+                                  ("silu_mul_quant", I, 115, (1, 4, 16, 24, 2304))):
         per_shape = {}
-        for T in (1, 16, 2304):
+        for T in shapes:
             if name == "rmsnorm_quant":
                 x = rn(T, W) * 3
                 w = (1 + 0.2 * torch.randn(W, generator=gen, device=dev)).to(torch.bfloat16)
@@ -2110,8 +2121,11 @@ def main() -> int:
         sys.exit("no CUDA device: the smoke run needs one card")
     sys.path.insert(0, HERE)
     from kvzip_tpu_torch import _build
+    from kvzip_tpu_torch import engine as engine_module
+    from kvzip_tpu_torch.cache import FlatInt4KV, FlatKV
     from kvzip_tpu_torch.config import resolve_config
     from kvzip_tpu_torch.engine import Engine
+    from kvzip_tpu_torch.models import transformer as transformer_module
     from kvzip_tpu_torch.ops import LAUNCHES, reset_launches
     from kvzip_tpu_torch.tokenizer import ByteTokenizer
 
@@ -2152,21 +2166,40 @@ def main() -> int:
                                   "per_shape")}
                         for r in kernels + kernels_q + kernels_f + kernels_k12 + kernels_v1])
 
-    def counted(tag, engine, kernel_names, path, *args, absent=(), **kw):
+    def counted(tag, engine, kernel_names, path, *args, absent=(), per_flat_layer=None, **kw):
         """One path between a counter reset and a read; every kernel of the
-        path must have launched, and none of ``absent``."""
+        path must have launched, and none of ``absent``. ``per_flat_layer``:
+        a kernel that must launch exactly once a layer of each forward over
+        a flat cache (the forwards counted at ``engine.forward``)."""
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        rep = path(engine, *args, **kw)
+        flat_forwards = [0]
+        forward = engine_module.forward
+
+        def counting_forward(params, cfg_, ids, cache, **fkw):
+            flat_forwards[0] += isinstance(cache, (FlatKV, FlatInt4KV))
+            return forward(params, cfg_, ids, cache, **fkw)
+
+        engine_module.forward = counting_forward
+        try:
+            rep = path(engine, *args, **kw)
+        finally:
+            engine_module.forward = forward
         launches = {n: LAUNCHES[n] for n in (*kernel_names, *absent)}
         log(phase=tag, model=engine.name, layers=engine.config.num_layers, ctx=CTX, **rep,
-            launches=launches, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            launches=launches, flat_forwards=flat_forwards[0],
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         missing = [n for n in kernel_names if launches[n] == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the {tag}: {missing}")
         stray = [n for n in absent if launches[n]]
         if stray:
             raise AssertionError(f"kernels of another layout or mode ran on the {tag}: {stray}")
+        if per_flat_layer is not None and \
+                launches[per_flat_layer] != engine.config.num_layers * flat_forwards[0]:
+            raise AssertionError(
+                f"{per_flat_layer} launched {launches[per_flat_layer]} times on the {tag}, not "
+                f"once a layer of its {flat_forwards[0]} flat forwards")
         return {n: launches[n] for n in kernel_names}
 
     def run(tag, engine, kernel_names, **kw):
@@ -2189,7 +2222,8 @@ def main() -> int:
                    absent=flat_kernels, keep=keep)
     feng = variant(eng, flat_decode="legacy")
     launches.update(counted("flat_path", feng, ("flat_decode_attend",), flat_path, keep,
-                            queries, False, absent=pool_kernels))
+                            queries, False, absent=pool_kernels,
+                            per_flat_layer="flat_decode_attend"))
     cross_layout_attention(keep["pool"].cache, keep["flat"].cache, cfg.num_heads, int4=False)
     allkept_check(eng, keep["pool"], keep["flat"], queries[0], keep["answers"][0],
                   full_eng=feng, phase="cross_layout_logits")
@@ -2213,14 +2247,16 @@ def main() -> int:
     feng = variant(eng, flat_decode="legacy")
     launches.update(counted("flat_path_quant", feng, ("flat_decode_attend_int4",), flat_path,
                             keep, queries, True,
-                            absent=("flat_decode_attend_int4_q8", *pool_kernels)))
+                            absent=("flat_decode_attend_int4_q8", *pool_kernels),
+                            per_flat_layer="flat_decode_attend_int4"))
     pool_st, flat_st = keep["pool"], keep["flat"]
     qfeng = variant(feng, attn_quant="int8")
     launches.update(counted(
         "flat_path_quant_q8", qfeng, ("flat_decode_attend_int4_q8",), q8_path, flat_st,
         queries, keep["flat_answers"],
         lambda: qfeng.synthetic_full_flat_state(flat_st, True, qfeng.decode_budget),
-        absent=("flat_decode_attend_int4", *pool_kernels)))
+        absent=("flat_decode_attend_int4", *pool_kernels),
+        per_flat_layer="flat_decode_attend_int4_q8"))
     qpeng = variant(eng, attn_quant="int8")
     launches.update(counted(
         "pool_path_quant_q8", qpeng, ("pool_decode_attend_int4_q8",), q8_path, pool_st,
@@ -2302,10 +2338,30 @@ def main() -> int:
         timing_details=[{k: v for k, v in r.items() if k in ("name", "ms", "host_ms",
                                                              "library_ms", "per_shape")}
                         for r in kernels_w8])
-    launches = run("main_path_w8a8", eng,
-                   ("fused_scores", "flash_attend_int4", "flash_attend_int4_decode",
-                    "flash_attend_int4_extra", "pool_decode_attend_int4", "rmsnorm_quant",
-                    "silu_mul_quant"), quant=True)
+    # K13's and K14's launches on the path counted by their T (rows a call)
+    by_t = {"rmsnorm_quant": {}, "silu_mul_quant": {}}
+    real = {n: getattr(transformer_module, n) for n in by_t}
+
+    def tally(name):
+        def call(x, *args, **kw):
+            by_t[name][x.shape[0]] = by_t[name].get(x.shape[0], 0) + 1
+            return real[name](x, *args, **kw)
+        return call
+
+    for n in by_t:
+        setattr(transformer_module, n, tally(n))
+    try:
+        launches = run("main_path_w8a8", eng,
+                       ("fused_scores", "flash_attend_int4", "flash_attend_int4_decode",
+                        "flash_attend_int4_extra", "pool_decode_attend_int4", "rmsnorm_quant",
+                        "silu_mul_quant"), quant=True)
+    finally:
+        for n, fn in real.items():
+            setattr(transformer_module, n, fn)
+    log(phase="w8a8_launches_by_T",
+        **{n: {str(t): c for t, c in sorted(v.items())} for n, v in by_t.items()})
+    if any(sum(v.values()) != launches[n] for n, v in by_t.items()):
+        raise AssertionError(f"K13/K14 calls by T {by_t} do not add up to their launches")
     if launches["flash_attend_int4"] == launches["flash_attend_int4_decode"]:
         raise AssertionError("K5's prefill form never launched on the W8A8-KV4 path")
     launches.update(counted("windowed_scoring", weng, ("windowed_attend",), windowed_pass,
@@ -2316,7 +2372,7 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "rms_want",
             "worst_to_tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("exp_floor_ms", "composed_ms", "composed_per_shape")
+    extra = ("exp_floor_ms", "composed_ms", "composed_per_shape", "padded_bound_ms")
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
                                    **{k: r[k] for k in extra if k in r}}
                                   for r in kernels]}), flush=True)

@@ -14,7 +14,9 @@ and in their original order, each tagged with its kv head in ``row_head``
 query/answer KV. The port keeps K row-major ``(L, R_pad, D)`` like V (the
 reference transposed K to ``(L, D, R_pad)`` for the TPU's matrix unit); the
 int4 form holds split-packed rows ``(L, R_pad, D//2)`` with float32 scales
-and zeros ``(L, R_pad)``.
+and zeros ``(L, R_pad)``. Each flat cache also keeps ``seg_rows`` (L, 1),
+its layers' live rows (``row_head >= 0``, the first rows of each layer),
+where the decode kernels K10/K11 stop reading.
 
 ``lengths`` stays on the device, where the kernels read it; ``seen`` (the
 rope position base) and a flat cache's ``tail_len`` are host ints.
@@ -144,6 +146,7 @@ class FlatKV:
     lengths: torch.Tensor   # (L, Hkv) int32 kept context rows (sink included)
     tail_len: int
     seen: int
+    seg_rows: torch.Tensor  # (L, 1) int32 live rows a layer (they come first)
 
     @property
     def capacity(self) -> int:
@@ -175,6 +178,7 @@ class FlatInt4KV:
     lengths: torch.Tensor   # (L, Hkv) int32
     tail_len: int
     seen: int
+    seg_rows: torch.Tensor  # (L, 1) int32
 
     @property
     def capacity(self) -> int:
@@ -218,6 +222,12 @@ def flat_plan(keep: torch.Tensor, sink: int, r_pad: int, C: int):
     return take, kept, lengths, row_head
 
 
+def live_rows(row_head: torch.Tensor) -> torch.Tensor:
+    """(L, 1) int32: each layer's live flat rows (row_head >= 0), counted on
+    the device (no sync); every flat build puts them first."""
+    return (row_head >= 0).sum(dim=-1, keepdim=True).to(torch.int32)
+
+
 def _gather_rows(a: torch.Tensor, take: torch.Tensor, kept: torch.Tensor,
                  dtype=None) -> torch.Tensor:
     """Dense (L, H, C, ...) -> flat (L, R, ...): rows at take, zero where
@@ -251,7 +261,7 @@ def build_flat(cache: KVCache, keep: torch.Tensor, sink: int, r_pad: int,
     return FlatKV(k_flat=_gather_rows(cache.k, take, kept),
                   v_flat=_gather_rows(cache.v, take, kept), row_head=row_head,
                   k_tail=k_tail, v_tail=v_tail, lengths=lengths, tail_len=0,
-                  seen=cache.seen)
+                  seen=cache.seen, seg_rows=live_rows(row_head))
 
 
 def build_flat_int4(cache: Int4KVCache, keep: torch.Tensor, sink: int,
@@ -286,7 +296,8 @@ def _build_flat_int4(cache, keep, sink, r_pad, tail_cap, dtype, consume: bool):
             setattr(cache, src, None)
     k_tail, v_tail = _new_tails(L, H, tail_cap, 2 * Dp, dtype, device)
     return FlatInt4KV(**out, row_head=row_head, k_tail=k_tail, v_tail=v_tail,
-                      lengths=lengths, tail_len=0, seen=cache.seen)
+                      lengths=lengths, tail_len=0, seen=cache.seen,
+                      seg_rows=live_rows(row_head))
 
 
 def synthetic_full_flat(num_layers: int, num_kv_heads: int, head_dim: int,
@@ -301,10 +312,11 @@ def synthetic_full_flat(num_layers: int, num_kv_heads: int, head_dim: int,
     rh[:H * per_head_rows] = torch.arange(H, dtype=torch.int32).repeat_interleave(
         per_head_rows)
     k_tail, v_tail = _new_tails(L, H, tail_cap, D, dtype, device)
-    common = dict(row_head=rh.to(device)[None].repeat(L, 1), k_tail=k_tail, v_tail=v_tail,
+    row_head = rh.to(device)[None].repeat(L, 1)
+    common = dict(row_head=row_head, k_tail=k_tail, v_tail=v_tail,
                   lengths=torch.full((L, H), per_head_rows, dtype=torch.int32,
                                      device=device),
-                  tail_len=0, seen=per_head_rows)
+                  tail_len=0, seen=per_head_rows, seg_rows=live_rows(row_head))
 
     def full(shape, value, dt):
         return torch.full(shape, value, dtype=dt, device=device)
@@ -362,7 +374,7 @@ def refold_flat(cache, r_pad_new: int):
     tails = (cache.k_tail.reshape(L, H * Tcap, D), cache.v_tail.reshape(L, H * Tcap, D))
     common = dict(row_head=row_head, k_tail=torch.zeros_like(cache.k_tail),
                   v_tail=torch.zeros_like(cache.v_tail), lengths=cache.lengths + n,
-                  tail_len=0, seen=cache.seen)
+                  tail_len=0, seen=cache.seen, seg_rows=live_rows(row_head))
     if not is_int4:
         return FlatKV(k_flat=fold(cache.k_flat, tails[0]),
                       v_flat=fold(cache.v_flat, tails[1]), **common)

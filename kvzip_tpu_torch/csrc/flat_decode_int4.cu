@@ -15,15 +15,16 @@
 // grid axis; here it is K7's body (int4_decode.cuh), a CTA's row group
 // holding every query row of its sequence, the grid (row groups, S splits,
 // sequences) sized to the card and the splits merged inside the launch. The
-// padding rows past a layer's kept rows are read and masked (their
-// row_head is -1); in q8 mode p is quantized per 64-row tile aligned to the
-// sequence segment's row 0.
+// items stop at the segment's live rows (seg_rows; the padding past them,
+// row_head -1, is not read); in q8 mode p is quantized per 64-row tile
+// aligned to the sequence segment's row 0.
 #include "int4_decode.cuh"
 
 using namespace kvz;
 
 // q (T, H_all, D) bf16 (H_all = n_seq * H); kq/vq (L, n_seq * R_seg, D/2)
-// uint8; ks/kz/vs/vz and row_head (L, n_seq * R_seg) f32 / int32;
+// uint8; ks/kz/vs/vz and row_head (L, n_seq * R_seg) f32 / int32; seg_rows
+// (L, n_seq) int32 live rows a segment (they come first), or null for R_seg;
 // k_tail/v_tail (n_seq * Hkv, Tcap, D) bf16, this layer's; tail_lens
 // (n_seq * Hkv,) int32 or null for the one tail_len; out (T, H_all, D);
 // part_acc (n_seq, rgs, S, 16 mtc, D) and part_ml (..., 2) f32 scratch;
@@ -31,13 +32,14 @@ using namespace kvz;
 // them zero). Hkv is per sequence.
 extern "C" int kvz_flat_decode_int4(const void* q, const void* kq, const void* ks,
                                     const void* kz, const void* vq, const void* vs,
-                                    const void* vz, const void* row_head, const void* k_tail,
-                                    const void* v_tail, const void* tail_lens, void* out,
+                                    const void* vz, const void* row_head, const void* seg_rows,
+                                    const void* k_tail, const void* v_tail, const void* tail_lens,
+                                    void* out,
                                     void* part_acc, void* part_ml, void* tickets, int T,
                                     int H_all, int Hkv, int n_seq, int Tcap, int layer, int R_seg,
                                     int tail_len, int S, int mtc, int rgs, int q8, float scale,
                                     void* stream) {
-  i4d::Args a;
+  i4d::Args a = {};
   a.q = static_cast<const bf16*>(q);
   a.kq = static_cast<const uint8_t*>(kq);
   a.ks = static_cast<const float*>(ks);
@@ -46,8 +48,7 @@ extern "C" int kvz_flat_decode_int4(const void* q, const void* kq, const void* k
   a.vs = static_cast<const float*>(vs);
   a.vz = static_cast<const float*>(vz);
   a.row_head = static_cast<const int*>(row_head);
-  a.layer_off = nullptr;
-  a.layer_rows = nullptr;
+  a.seg_rows = static_cast<const int*>(seg_rows);
   a.k_tail = static_cast<const bf16*>(k_tail);
   a.v_tail = static_cast<const bf16*>(v_tail);
   a.tail_lens = static_cast<const int*>(tail_lens);
@@ -68,7 +69,6 @@ extern "C" int kvz_flat_decode_int4(const void* q, const void* kq, const void* k
   a.mtc = mtc;
   a.rgs = rgs;
   a.scale = scale;
-  a.kb = a.vb = nullptr;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return q8 ? i4d::launch<i4d::Q8>(a, st) : i4d::launch<i4d::EXACT>(a, st);
 }

@@ -1,9 +1,17 @@
-// Shared body of the decode kernels K7 (int4 pool), K11 (int4 flat) and K3
-// (bf16 pool): one launch over one layer's segment of context rows and the
-// bf16 tail of each kv head, with the flash-decoding merge inside the
-// launch. Three modes: int4 rows exact (EXACT) or in the int8-attention
-// mode (Q8), and bf16 rows (BF16, K3: no dequantization, 32-row items so
-// that a key group's three stages of K and V rows fit beside the others').
+// Shared body of the decode kernels K7 (int4 pool), K11 (int4 flat), K3
+// (bf16 pool) and K10 (bf16 flat): one launch over one layer's segment of
+// context rows and the bf16 tail of each kv head, with the flash-decoding
+// merge inside the launch. Three modes: int4 rows exact (EXACT) or in the
+// int8-attention mode (Q8), and bf16 rows (BF16, K3 and K10: no
+// dequantization, 32-row items so that a key group's three stages of K and
+// V rows fit beside the others').
+//
+// The segment: on the pool, the layer's rows [layer_off, + layer_rows); on
+// the flat layout, sequence sb's R_seg rows of the layer, of which only the
+// first seg_rows[layer][sb] are live (every flat build puts the kept rows
+// first and pads the rest with row_head -1), so the items stop there and no
+// padding tile is read; with no seg_rows every R_seg row is read and the
+// padding masked.
 //
 // Exact mode: keys as nibbles with scale and zero folded out of q.k in
 // float32 (q.x = scale (q.n) + zero sum(q)), values dequantized to bf16
@@ -192,6 +200,7 @@ struct Args {
   const int* row_head;
   const int* layer_off;                // pool: (L,) row offset and live rows; flat: null
   const int* layer_rows;
+  const int* seg_rows;                 // flat: (L, n_seq) live rows a segment, or null (R_seg)
   const bf16* k_tail;                  // pool (L, Hkv, Tcap, D); flat (n_seq Hkv, Tcap, D)
   const bf16* v_tail;
   const int* tail_lens;                // pool (Hkv,), flat (n_seq Hkv,), or null
@@ -605,7 +614,9 @@ __global__ void __launch_bounds__(NTHR, 1) int4_decode_kernel(const Args a) {
   const bool pool = a.layer_off != nullptr;
   const size_t base = pool ? static_cast<size_t>(a.layer_off[a.layer])
                            : (static_cast<size_t>(a.layer) * a.n_seq + sb) * a.R_seg;
-  const int n_rows = pool ? a.layer_rows[a.layer] : a.R_seg;
+  const int n_rows = pool ? a.layer_rows[a.layer]
+                   : a.seg_rows ? max(0, min(a.seg_rows[a.layer * a.n_seq + sb], a.R_seg))
+                                : a.R_seg;
   const int match = pool ? 0 : sb * a.Hkv;  // row_head of the sequence's kv head 0
   const size_t tail0 = pool ? static_cast<size_t>(a.layer) * a.Hkv : match;
   const int h_lo = r0 / GT, n_heads = (r0 + nrows - 1) / GT - h_lo + 1;
@@ -948,8 +959,8 @@ __global__ void __launch_bounds__(NTHR, 1) int4_decode_kernel(const Args a) {
 
 // Launch on `stream`: grid (rgs, S, n_seq) of NTHR threads, Ring<MODE>::SMEM
 // bytes of dynamic shared memory each. The wrapper plans it (ops/int4_decode.py):
-// with S > 1 the grid must fit the card at once. Static: K3, K7 and K11 are
-// three libraries in one process, and an inline function's local static
+// with S > 1 the grid must fit the card at once. Static: K3, K7, K10 and K11
+// are four libraries in one process, and an inline function's local static
 // would be one object for all (so a later library would skip setting its
 // own kernel's shared-memory limit); a template instantiates only the
 // modes its library launches.

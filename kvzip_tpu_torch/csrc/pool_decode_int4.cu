@@ -37,7 +37,7 @@ extern "C" int kvz_pool_decode_int4(const void* q, const void* k_pool, const voi
                                     void* part_acc, void* part_ml, void* tickets, int T, int H,
                                     int Hkv, int Tcap, int layer, int tail_len, int S, int mtc,
                                     int rgs, int q8, float scale, void* stream) {
-  i4d::Args a;
+  i4d::Args a = {};
   a.q = static_cast<const bf16*>(q);
   a.kq = static_cast<const uint8_t*>(k_pool);
   a.ks = static_cast<const float*>(k_s);
@@ -68,7 +68,6 @@ extern "C" int kvz_pool_decode_int4(const void* q, const void* k_pool, const voi
   a.mtc = mtc;
   a.rgs = rgs;
   a.scale = scale;
-  a.kb = a.vb = nullptr;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return q8 ? i4d::launch<i4d::Q8>(a, st) : i4d::launch<i4d::EXACT>(a, st);
 }

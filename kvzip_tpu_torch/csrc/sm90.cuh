@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks of the redesigned kernels (K1, K3, K4,
-// K5/K6's prefill form, K7, K8, K9, K11): mbarriers, TMA tensor loads, wgmma
-// descriptors and issue, ldmatrix, s8 mma and a cp.async ring, and the
-// host-side tensor-map encoder (reached through cudaGetDriverEntryPoint, so
-// no library beyond the CUDA runtime is linked).
+// Hopper (sm_90a) building blocks of the redesigned kernels (K1-K12,
+// K14-K16): mbarriers, TMA tensor and bulk loads, cluster barriers and
+// distributed shared memory, wgmma descriptors and issue, ldmatrix, s8 mma
+// and a cp.async ring, and the host-side tensor-map encoder (reached
+// through cudaGetDriverEntryPoint, so no library beyond the CUDA runtime is
+// linked).
 //
 // wgmma fragments (PTX ISA, "wgmma .m64nNk16"): warp w of the warpgroup
 // holds rows 16w..16w+15 of the 64-row tile; lane l holds rows l/4 and
@@ -112,6 +113,31 @@ __device__ __forceinline__ void fence_proxy_async_shared() {
 // __syncthreads'.
 __device__ __forceinline__ void named_bar(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------- clusters
+// barrier.cluster: every thread of every CTA of the cluster arrives (so
+// every thread calls these, in warp-uniform control flow); the wait
+// returns once all have arrived. arrive releases the thread's earlier
+// accesses, wait acquires the others'.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// v into the float at p in the shared memory of the cluster's CTA `rank`,
+// counted (4 bytes) on that CTA's mbarrier at the same address as `bar`.
+__device__ __forceinline__ void st_async_cluster(float* p, float v, uint64_t* bar,
+                                                 uint32_t rank) {
+  uint32_t rp, rb;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rp) : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(rb) : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(rp),
+               "r"(__float_as_uint(v)), "r"(rb)
+               : "memory");
 }
 
 // --------------------------------------------------------------------- TMA

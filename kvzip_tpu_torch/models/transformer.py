@@ -245,10 +245,10 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
                 attn = flat_decode_attend_int4(
                     q, cache.k_flat_q, cache.k_flat_s, cache.k_flat_z, cache.v_flat_q,
                     cache.v_flat_s, cache.v_flat_z, cache.row_head, *tail, scale=scale,
-                    q8=attn_q8, layer=l)
+                    q8=attn_q8, layer=l, seg_rows=cache.seg_rows)
             else:
                 attn = flat_decode_attend(q, cache.k_flat, cache.v_flat, cache.row_head,
-                                          *tail, scale=scale, layer=l)
+                                          *tail, scale=scale, layer=l, seg_rows=cache.seg_rows)
         elif is_pool:
             t0 = cache.tail_len
             cache.k_tail[l, :, t0:t0 + T] = k.transpose(0, 1)

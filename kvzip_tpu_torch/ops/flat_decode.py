@@ -2,15 +2,19 @@
 ``Engine(flat_decode="legacy")``).
 
 Port of ``kvzip_tpu/ops/flat_decode.py::flat_decode_attend`` (K10, bf16
-rows, ``csrc/flat_decode.cu``: split partials and a merge kernel) and
-``::flat_decode_attend_int4`` (K11, int4 rows, exact or ``q8``,
-``csrc/flat_decode_int4.cu``: K7's one launch with the merge inside,
-planned by ``ops/int4_decode.py``), with the
-reference's calling convention: stacked ``(L, ...)`` flat arrays plus a
-``layer`` index (or one layer's arrays and ``layer=None``), the layer's
-tail, ``tail_len`` one int or one per (sequence, kv head), and ``n_seq``
-sequences merged seq-major (query heads, flat rows and tails alike; each
-sequence's flat rows are an equal segment of ``R_pad // n_seq``).
+rows, ``csrc/flat_decode.cu``: K3's one launch, the bf16 mode of
+``csrc/int4_decode.cuh``) and ``::flat_decode_attend_int4`` (K11, int4
+rows, exact or ``q8``, ``csrc/flat_decode_int4.cu``: K7's one launch on
+the same body), each with the merge inside the launch and planned by
+``ops/int4_decode.py``, with the reference's calling convention: stacked
+``(L, ...)`` flat arrays plus a ``layer`` index (or one layer's arrays and
+``layer=None``), the layer's tail, ``tail_len`` one int or one per
+(sequence, kv head), and ``n_seq`` sequences merged seq-major (query
+heads, flat rows and tails alike; each sequence's flat rows are an equal
+segment of ``R_pad // n_seq``). ``seg_rows`` (the flat caches'
+``seg_rows``), where given, is each (layer, sequence) segment's count of
+live rows, which come first in it: the kernels read no row past it. The
+plain versions mask the padding and need no count.
 
 Semantics: query row ``r`` of sequence ``sb`` (head-major, ``r = h * T + i``)
 belongs to kv head ``(r // T) // G + sb * Hkv``; a flat row is visible iff
@@ -31,11 +35,10 @@ from kvzip_tpu_torch.ops import (LAUNCHES, attention, check_kernel_args, int4_de
                                  on_cuda, sm_count, stream_ptr)
 from kvzip_tpu_torch.ops.attention import Q8_TILE, attend_int4_q8
 from kvzip_tpu_torch.ops.quant import dequantize_int4
-from kvzip_tpu_torch.ops.ragged_decode import split_size
 
-_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float,
+_ARGS = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [ctypes.c_float,
                                                        ctypes.c_void_p]
-_ARGS_INT4 = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 12 + [ctypes.c_float,
+_ARGS_INT4 = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 12 + [ctypes.c_float,
                                                              ctypes.c_void_p]
 TailLen = Union[int, torch.Tensor]
 
@@ -81,7 +84,7 @@ def _layer(layer, *arrays):
 
 
 def flat_decode_attend_plain(q, k_flat, v_flat, row_head, k_tail, v_tail, tail_len,
-                             *, scale, n_seq=1, layer=None):
+                             *, scale, n_seq=1, layer=None, seg_rows=None):
     k_flat, v_flat, row_head = _layer(layer, k_flat, v_flat, row_head)
 
     def attend(qr, seg, visible, hg, tail_ok):
@@ -93,8 +96,8 @@ def flat_decode_attend_plain(q, k_flat, v_flat, row_head, k_tail, v_tail, tail_l
 
 def flat_decode_attend_int4_plain(q, k_flat_q, k_flat_s, k_flat_z, v_flat_q, v_flat_s,
                                   v_flat_z, row_head, k_tail, v_tail, tail_len, *, scale,
-                                  q8=False, n_seq=1, layer=None, block=Q8_TILE,
-                                  with_slack=False):
+                                  q8=False, n_seq=1, layer=None, seg_rows=None,
+                                  block=Q8_TILE, with_slack=False):
     """Exact: the visible rows dequantized in float32, then K10's plain
     attention. ``q8``: ``attention.attend_int4_q8`` over the sequence's
     segment, p quantized per ``block`` rows from the segment's row 0; with
@@ -143,62 +146,67 @@ def tail_arg(tail_len: TailLen, n_heads: int, T: int, Tcap: int, device,
     return None, scalar
 
 
-def _launch_geometry(q, k_tail, rows_total, n_seq, layer, L, what, tail_len):
-    """Shared checks and geometry of K10/K11: (T, H_all, Hkv, Tcap, R_seg,
-    tail pointer, tail scalar, layer), Hkv per sequence."""
+def _launch_geometry(q, k_tail, rows_total, n_seq, layer, L, what, tail_len, seg_rows):
+    """Shared checks and geometry of K10/K11's launch: (T, H_all, Hkv, Tcap,
+    R_seg, tail pointer, tail scalar, seg_rows pointer, layer), Hkv per
+    sequence."""
     T, H_all, D = q.shape
     Hkv_all, Tcap, _ = k_tail.shape
+    stacked = layer is not None
     layer = 0 if layer is None else int(layer)
     if n_seq < 1 or H_all % n_seq or Hkv_all % n_seq or (H_all // n_seq) % (Hkv_all // n_seq) \
             or rows_total % n_seq or not 0 <= layer < L:
         raise ValueError(f"{what}: bad shapes q {tuple(q.shape)} tail {tuple(k_tail.shape)} "
                          f"rows {rows_total} n_seq {n_seq} layer {layer}")
+    if seg_rows is not None and (
+            seg_rows.shape != ((L, n_seq) if stacked else (n_seq,))
+            or seg_rows.dtype != torch.int32 or seg_rows.device != q.device
+            or not seg_rows.is_contiguous()):
+        raise ValueError(f"{what}: seg_rows must be {(L, n_seq) if stacked else (n_seq,)} "
+                         f"int32 on {q.device}, got {tuple(seg_rows.shape)} {seg_rows.dtype}")
     lens_t, scalar = tail_arg(tail_len, Hkv_all, T, Tcap, q.device, what)
     return (T, H_all, Hkv_all // n_seq, Tcap, rows_total // n_seq,
-            lens_t.data_ptr() if lens_t is not None else None, scalar, layer)
-
-
-def _scratch(q, Hkv_all, S_seg, R):
-    D = q.shape[-1]
-    return (torch.empty((Hkv_all, S_seg + 1, R, D), dtype=torch.float32, device=q.device),
-            torch.empty((Hkv_all, S_seg + 1, R, 2), dtype=torch.float32, device=q.device))
+            lens_t.data_ptr() if lens_t is not None else None, scalar,
+            seg_rows.data_ptr() if seg_rows is not None else None, layer)
 
 
 def flat_decode_attend(q: torch.Tensor, k_flat: torch.Tensor, v_flat: torch.Tensor,
                        row_head: torch.Tensor, k_tail: torch.Tensor, v_tail: torch.Tensor,
                        tail_len: TailLen, *, scale: float, n_seq: int = 1,
-                       layer: Optional[int] = None) -> torch.Tensor:
+                       layer: Optional[int] = None,
+                       seg_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (T, n_seq*H, D); k_flat/v_flat ([L,] R_pad, D); row_head ([L,]
     R_pad) int32 (-1 padding); k_tail/v_tail (n_seq*Hkv, Tcap, D), this
     layer's, with this step's T rows already written at ``tail_len``;
-    ``layer`` selects the layer of stacked flat arrays -> (T, n_seq*H, D)."""
+    ``layer`` selects the layer of stacked flat arrays; ``seg_rows`` ([L,]
+    n_seq) int32, the live rows a segment -> (T, n_seq*H, D)."""
     if not on_cuda(q, k_flat, v_flat, row_head, k_tail, v_tail):
         return flat_decode_attend_plain(q, k_flat, v_flat, row_head, k_tail, v_tail, tail_len,
                                         scale=scale, n_seq=n_seq, layer=layer)
-    check_kernel_args("flat_decode_attend",
-                      dict(q=q, k_flat=k_flat, v_flat=v_flat, k_tail=k_tail, v_tail=v_tail),
-                      dict(row_head=row_head))
+    what = "flat_decode_attend"
+    check_kernel_args(what, dict(q=q, k_flat=k_flat, v_flat=v_flat, k_tail=k_tail,
+                                 v_tail=v_tail), dict(row_head=row_head))
     stacked = layer is not None
     if k_flat.dim() != 2 + stacked or v_flat.shape != k_flat.shape \
             or row_head.shape != k_flat.shape[:-1] or v_tail.shape != k_tail.shape:
-        raise ValueError(f"flat_decode_attend: bad shapes flat {tuple(k_flat.shape)} "
+        raise ValueError(f"{what}: bad shapes flat {tuple(k_flat.shape)} "
                          f"row_head {tuple(row_head.shape)} tail {tuple(k_tail.shape)}")
     L = k_flat.shape[0] if stacked else 1
-    (T, H_all, Hkv, Tcap, R_seg, lens_ptr, scalar,
-     layer) = _launch_geometry(q, k_tail, k_flat.shape[-2], n_seq, layer, L,
-                               "flat_decode_attend", tail_len)
-    ch = split_size(R_seg, -(-(H_all // (n_seq * Hkv)) * T // 64), target=512)
-    S_seg = -(-R_seg // ch)
+    (T, H_all, Hkv, Tcap, R_seg, lens_ptr, scalar, seg_ptr,
+     layer) = _launch_geometry(q, k_tail, k_flat.shape[-2], n_seq, layer, L, what, tail_len,
+                               seg_rows)
+    mtc, groups, S = int4_decode.plan(H_all // n_seq * T, n_seq, R_seg, sm_count(q.device),
+                                      int4_decode.BF_TILE)
     out = torch.empty_like(q)
-    part_acc, part_ml = _scratch(q, n_seq * Hkv, S_seg, H_all // (n_seq * Hkv) * T)
+    part_acc, part_ml, tickets = int4_decode.scratch(q.device, what, n_seq, groups, S, mtc)
     with torch.cuda.device(q.device):
         fn = _build.kernel("flat_decode", "kvz_flat_decode", _ARGS)
-        _build.check(fn(q.data_ptr(), k_flat.data_ptr(), v_flat.data_ptr(),
-                        row_head.data_ptr(), k_tail.data_ptr(), v_tail.data_ptr(), lens_ptr,
-                        out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(), T, H_all,
-                        Hkv, n_seq, Tcap, layer, R_seg, scalar, ch, S_seg, scale,
-                        stream_ptr(q.device)), "flat_decode_attend")
-    LAUNCHES["flat_decode_attend"] += 1
+        _build.check(fn(q.data_ptr(), k_flat.data_ptr(), v_flat.data_ptr(), row_head.data_ptr(),
+                        seg_ptr, k_tail.data_ptr(), v_tail.data_ptr(), lens_ptr, out.data_ptr(),
+                        part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(), T, H_all,
+                        Hkv, n_seq, Tcap, layer, R_seg, scalar, S, mtc, groups, scale,
+                        stream_ptr(q.device)), what)
+    LAUNCHES[what] += 1
     return out
 
 
@@ -207,8 +215,8 @@ def flat_decode_attend_int4(q: torch.Tensor, k_flat_q: torch.Tensor, k_flat_s: t
                             v_flat_s: torch.Tensor, v_flat_z: torch.Tensor,
                             row_head: torch.Tensor, k_tail: torch.Tensor,
                             v_tail: torch.Tensor, tail_len: TailLen, *, scale: float,
-                            q8: bool = False, n_seq: int = 1,
-                            layer: Optional[int] = None) -> torch.Tensor:
+                            q8: bool = False, n_seq: int = 1, layer: Optional[int] = None,
+                            seg_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """As :func:`flat_decode_attend` over int4 rows: k/v_flat_q ([L,] R_pad,
     D//2) uint8 split-packed, k/v_flat_s/z ([L,] R_pad) float32. ``q8``:
     the int8-attention mode (``attention.attend_int4_q8``)."""
@@ -231,16 +239,18 @@ def flat_decode_attend_int4(q: torch.Tensor, k_flat_q: torch.Tensor, k_flat_s: t
         raise ValueError(f"{what}: bad shapes flat {tuple(k_flat_q.shape)} "
                          f"row_head {tuple(rows_shape)} tail {tuple(k_tail.shape)}")
     L = rows_shape[0] if stacked else 1
-    (T, H_all, Hkv, Tcap, R_seg, lens_ptr, scalar,
-     layer) = _launch_geometry(q, k_tail, rows_shape[-1], n_seq, layer, L, what, tail_len)
+    (T, H_all, Hkv, Tcap, R_seg, lens_ptr, scalar, seg_ptr,
+     layer) = _launch_geometry(q, k_tail, rows_shape[-1], n_seq, layer, L, what, tail_len,
+                               seg_rows)
     mtc, groups, S = int4_decode.plan(H_all // n_seq * T, n_seq, R_seg, sm_count(q.device))
     out = torch.empty_like(q)
     part_acc, part_ml, tickets = int4_decode.scratch(q.device, what, n_seq, groups, S, mtc)
     with torch.cuda.device(q.device):
         fn = _build.kernel("flat_decode_int4", "kvz_flat_decode_int4", _ARGS_INT4)
-        _build.check(fn(*[a.data_ptr() for a in (q, *flat, row_head, k_tail, v_tail)],
-                        lens_ptr, out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
-                        tickets.data_ptr(), T, H_all, Hkv, n_seq, Tcap, layer, R_seg, scalar,
-                        S, mtc, groups, int(q8), scale, stream_ptr(q.device)), what)
+        _build.check(fn(*[a.data_ptr() for a in (q, *flat, row_head)], seg_ptr,
+                        k_tail.data_ptr(), v_tail.data_ptr(), lens_ptr, out.data_ptr(),
+                        part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(), T, H_all,
+                        Hkv, n_seq, Tcap, layer, R_seg, scalar, S, mtc, groups, int(q8), scale,
+                        stream_ptr(q.device)), what)
     LAUNCHES["flat_decode_attend_int4_q8" if q8 else "flat_decode_attend_int4"] += 1
     return out

@@ -12,6 +12,12 @@ Both compute in float32 throughout, with no rounding to the model dtype
 between the norm (or activation) and the quantization:
 ``s = amax(|h|) / 127 + 1e-8`` and ``q = clamp(round(h / s), -127, 127)``,
 round half to even. Both return (int8 (T, W), float32 scales (T, 1)).
+
+K14's kernel has two forms, which :func:`plan` picks and the CUDA entry
+takes as given: at small T a row is split over a cluster of C CTAs (each
+warp's maximum pushed into every CTA's shared memory), at large T one CTA
+a row stages gate and up in shared memory. :func:`cta_vectors` gives
+the 16-byte vectors each thread of either form takes.
 """
 
 from __future__ import annotations
@@ -23,15 +29,54 @@ import torch
 import torch.nn.functional as F
 
 from kvzip_tpu_torch import _build
-from kvzip_tpu_torch.ops import LAUNCHES, check_kernel_args, on_cuda, stream_ptr
+from kvzip_tpu_torch.ops import (LAUNCHES, check_kernel_args, check_tma_aligned, on_cuda,
+                                 sm_count, stream_ptr)
 
 EPS = 1e-8
 ACTS = ("silu", "gelu_pytorch_tanh")
-MAX_WIDTH = 32768  # the widest row the kernels hold in registers
+MAX_WIDTH = 32768  # the widest row the kernels take (K13 in registers)
+
+VEC = 8            # elements a 16-byte vector (csrc/fused_act.cu VEC)
+CL_MAX = 16        # K14: CTAs a cluster, at most (above 8 non-portable)
+CL_MIN_VECS = 32   # K14: vectors a CTA of the cluster form, at least
+CL_THREADS = 256   # K14: threads a CTA of the cluster form, at most
+CL_VPT = 4         # K14: vectors a thread of the cluster form, at most
+RF_THREADS = 512   # K14: threads a CTA of the row form
 
 _ARGS_NORM = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-_ARGS_ACT = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGS_ACT = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def plan(T: int, F: int, sms: int) -> Tuple[int, int]:
+    """K14's form for T rows of width F on ``sms`` SMs: (C, threads a CTA).
+    C > 0 is the cluster form, each row split over C CTAs: 16 while the
+    16 T CTAs fill at most half the SMs, else 8 or 4 while C T CTAs stay
+    within three an SM (measured on the H100 at F 14,336: clusters of 16
+    and 8 tie at T 1-4, 8 wins from T 8 to 48, 4 at T 64 and 96; the row
+    form ties 4 at T 100 and loses to it by 7% at 128), each CTA with at
+    least ``CL_MIN_VECS`` vectors and its threads at most ``CL_VPT`` each.
+    Otherwise (C = 0) the row form: one CTA of ``RF_THREADS`` a row."""
+    nvec = F // VEC
+    for C, ctas in ((CL_MAX, sms // 2), (8, 3 * sms), (4, 3 * sms)):
+        per = -(-nvec // C)
+        if T * C <= ctas and CL_MIN_VECS <= per <= CL_THREADS * CL_VPT:
+            return C, min(CL_THREADS, -(-per // 32) * 32)
+    return 0, RF_THREADS
+
+
+def cta_vectors(F: int, C: int, nthr: int) -> list:
+    """The 16-byte vectors of a row each thread takes, as the kernel's forms
+    index them: [CTA][thread] -> vector indices. Cluster form (C > 0): CTA c
+    takes [c * per, min(nvec, (c + 1) * per)), per = ceil(nvec / C), its
+    thread t the slice's vectors t, t + nthr, ...; row form (C = 0): one
+    CTA, thread t the vectors t, t + nthr, ..."""
+    nvec = F // VEC
+    if C == 0:
+        return [[list(range(t, nvec, nthr)) for t in range(nthr)]]
+    per = -(-nvec // C)
+    return [[list(range(min(nvec, c * per + t), min(nvec, (c + 1) * per), nthr))
+             for t in range(nthr)] for c in range(C)]
 
 
 def _quantize_rows(h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -99,13 +144,20 @@ def silu_mul_quant(gate: torch.Tensor, up: torch.Tensor, act: str = "silu"
     if not on_cuda(gate, up):
         return silu_mul_quant_plain(gate, up, act)
     _check_rows("silu_mul_quant", gate=gate, up=up)
+    check_tma_aligned("silu_mul_quant", gate=gate, up=up)
+    T, Fw = gate.shape
+    return _launch_act(gate, up, act, *plan(T, Fw, sm_count(gate.device)))
+
+
+def _launch_act(gate, up, act, C, nthr):
+    """One K14 launch in the given form (``plan``'s (C, threads))."""
     T, Fw = gate.shape
     q = torch.empty((T, Fw), dtype=torch.int8, device=gate.device)
     s = torch.empty((T, 1), dtype=torch.float32, device=gate.device)
     with torch.cuda.device(gate.device):
         fn = _build.kernel("fused_act", "kvz_silu_mul_quant", _ARGS_ACT)
         _build.check(fn(gate.data_ptr(), up.data_ptr(), q.data_ptr(), s.data_ptr(),
-                        T, Fw, ACTS.index(act), stream_ptr(gate.device)),
+                        T, Fw, ACTS.index(act), C, nthr, stream_ptr(gate.device)),
                      "silu_mul_quant")
     LAUNCHES["silu_mul_quant"] += 1
     return q, s

@@ -1,15 +1,19 @@
-"""The launch plan of K7, K11 and K3 (``csrc/int4_decode.cuh``), shared by
-:func:`pool_decode.pool_decode_attend_int4`,
-:func:`flat_decode.flat_decode_attend_int4` and
-:func:`pool_decode.pool_decode_attend`.
+"""The launch plan of K7, K11, K3 and K10 (``csrc/int4_decode.cuh``),
+shared by :func:`pool_decode.pool_decode_attend_int4`,
+:func:`flat_decode.flat_decode_attend_int4`,
+:func:`pool_decode.pool_decode_attend` and
+:func:`flat_decode.flat_decode_attend`.
 
 One launch a call, grid (row groups, S splits, sequences) of 8-warp CTAs.
 A row group holds ``16 * mtc`` of a sequence's query rows (all its kv
 heads x G x T, head-major); its CTAs split the sequence's work items (the
-segment's 64-row tiles, 32-row tiles of bf16 rows for K3, then 16-row tiles
-of the row group's kv heads' tails) over S CTAs, each CTA writes one partial, and once all S are
-counted every CTA merges an equal slice of the output. The functions
-here mirror the kernel's arithmetic so that the CPU tests can hold it.
+segment's 64-row tiles, 32-row tiles of bf16 rows for K3 and K10, then
+16-row tiles of the row group's kv heads' tails) over S CTAs, each CTA
+writes one partial, and once all S are counted every CTA merges an equal
+slice of the output. The plan is made from the largest segment (the pool's
+``max_rows``, the flat layout's ``R_seg``), with no read of the device; the
+kernel's items stop at the segment's live rows. The functions here mirror
+the kernel's arithmetic so that the CPU tests can hold it.
 """
 
 from __future__ import annotations

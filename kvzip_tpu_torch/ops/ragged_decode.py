@@ -28,15 +28,6 @@ SPLIT_ALIGN = 16    # split lengths are multiples of a warp's 16-key tile
 MERGE_FLOATS = 34816  # a merging CTA's staging (split_decode.cuh REGION / 4)
 
 
-def split_size(n_keys: int, groups: int, target: int = 1024) -> int:
-    """Keys per flash-decoding split: the smallest power-of-two multiple of
-    the 64-key tile that keeps the grid near ``target`` CTAs."""
-    ch = 64
-    while groups * -(-n_keys // ch) > target and ch < 1 << 16:
-        ch *= 2
-    return ch
-
-
 def merge_floats(rows: int, S: int) -> int:
     """The floats a merging CTA stages (``split_decode.cuh``'s launch
     check): the (m, l) rows and weights of its row group's ``min(rows,

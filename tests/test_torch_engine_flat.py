@@ -115,6 +115,25 @@ def test_legacy_flat_greedy_tokens_and_refold_match_reference(pruned):
     assert teng.generate(QUERY_Q, tst) == jeng.generate(QUERY_Q, jst)
 
 
+def test_legacy_flat_forward_passes_live_rows(pruned, monkeypatch):
+    """forward gives K10 each layer's live rows (``seg_rows``, the count of
+    row_head >= 0) at every call, and the greedy tokens with it are the
+    reference's (after the refold above, on the refolded rows)."""
+    from kvzip_tpu_torch.models import transformer
+
+    jeng, teng, jst, tst = pruned
+    seen, real = [], transformer.flat_decode_attend
+
+    def spy(*args, **kw):
+        seen.append(kw["seg_rows"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(transformer, "flat_decode_attend", spy)
+    assert teng.generate(QUERY_Q, tst) == jeng.generate(QUERY_Q, jst)
+    want = (tst.cache.row_head >= 0).sum(-1, keepdim=True).to(torch.int32)
+    assert seen and all(torch.equal(s, want) for s in seen)
+
+
 def test_flatten_full_and_synthetic_full_flat(tree):
     """flatten_full keeps every row: its next-token probabilities equal the
     dense cache's; the synthetic full flat caches (every layer padded to

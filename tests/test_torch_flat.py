@@ -274,3 +274,37 @@ def test_refold_flat_matches_reference(dense, int4):
                             tail_len=jnp.int32(6))
     _same_flat(cache.refold_flat(t, 256), jax.device_get(jcache.refold_flat(j, 256)),
                scale_rtol=2.0 ** -23 if int4 else 0.0)
+
+
+def _live_rows_first(c):
+    """seg_rows is (L, 1) int32, each layer's count of row_head >= 0, and
+    those rows are the layer's first (where the kernels stop reading)."""
+    live = (c.row_head >= 0).sum(-1, keepdim=True)
+    assert c.seg_rows.dtype == torch.int32 and c.seg_rows.shape == (c.row_head.shape[0], 1)
+    assert torch.equal(c.seg_rows, live.to(torch.int32))
+    assert torch.equal(c.row_head >= 0, torch.arange(c.row_head.shape[1])[None] < live)
+
+
+@pytest.mark.parametrize("build", ["bf16", "int4", "stepped", "refold", "refold-int4",
+                                   "synthetic", "synthetic-int4"])
+def test_flat_builds_store_live_rows(dense, build):
+    """Every flat build stores each layer's live rows (``seg_rows``)."""
+    tk, _, t4, _, keep = dense
+    kw = (torch.from_numpy(keep), CFG["sink"], 192, 8)
+    if build.startswith("synthetic"):
+        c = cache.synthetic_full_flat(CFG["L"], CFG["H"], D, 100, 256, 8, torch.float32, "cpu",
+                                      int4=build.endswith("int4"))
+        assert torch.equal(c.seg_rows, torch.full((CFG["L"], 1), CFG["H"] * 100,
+                                                  dtype=torch.int32))
+    elif build == "stepped":
+        c = cache.build_flat_int4_stepped(dataclasses.replace(t4), *kw, torch.float32)
+    elif build in ("int4", "refold-int4"):
+        c = cache.build_flat_int4(t4, *kw, torch.float32)
+    else:
+        c = cache.build_flat(tk, *kw)
+    if build.startswith("refold"):
+        _live_rows_first(c)
+        c = dataclasses.replace(c, k_tail=torch.randn(c.k_tail.shape),
+                                v_tail=torch.randn(c.v_tail.shape), tail_len=6)
+        c = cache.refold_flat(c, 256)
+    _live_rows_first(c)

@@ -1,11 +1,12 @@
-"""The launch plan of K7, K11 and K3 (``kvzip_tpu_torch/ops/int4_decode.py``),
+"""The launch plan of K7, K11, K3 and K10 (``kvzip_tpu_torch/ops/int4_decode.py``),
 which mirrors the arithmetic of ``csrc/int4_decode.cuh``: the grid fits the
 card whenever its CTAs wait for each other, every row of a segment and of
 each kv head's visible tail lies in exactly one work item, segment items
 start on the 64-row q8 tiles of the segment's row 0, the merge slices
 cover the output once, and the schedule (items interleaved over the CTAs,
-an online softmax a split, the partials merged) reproduces K7's and K11's
-plain versions. The schedule is emulated in float64 on dequantized rows,
+an online softmax a split, the partials merged) reproduces K7's, K11's,
+K3's and K10's plain versions (K10's with its items cut at each segment's
+live rows). The schedule is emulated in float64 on dequantized rows,
 so the tolerance is float32 rounding of the plain versions: rtol = atol =
 1e-5, as ``test_torch_ops.py`` holds K3's plain version.
 """
@@ -74,15 +75,18 @@ def _rand_int4(gen, *shape):
 
 
 def _emulate(q, seg_k, seg_v, rh, match, kt, vt, tails, T, G, Hkv, scale, sms,
-             row_tile=int4_decode.ROW_TILE):
+             row_tile=int4_decode.ROW_TILE, plan_rows=None, n_seq=1):
     """One sequence through the kernel's schedule in float64: every row
     group's items split over S CTAs, each CTA's online softmax over its
     items, the S partials merged. seg_k/seg_v (n, D) dequantized rows with
     kv heads rh (n,) (``match`` added to the sequence's kv head index);
-    kt/vt (Hkv, Tcap, D); tails one length a kv head. Returns (G*T*Hkv, D)
-    rows, head-major."""
+    kt/vt (Hkv, Tcap, D); tails one length a kv head. The launch is planned
+    for ``n_seq`` sequences and segments of ``plan_rows`` rows (default n),
+    as a flat wrapper plans it from R_seg while the kernel's items stop at
+    the segment's n live rows. Returns (G*T*Hkv, D) rows, head-major."""
     rows, Tcap = Hkv * G * T, kt.shape[1]
-    mtc, groups, S = int4_decode.plan(rows, 1, max(seg_k.shape[0], 1), sms, row_tile)
+    mtc, groups, S = int4_decode.plan(rows, n_seq, max(plan_rows or seg_k.shape[0], 1), sms,
+                                      row_tile)
     qr = torch.stack([q[r % T, (r // T)] for r in range(rows)]).double()  # (rows, D)
     out = torch.empty(rows, D, dtype=torch.float64)
     for rg in range(groups):
@@ -239,3 +243,39 @@ def test_schedule_reproduces_k3_plain(T, Hkv, G, rows):
     got = _emulate(q, kp[off:off + rows], vp[off:off + rows], rh[off:off + rows], 0, kt[0],
                    vt[0], tails, T, G, Hkv, D ** -0.5, SMS, int4_decode.BF_TILE)
     torch.testing.assert_close(_to_out(got, T, H), want, **TOL)
+
+
+@pytest.mark.parametrize("n_seq", [1, 2])
+@pytest.mark.parametrize("T", [1, 24])
+def test_schedule_reproduces_k10_plain(n_seq, T):
+    """K10's schedule (K3's: 32-row bf16 items, interleaved, merged) on a
+    padded flat stack, planned from R_seg with the items cut at each
+    segment's live rows (``cache.live_rows``), against its plain version
+    over the whole padded segment: the padding rows (large values, row_head
+    -1) change nothing. Sequence 1's rows carry kv head ids Hkv ...; one
+    tail length a (sequence, kv head), one of them 0."""
+    from kvzip_tpu_torch.cache import live_rows
+
+    gen = torch.Generator().manual_seed(100 + 10 * n_seq + T)
+    Hkv, G, R_seg, Tcap = 3, 2, 640, 48
+    H = Hkv * G
+    rh = torch.full((n_seq * R_seg,), -1, dtype=torch.int32)
+    for sb, n in enumerate((301, 517)[:n_seq]):
+        rh[sb * R_seg:sb * R_seg + n] = torch.randint(0, Hkv, (n,), generator=gen,
+                                                      dtype=torch.int32).sort().values + sb * Hkv
+    k, v = torch.randn(n_seq * R_seg, D, generator=gen), torch.randn(n_seq * R_seg, D,
+                                                                     generator=gen)
+    k[rh < 0], v[rh < 0] = 1e4, -1e4
+    q = torch.randn(T, n_seq * H, D, generator=gen)
+    kt, vt = (torch.randn(n_seq * Hkv, Tcap, D, generator=gen) for _ in range(2))
+    tails = torch.tensor([0, 5, 17, 9, 24, 3][:n_seq * Hkv], dtype=torch.int32)
+    want = flat_decode.flat_decode_attend_plain(q, k, v, rh, kt, vt, tails, scale=D ** -0.5,
+                                                n_seq=n_seq)
+    live = live_rows(rh.view(n_seq, R_seg))[:, 0].tolist()
+    for sb in range(n_seq):
+        seg = slice(sb * R_seg, sb * R_seg + live[sb])
+        heads = slice(sb * Hkv, (sb + 1) * Hkv)
+        got = _emulate(q[:, sb * H:(sb + 1) * H], k[seg], v[seg], rh[seg], sb * Hkv, kt[heads],
+                       vt[heads], tails[heads].tolist(), T, G, Hkv, D ** -0.5, SMS,
+                       int4_decode.BF_TILE, plan_rows=R_seg, n_seq=n_seq)
+        torch.testing.assert_close(_to_out(got, T, H), want[:, sb * H:(sb + 1) * H], **TOL)

@@ -25,6 +25,10 @@ on at most 1e-3 of the elements, their scales to 1e-5 relative
 (``ops.quant_parity``: the kernels' sums and rsqrtf/expf/tanhf differ from
 PyTorch's in the last bits, which moves a value on a rounding boundary
 one step).
+K10 and K11 (both modes) are also held with each segment's live rows
+(``seg_rows``) on padding-heavy stacks, where a count short of the live
+rows must give the reference without the rows past it; K14 in both its
+forms (clusters at small T, one CTA a row at large T) at four row widths.
 K12 (the fused W4A8 decode layer) goes through ``parity`` with the output
 rtol on both outputs: its chained s8 quantizations may flip a value at a
 rounding boundary, which moves later sums by one s8 step of one input;
@@ -1290,3 +1294,180 @@ def test_flash_int4_decode_graph(gen):
     assert torch.equal(eager, replay)
     assert _ok(replay, flash_int4.flash_attend_int4_plain(q.float(), *kv, lens,
                                                           scale=D ** -0.5))
+
+
+def _flat_live_stack(gen, L, n_seq, Hkv, R_seg):
+    """A padding-heavy flat stack: layer 0 holds no live row, layer 1 every
+    row of each segment, the others 1,000 + 37 sb rows (kv head runs of
+    random lengths, so head boundaries fall inside 32-row tiles), each
+    segment's live rows first. -> row_head (L, n_seq R_seg) and the live
+    rows a segment (L, n_seq), on the card."""
+    rh = torch.full((L, n_seq * R_seg), -1, dtype=torch.int32)
+    live = torch.zeros((L, n_seq), dtype=torch.int32)
+    for l in range(1, L):
+        for sb in range(n_seq):
+            n = R_seg if l == 1 else 1000 + 37 * sb
+            cuts = torch.randint(0, n + 1, (Hkv - 1,), generator=gen).sort().values
+            counts = torch.diff(torch.cat([torch.tensor([0]), cuts, torch.tensor([n])]))
+            rh[l, sb * R_seg:sb * R_seg + n] = torch.repeat_interleave(
+                torch.arange(Hkv, dtype=torch.int32) + sb * Hkv, counts)
+            live[l, sb] = n
+    return rh.cuda(), live.cuda()
+
+
+def _flat_case(gen, kind, n_seq, T, L=3, R_seg=2048, H=28, Hkv=4, Tcap=64):
+    """(run(row_head, layer, seg_rows), plain(row_head, layer) -> (out,
+    slack), launch key, row_head, live rows) of K10, K11 or K11-q8 on a
+    ``_flat_live_stack``; n_seq 2 takes a tail vector with a 0 in it."""
+    from kvzip_tpu_torch.ops import flat_decode
+
+    rh, live = _flat_live_stack(gen, L, n_seq, Hkv, R_seg)
+    q = _rn(gen, T, n_seq * H, D)
+    kt, vt = _rn(gen, n_seq * Hkv, Tcap, D), _rn(gen, n_seq * Hkv, Tcap, D)
+    tl = (torch.tensor([0, 9, Tcap - T, 23] * n_seq, dtype=torch.int32, device="cuda")
+          if n_seq > 1 else 7)
+    kw = dict(scale=D ** -0.5, n_seq=n_seq)
+    if kind == "bf16":
+        k, v = _rn(gen, L, n_seq * R_seg, D), _rn(gen, L, n_seq * R_seg, D)
+
+        def run(r, layer, seg):
+            return flat_decode.flat_decode_attend(q, k, v, r, kt, vt, tl, layer=layer,
+                                                  seg_rows=seg, **kw)
+
+        def plain(r, layer):
+            return flat_decode.flat_decode_attend_plain(
+                q.float(), k.float(), v.float(), r, kt.float(), vt.float(), tl, layer=layer,
+                **kw), None
+        return run, plain, "flat_decode_attend", rh, live
+    q8 = kind == "int4_q8"
+    kq, ks, kz = _quant(gen, L, n_seq * R_seg)
+    vq, vs, vz = _quant(gen, L, n_seq * R_seg)
+    flat = (kq, ks.float(), kz.float(), vq, vs.float(), vz.float())
+
+    def run(r, layer, seg):
+        return flat_decode.flat_decode_attend_int4(q, *flat, r, kt, vt, tl, q8=q8, layer=layer,
+                                                   seg_rows=seg, **kw)
+
+    def plain(r, layer):
+        out = flat_decode.flat_decode_attend_int4_plain(
+            q.float(), *flat, r, kt.float(), vt.float(), tl, q8=q8, layer=layer,
+            with_slack=q8, **kw)
+        return out if q8 else (out, None)
+    return run, plain, ("flat_decode_attend_int4_q8" if q8 else "flat_decode_attend_int4"), \
+        rh, live
+
+
+# K10, K11 and K11-q8 given each segment's live rows (seg_rows) on a
+# padding-heavy stack (a layer with no live row, one with every row live),
+# n_seq 1 (one tail length) and 2 (a tail vector with a 0), T 1, 4, 24 and
+# 25. The reference with one 32-row tile of layer 2 dropped must fail.
+@pytest.mark.parametrize("kind", ["bf16", "int4", "int4_q8"])
+@pytest.mark.parametrize("n_seq", [1, 2])
+@pytest.mark.parametrize("T", [1, 4, 24, 25])
+def test_flat_decode_live_rows(gen, kind, n_seq, T):
+    run, plain, name, rh, live = _flat_case(gen, kind, n_seq, T)
+    for layer in range(rh.shape[0]):
+        got = run(rh, layer, live)
+        want, slack = plain(rh, layer)
+        assert _ok(got, want, slack=slack)
+    rh_drop = rh.clone()
+    rh_drop[2, 64:96] = -1
+    drop, slack = plain(rh_drop, 2)
+    assert not parity(got, drop, OUT_RTOL, slack)["ok"]
+    assert LAUNCHES[name] == rh.shape[0] and sum(LAUNCHES.values()) == rh.shape[0]
+
+
+# The kernels read no row past seg_rows: given a count 45 rows short of
+# layer 2's live rows, they equal the reference without those rows (and
+# not the reference with them).
+@pytest.mark.parametrize("kind", ["bf16", "int4", "int4_q8"])
+@pytest.mark.parametrize("n_seq", [1, 2])
+def test_flat_decode_stops_at_seg_rows(gen, kind, n_seq):
+    run, plain, name, rh, live = _flat_case(gen, kind, n_seq, 1)
+    short = live.clone()
+    short[2] -= 45
+    got = run(rh, 2, short)
+    rh_cut = rh.clone()
+    R_seg = rh.shape[1] // n_seq
+    for sb in range(n_seq):
+        n = int(live[2, sb])
+        rh_cut[2, sb * R_seg + n - 45:sb * R_seg + n] = -1
+    want, slack = plain(rh_cut, 2)
+    assert _ok(got, want, slack=slack)
+    full, slack = plain(rh, 2)
+    assert not parity(got, full, OUT_RTOL, slack)["ok"]
+    assert LAUNCHES[name] == 1
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int4"])
+def test_flat_decode_repeat_and_graph(gen, kind):
+    """K10 (and K11 on the same branch) with seg_rows and a tail vector:
+    repeated calls give the same bits (each launch leaves its tickets at
+    zero for the next), and a CUDA-graph replay equals the eager call."""
+    run_, plain, name, rh, live = _flat_case(gen, kind, 2, 4)
+
+    def run():
+        return run_(rh, 2, live)
+
+    first, second, third = run(), run(), run()
+    assert torch.equal(first, second) and torch.equal(first, third)
+    eager, replay = _graph_replay(run)
+    assert torch.equal(eager, replay) and torch.equal(first, replay)
+    assert _ok(replay, plain(rh, 2)[0])
+
+
+def test_flat_decode_rejects_bad_seg_rows(gen):
+    """seg_rows of another shape, dtype or device raises before a launch."""
+    run, _, _, rh, live = _flat_case(gen, "bf16", 1, 1)
+    for bad in (live[0], live.long(), live.cpu(), live.repeat(1, 2)):
+        with pytest.raises(ValueError, match="seg_rows"):
+            run(rh, 0, bad)
+    assert sum(LAUNCHES.values()) == 0
+
+
+# K14 in both forms (ops/fused_act.py::plan): clusters of 16 CTAs at T 1-3,
+# of 8 at T 16 and 17, of 4 at T 64, one CTA a row staged in shared memory
+# at T 2,304 and 4,097, at llama3.1-8b's F 14,336, qwen2.5-7b's 11,008, the
+# narrowest row (8: the row form at every T) and the widest (32,768), for
+# both activations; the reference with row 0's scale doubled must fail
+# (``_hold_quant``).
+@pytest.mark.parametrize("act", ["silu", "gelu_pytorch_tanh"])
+@pytest.mark.parametrize("F", [14336, 11008, 8, 32768])
+@pytest.mark.parametrize("T", [1, 2, 3, 16, 17, 64, 2304, 4097])
+def test_silu_mul_quant_forms(gen, act, T, F):
+    from kvzip_tpu_torch.ops import fused_act
+
+    g = torch.Generator(device="cuda").manual_seed(T * 100003 + F)
+    gate = (torch.randn(T, F, generator=g, device="cuda") * 3).to(torch.bfloat16)
+    up = torch.randn(T, F, generator=g, device="cuda").to(torch.bfloat16)
+    got = fused_act.silu_mul_quant(gate, up, act=act)
+    assert _hold_quant(got, fused_act.silu_mul_quant_plain(gate, up, act=act))
+    assert LAUNCHES["silu_mul_quant"] == 1
+
+
+@pytest.mark.parametrize("T", [1, 24, 2304])
+def test_silu_mul_quant_repeat_and_graph(gen, T):
+    """K14: repeated calls give the same bits, and a CUDA-graph replay
+    equals the eager call (cluster form at T 1 and 24, row form at 2,304)."""
+    from kvzip_tpu_torch.ops import fused_act
+
+    gate, up = _rn(gen, T, 14336) * 3, _rn(gen, T, 14336)
+
+    def run():
+        return torch.cat([t.float().reshape(T, -1) for t in fused_act.silu_mul_quant(gate, up)],
+                         dim=1)
+
+    first, second = run(), run()
+    assert torch.equal(first, second)
+    eager, replay = _graph_replay(run)
+    assert torch.equal(eager, replay)
+
+
+def test_silu_mul_quant_rejects_misaligned_rows(gen):
+    from kvzip_tpu_torch.ops import fused_act
+
+    buf = _rn(gen, 2 * 1024 + 1)
+    gate = buf[1:].view(2, 1024)
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_act.silu_mul_quant(gate, gate)
+    assert sum(LAUNCHES.values()) == 0

@@ -18,9 +18,15 @@ layers; K2 (``fused_scores``) at the scoring chunk (2,304 repeat
 queries, a 2,048-row window, ctx_len 2,000, q_valid 2,060, a 160-row sink)
 of qwen2.5-7b and of llama3.1-8b (32 heads over 8); K5's decode form
 (``flash_attend_int4`` at T 1, 4 and 16) on 28 layers' dense int4 caches
-after the prefill, cycled.
+after the prefill, cycled; K10 (``flat_decode_attend``) on bf16 flat
+stacks of 28 layers, evicted (~30% of each kv head's rows, every layer
+padded to the largest) and full (98,304 rows a layer), at T 1 and 24 and
+n_seq 1 and 2 (two sequences merged, one tail length per (sequence, kv
+head)), cycled. K10 and K11 get the stacks' live rows a segment
+(``seg_rows``) where the checkout's wrappers take it.
 
-    python3 tools/attn_profile.py [--root DIR] [--out FILE] [--only k4,k1,k5,k9,k7,k11,k3,k2,k5d]
+    python3 tools/attn_profile.py [--root DIR] [--out FILE]
+        [--only k4,k1,k5,k9,k7,k11,k3,k2,k5d,k10]
 
 ``--root`` imports ``kvzip_tpu_torch`` from another checkout (for example
 a parent commit unpacked with ``git archive``), so two versions can be
@@ -41,6 +47,7 @@ cycle over the 28 layers, so each call reads its rows from device memory
 """
 
 import argparse
+import inspect
 import json
 import os
 import subprocess
@@ -95,7 +102,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--out", default=None)
-    ap.add_argument("--only", default="k4,k1,k5,k9,k7,k11,k3,k2,k5d",
+    ap.add_argument("--only", default="k4,k1,k5,k9,k7,k11,k3,k2,k5d,k10",
                     help="comma-separated sections to run")
     args = ap.parse_args()
     only = set(args.only.split(","))
@@ -133,6 +140,8 @@ def main():
 
     if "k3" in only:
         k3_rows(emit, rn, scale)
+    if "k10" in only:
+        k10_rows(emit, rn, scale)
     if "k7" in only or "k11" in only:
         int4_decode_rows(emit, rn, scale, only)
     if "k4" in only:
@@ -195,6 +204,69 @@ def k3_rows(emit, rn, scale):
                   ms=graph_ms(k3, 56), kernels=kernel_us(k3, 56)))
     del kp, vp, kt, vt
     torch.cuda.empty_cache()
+
+
+def seg_kw(fn, seg_rows):
+    """``seg_rows=`` for a wrapper that takes it (a parent checkout's may
+    not)."""
+    return {"seg_rows": seg_rows} if "seg_rows" in inspect.signature(fn).parameters else {}
+
+
+def flat_stack(gen, n_seq, full):
+    """row_head (L, n_seq * r_pad) of a flat stack (each (layer, sequence)
+    segment's kv heads head-major from its start, then padding), r_pad, the
+    live rows a segment (L, n_seq) int32, all on the card."""
+    import torch
+
+    from kvzip_tpu_torch.engine import _round_flat_rows
+
+    if full:
+        rows_h = torch.full((L, n_seq, HKV), PREFILL, dtype=torch.int64)
+    else:
+        rows_h = torch.randint(int(0.2 * PREFILL), int(0.4 * PREFILL), (L, n_seq, HKV),
+                               generator=gen)
+    live = rows_h.sum(-1)
+    r_pad = _round_flat_rows(int(live.max()))
+    rh = torch.full((L, n_seq * r_pad), -1, dtype=torch.int32)
+    for l in range(L):
+        for sb in range(n_seq):
+            rh[l, sb * r_pad:sb * r_pad + int(live[l, sb])] = torch.repeat_interleave(
+                torch.arange(HKV, dtype=torch.int32) + sb * HKV, rows_h[l, sb])
+    return rh.cuda(), r_pad, live.to(torch.int32).cuda()
+
+
+def k10_rows(emit, rn, scale):
+    """K10 on bf16 flat stacks: evicted and full, n_seq 1 and 2, T 1 and
+    24, 28 layers cycled."""
+    import torch
+
+    from kvzip_tpu_torch.ops import flat_decode
+
+    gen = torch.Generator().manual_seed(SEED_ROWS)
+    tcap = 768
+    for full in (False, True):
+        for n_seq in (1, 2):
+            rh, r_pad, live = flat_stack(gen, n_seq, full)
+            k, v = rn(L, n_seq * r_pad, D), rn(L, n_seq * r_pad, D)
+            kt, vt = rn(n_seq * HKV, tcap, D), rn(n_seq * HKV, tcap, D)
+            tl = 40 if n_seq == 1 else torch.randint(
+                0, tcap - 64, (n_seq * HKV,), generator=gen, dtype=torch.int32).cuda()
+            kw = seg_kw(flat_decode.flat_decode_attend, live)
+            for T in (1, 24):
+                q = rn(T, n_seq * H, D)
+                cyc = iter(range(10 ** 9))
+
+                def k10():
+                    return flat_decode.flat_decode_attend(q, k, v, rh, kt, vt, tl, scale=scale,
+                                                          n_seq=n_seq, layer=next(cyc) % L,
+                                                          **kw)
+
+                emit(dict(kernel="flat_decode_attend", T=T, n_seq=n_seq,
+                          layout="full" if full else "evicted", r_pad=r_pad,
+                          live_rows=float(live.float().mean()), seg_rows=bool(kw),
+                          ms=graph_ms(k10, 56), kernels=kernel_us(k10, 56)))
+            del k, v, kt, vt, rh
+            torch.cuda.empty_cache()
 
 
 def int4_decode_rows(emit, rn, scale, only):
@@ -271,6 +343,7 @@ def int4_decode_rows(emit, rn, scale, only):
         rh = rh.cuda()
         flat = (*quant(rn, L, r_pad, dtype=f32), *quant(rn, L, r_pad, dtype=f32))
         kt, vt = rn(HKV, tcap, D), rn(HKV, tcap, D)
+        kw = seg_kw(flat_decode.flat_decode_attend_int4, live[:, None].to(torch.int32).cuda())
         for T in ((1,) if full else (1, 24)):
             q = rn(T, H, D)
             for q8 in (False, True):
@@ -279,10 +352,10 @@ def int4_decode_rows(emit, rn, scale, only):
                 def k11():
                     return flat_decode.flat_decode_attend_int4(
                         q, *flat, rh, kt, vt, tail_len, scale=scale, q8=q8,
-                        layer=next(cyc) % L)
+                        layer=next(cyc) % L, **kw)
 
                 r = dict(kernel="flat_decode_attend_int4" + ("_q8" if q8 else ""), T=T,
-                         layout="full" if full else "evicted", r_pad=r_pad,
+                         layout="full" if full else "evicted", r_pad=r_pad, seg_rows=bool(kw),
                          live_rows=float(live.float().mean()), ms=graph_ms(k11, 56),
                          kernels=kernel_us(k11, 56))
                 if not q8:
