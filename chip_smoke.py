@@ -48,6 +48,7 @@
    unfused and fused v1 shapes (pad groups included), K15 at T 1/24/511
    and layers 0/14/27 of 28-layer stacks, K16 at T 1/24 with a bias on
    q/k/v (``kernel_parity_w4a8_v1``).
+   K13 and K14 also carry their T = 1 time (``t1_ms``) beside T = 2304.
 4. bf16 main path at the full width of qwen2.5-7b (28 layers, random bf16
    weights from a seed) and a 16384-token context, through the engine's
    entry points: prefill, scoring, a greedy answer on the dense cache,
@@ -117,6 +118,22 @@
    ``scoring_attend="window"`` (K9 must have run), reporting both scoring
    times, the Pearson correlation of the two scores and the agreement of
    their keep masks at ratio 0.3 (reported, asserted only finite).
+   Every decode ms/token (``decode_ms_per_token``) is three numbers from
+   the same state and queries: the engine's ``generate_ids``, whose decode
+   step is captured once a state as a CUDA graph and replayed, the host
+   reading the answer every ``DECODE_CHUNK`` steps (``ms_per_token``, host
+   clock); that step's device time (``device_ms_per_token``, CUDA events
+   around back-to-back replays); and the per-token loop of the port's first
+   decode loop (``eager_ms_per_token``: ``generate_ids_per_token``, a
+   forward from Python and a host read a token); the two loops' answers
+   must be equal. A replay runs no Python: the engine adds its capture's
+   counts once a step that advanced, to ``LAUNCHES`` and to the smoke's
+   own tallies (forwards over a flat cache, K13's and K14's calls by rows),
+   which sit beside it in ``ops.COUNTS``; every launch assertion above
+   holds on those counts. Decode counts are thus per advanced step, not
+   raw launches: replays that advance nothing (a capture's warm-up, the
+   rest of a chunk after the answer ends, ``step_device_ms``'s timing
+   replays) count none.
 7. Prints the kernels line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1355,7 +1372,7 @@ def kernel_parity_w8a8(cfg, sink: int):
                                        bound_ms=b[0], bound_by=b[1])
         out.append(dict(name=name, route="cuda", source="kvzip_tpu_torch/csrc/fused_act.cu",
                         replaces=f"kvzip_tpu/ops/fused_act.py:{line}", **per_shape["T 2304"],
-                        library_ms=None, per_shape=per_shape))
+                        t1_ms=per_shape["T 1"]["ms"], library_ms=None, per_shape=per_shape))
     return verify_parity(out, checks)
 
 
@@ -1492,21 +1509,52 @@ def timed(fn):
     return r, time.perf_counter() - t0
 
 
+def step_device_ms(eng, state, iters: int = 20) -> float:
+    """The captured decode step's device time on ``state``: CUDA events
+    around ``iters`` back-to-back replays of its graph with its answer
+    ended (``done`` set: the same kernels on the same shapes, nothing
+    advanced; the next generate starts a new answer)."""
+    step = eng.decode_step(state)
+    step.done.fill_(1)
+    return time_ms(step.graph.replay, iters)
+
+
 def decode_ms_per_token(eng, state, queries):
-    """(t(32 new tokens) - t(2 new tokens)) / 30 per query, averaged,
-    after one warm-up call on the state."""
+    """Per query, (t(32 new tokens) - t(2 new tokens)) / 30 on the host
+    clock, after one warm-up call of each loop on the state (the first
+    captures the step): ``ms_per_token`` through ``generate_ids`` (the
+    captured step, replayed; the host reads the answer every
+    ``DECODE_CHUNK`` steps), ``eager_ms_per_token`` through the per-token
+    loop (``generate_ids_per_token``: a forward issued from Python and a
+    host read a token), their means and per-query values; and the step's
+    device time (``step_device_ms``). The two loops' answers must be equal
+    token for token."""
     import numpy as np
 
-    per_tok, answers = [], []
-    eng.generate_ids(queries[0], state, max_new_tokens=2)  # warm-up
-    for qids in queries:
-        ans, t_long = timed(lambda: eng.generate_ids(qids, state))
-        ans2, t_short = timed(lambda: eng.generate_ids(qids, state, max_new_tokens=2))
-        if len(ans) <= len(ans2):
-            raise AssertionError("answer stopped before the timed window")
-        per_tok.append((t_long - t_short) / (len(ans) - len(ans2)) * 1e3)
-        answers.append(ans)
-    return float(np.mean(per_tok)), answers
+    from kvzip_tpu_torch.engine import generate_ids_per_token
+
+    rep = {"ms_per_token": [], "eager_ms_per_token": []}
+    answers = []
+    for loop, key in ((eng.generate_ids, "ms_per_token"),
+                      (lambda q, st, **kw: generate_ids_per_token(eng, q, st, **kw),
+                       "eager_ms_per_token")):
+        loop(queries[0], state, max_new_tokens=2)  # warm-up
+        for i, qids in enumerate(queries):
+            ans, t_long = timed(lambda: loop(qids, state))
+            ans2, t_short = timed(lambda: loop(qids, state, max_new_tokens=2))
+            if len(ans) <= len(ans2):
+                raise AssertionError("answer stopped before the timed window")
+            rep[key].append((t_long - t_short) / (len(ans) - len(ans2)) * 1e3)
+            if key == "ms_per_token":
+                answers.append(ans)
+            elif not np.array_equal(ans, answers[i]):
+                raise AssertionError(f"the captured step's answer {answers[i].tolist()} is not "
+                                     f"the per-token loop's {ans.tolist()}")
+    rep["device_ms_per_token"] = step_device_ms(eng, state)
+    out = {k: float(np.mean(v)) for k, v in rep.items() if isinstance(v, list)}
+    out.update(device_ms_per_token=rep["device_ms_per_token"],
+               per_query=rep["ms_per_token"], eager_per_query=rep["eager_ms_per_token"])
+    return out, answers
 
 
 def allkept_attention_int4(cache, pool, num_heads: int):
@@ -2126,6 +2174,7 @@ def main() -> int:
     from kvzip_tpu_torch.config import resolve_config
     from kvzip_tpu_torch.engine import Engine
     from kvzip_tpu_torch.models import transformer as transformer_module
+    from kvzip_tpu_torch import ops
     from kvzip_tpu_torch.ops import LAUNCHES, reset_launches
     from kvzip_tpu_torch.tokenizer import ByteTokenizer
 
@@ -2166,28 +2215,49 @@ def main() -> int:
                                   "per_shape")}
                         for r in kernels + kernels_q + kernels_f + kernels_k12 + kernels_v1])
 
+    # The smoke's own counts, beside LAUNCHES in ops.COUNTS, so that a
+    # replayed decode step adds to them as its captured calls would: every
+    # forward over a flat cache ("flat_forwards") and K13's and K14's
+    # calls by their rows ("rmsnorm_quant T 1", ...), counted for the
+    # whole run by wrappers around engine.forward and the two functions
+    # in the forward's module.
+    tally = {}
+    ops.COUNTS.append(tally)
+    forward = engine_module.forward
+
+    def counting_forward(params, cfg_, ids, cache, **fkw):
+        if isinstance(cache, (FlatKV, FlatInt4KV)):
+            tally["flat_forwards"] = tally.get("flat_forwards", 0) + 1
+        return forward(params, cfg_, ids, cache, **fkw)
+
+    def by_rows(name):
+        real = getattr(transformer_module, name)
+
+        def call(x, *args, **kw):
+            key = f"{name} T {x.shape[0]}"
+            tally[key] = tally.get(key, 0) + 1
+            return real(x, *args, **kw)
+        return call
+
+    engine_module.forward = counting_forward
+    for n in ("rmsnorm_quant", "silu_mul_quant"):
+        setattr(transformer_module, n, by_rows(n))
+
     def counted(tag, engine, kernel_names, path, *args, absent=(), per_flat_layer=None, **kw):
         """One path between a counter reset and a read; every kernel of the
         path must have launched, and none of ``absent``. ``per_flat_layer``:
         a kernel that must launch exactly once a layer of each forward over
-        a flat cache (the forwards counted at ``engine.forward``)."""
+        a flat cache (the forwards counted at ``engine.forward``). The
+        smoke's tallies over the path are returned in ``rep["tally"]``."""
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
-        flat_forwards = [0]
-        forward = engine_module.forward
-
-        def counting_forward(params, cfg_, ids, cache, **fkw):
-            flat_forwards[0] += isinstance(cache, (FlatKV, FlatInt4KV))
-            return forward(params, cfg_, ids, cache, **fkw)
-
-        engine_module.forward = counting_forward
-        try:
-            rep = path(engine, *args, **kw)
-        finally:
-            engine_module.forward = forward
+        before = dict(tally)
+        rep = path(engine, *args, **kw)
+        counts = {k: v - before.get(k, 0) for k, v in tally.items() if v != before.get(k, 0)}
+        flat_forwards = counts.pop("flat_forwards", 0)
         launches = {n: LAUNCHES[n] for n in (*kernel_names, *absent)}
         log(phase=tag, model=engine.name, layers=engine.config.num_layers, ctx=CTX, **rep,
-            launches=launches, flat_forwards=flat_forwards[0],
+            launches=launches, flat_forwards=flat_forwards, tally=counts,
             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
         missing = [n for n in kernel_names if launches[n] == 0]
         if missing:
@@ -2196,11 +2266,12 @@ def main() -> int:
         if stray:
             raise AssertionError(f"kernels of another layout or mode ran on the {tag}: {stray}")
         if per_flat_layer is not None and \
-                launches[per_flat_layer] != engine.config.num_layers * flat_forwards[0]:
+                launches[per_flat_layer] != engine.config.num_layers * flat_forwards:
             raise AssertionError(
                 f"{per_flat_layer} launched {launches[per_flat_layer]} times on the {tag}, not "
-                f"once a layer of its {flat_forwards[0]} flat forwards")
-        return {n: launches[n] for n in kernel_names}
+                f"once a layer of its {flat_forwards} flat forwards")
+        counts.update({n: launches[n] for n in kernel_names})
+        return counts
 
     def run(tag, engine, kernel_names, **kw):
         return counted(tag, engine, kernel_names, main_path, ctx_ids, queries, **kw)
@@ -2339,25 +2410,12 @@ def main() -> int:
                                                              "library_ms", "per_shape")}
                         for r in kernels_w8])
     # K13's and K14's launches on the path counted by their T (rows a call)
-    by_t = {"rmsnorm_quant": {}, "silu_mul_quant": {}}
-    real = {n: getattr(transformer_module, n) for n in by_t}
-
-    def tally(name):
-        def call(x, *args, **kw):
-            by_t[name][x.shape[0]] = by_t[name].get(x.shape[0], 0) + 1
-            return real[name](x, *args, **kw)
-        return call
-
-    for n in by_t:
-        setattr(transformer_module, n, tally(n))
-    try:
-        launches = run("main_path_w8a8", eng,
-                       ("fused_scores", "flash_attend_int4", "flash_attend_int4_decode",
-                        "flash_attend_int4_extra", "pool_decode_attend_int4", "rmsnorm_quant",
-                        "silu_mul_quant"), quant=True)
-    finally:
-        for n, fn in real.items():
-            setattr(transformer_module, n, fn)
+    launches = run("main_path_w8a8", eng,
+                   ("fused_scores", "flash_attend_int4", "flash_attend_int4_decode",
+                    "flash_attend_int4_extra", "pool_decode_attend_int4", "rmsnorm_quant",
+                    "silu_mul_quant"), quant=True)
+    by_t = {n: {int(k.split(" T ")[1]): v for k, v in launches.items()
+                if k.startswith(n + " T ")} for n in ("rmsnorm_quant", "silu_mul_quant")}
     log(phase="w8a8_launches_by_T",
         **{n: {str(t): c for t, c in sorted(v.items())} for n, v in by_t.items()})
     if any(sum(v.values()) != launches[n] for n, v in by_t.items()):
@@ -2372,7 +2430,7 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "rms_want",
             "worst_to_tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("exp_floor_ms", "composed_ms", "composed_per_shape", "padded_bound_ms")
+    extra = ("exp_floor_ms", "composed_ms", "composed_per_shape", "padded_bound_ms", "t1_ms")
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
                                    **{k: r[k] for k in extra if k in r}}
                                   for r in kernels]}), flush=True)

@@ -18,8 +18,15 @@ and zeros ``(L, R_pad)``. Each flat cache also keeps ``seg_rows`` (L, 1),
 its layers' live rows (``row_head >= 0``, the first rows of each layer),
 where the decode kernels K10/K11 stop reading.
 
-``lengths`` stays on the device, where the kernels read it; ``seen`` (the
-rope position base) and a flat cache's ``tail_len`` are host ints.
+Every counter lives on the device as int32, so a decode step reads none
+of them back and can be captured as a CUDA graph: ``lengths``, where the
+kernels read it; ``seen`` (the rope position base), a 0-dim tensor; and a
+flat cache's tail length, ``tail_lens`` (Hkv,), the per-head vector the
+decode kernels take, with ``tail_len`` its entry 0 (every head's tail
+grows together). A constructor takes each as an int or a tensor
+(:func:`device_counters`); forwards advance them in place, and
+:func:`restore` copies a snapshot into them, so a captured step keeps
+reading the same tensors.
 """
 
 from __future__ import annotations
@@ -31,12 +38,33 @@ import torch
 from kvzip_tpu_torch.config import ModelConfig
 
 
+def device_counters(cache, n_heads: int = 0) -> None:
+    """Make the counters a cache was constructed with int32 tensors of its
+    own on its device (an int or a tensor given; a tensor is copied, so two
+    caches never share one): ``seen`` 0-dim, and with ``n_heads`` (a pool
+    or flat cache) ``tail_lens`` of ``n_heads`` equal entries, every head's
+    tail length, with ``tail_len`` its entry 0 (a view that moves with
+    it)."""
+    dev = cache.lengths.device
+
+    def own(v):
+        return torch.as_tensor(v).to(device=dev, dtype=torch.int32).reshape(()).clone()
+
+    cache.seen = own(cache.seen)
+    if n_heads:
+        cache.tail_lens = own(cache.tail_len).expand(n_heads).contiguous()
+        cache.tail_len = cache.tail_lens[0]
+
+
 @dataclasses.dataclass
 class KVCache:
     k: torch.Tensor        # (L, Hkv, C, D)
     v: torch.Tensor        # (L, Hkv, C, D)
     lengths: torch.Tensor  # (L, Hkv) int32 live rows
-    seen: int              # tokens processed
+    seen: torch.Tensor     # () int32 tokens processed (an int given)
+
+    def __post_init__(self):
+        device_counters(self)
 
     @property
     def capacity(self) -> int:
@@ -65,7 +93,10 @@ class Int4KVCache:
     v_s: torch.Tensor
     v_z: torch.Tensor
     lengths: torch.Tensor  # (L, Hkv) int32 live rows
-    seen: int
+    seen: torch.Tensor     # () int32 (an int given)
+
+    def __post_init__(self):
+        device_counters(self)
 
     @property
     def capacity(self) -> int:
@@ -144,9 +175,12 @@ class FlatKV:
     k_tail: torch.Tensor    # (L, Hkv, Tcap, D)
     v_tail: torch.Tensor
     lengths: torch.Tensor   # (L, Hkv) int32 kept context rows (sink included)
-    tail_len: int
-    seen: int
+    tail_len: torch.Tensor  # () int32, tail_lens[0] (an int given)
+    seen: torch.Tensor      # () int32 (an int given)
     seg_rows: torch.Tensor  # (L, 1) int32 live rows a layer (they come first)
+
+    def __post_init__(self):
+        device_counters(self, self.k_tail.shape[1])  # tail_lens (Hkv,) int32
 
     @property
     def capacity(self) -> int:
@@ -176,9 +210,12 @@ class FlatInt4KV:
     k_tail: torch.Tensor    # (L, Hkv, Tcap, D) model dtype
     v_tail: torch.Tensor
     lengths: torch.Tensor   # (L, Hkv) int32
-    tail_len: int
-    seen: int
+    tail_len: torch.Tensor  # () int32, tail_lens[0] (an int given)
+    seen: torch.Tensor      # () int32 (an int given)
     seg_rows: torch.Tensor  # (L, 1) int32
+
+    def __post_init__(self):
+        device_counters(self, self.k_tail.shape[1])  # tail_lens (Hkv,) int32
 
     @property
     def capacity(self) -> int:
@@ -349,7 +386,7 @@ def refold_flat(cache, r_pad_new: int):
     is_int4 = isinstance(cache, FlatInt4KV)
     L, H, Tcap, D = cache.k_tail.shape
     dev = cache.row_head.device
-    n = cache.tail_len
+    n = int(cache.tail_len)
     big = 2 ** 30
     key_flat = torch.where(cache.row_head >= 0, cache.row_head,
                            torch.full_like(cache.row_head, big))
@@ -386,21 +423,18 @@ def refold_flat(cache, r_pad_new: int):
                       **common)
 
 
-_RESTORE_FIELDS = ("lengths", "seen", "tail_len")
+_RESTORE_FIELDS = ("lengths", "seen", "tail_lens")
 
 
 def snapshot(cache) -> dict:
-    """The counters that a restore resets (device tensors are copied, since
-    forwards update them in place)."""
-    return {f: _copy(getattr(cache, f)) for f in _RESTORE_FIELDS
-            if hasattr(cache, f)}
+    """Copies of the counters that a restore resets (forwards update them
+    in place)."""
+    return {f: getattr(cache, f).clone() for f in _RESTORE_FIELDS if hasattr(cache, f)}
 
 
 def restore(cache, snap: dict) -> None:
-    """O(1) counter reset: rows appended since the snapshot become dead."""
+    """O(1) counter reset: rows appended since the snapshot become dead.
+    The snapshot is copied into the counters in place, so they stay the
+    tensors a captured decode step reads."""
     for f, v in snap.items():
-        setattr(cache, f, _copy(v))
-
-
-def _copy(v):
-    return v.clone() if isinstance(v, torch.Tensor) else v
+        getattr(cache, f).copy_(v)

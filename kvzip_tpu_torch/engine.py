@@ -12,10 +12,15 @@ lm_head), the fused W8A8 activation quantization
 the legacy flat decode layout ``flat_decode="legacy"``, the int8
 attention ``attn_quant="int8"`` and the fused W4A8 decode layer,
 ``fuse_layer`` from ``KVZIP_MEGAKERNEL``).
-PyTorch runs eagerly: the chunk loop, the layer loop and the decode loop
-are Python loops, caches are updated in place, and the
-``update_cache=False`` semantics are O(1) counter restores as in the
-reference.
+PyTorch runs eagerly: the chunk loop and the layer loop are Python loops,
+caches are updated in place, and the ``update_cache=False`` semantics are
+O(1) counter restores as in the reference. The greedy decode loop is the
+reference's on-device loop (``_decode_loop``): one decode step reads
+nothing back (its counters, token buffer and end flag live on the
+device; :class:`DecodeStep`), is captured once as a CUDA graph on the
+card and replayed, and the host reads the tokens and the end flag once
+every ``DECODE_CHUNK`` steps; on the CPU the same step runs eagerly in the
+same loop.
 
 Device rule: on a CUDA device every attention op, every W4A8 linear below
 512 rows and every fused activation quantization launches its kernel
@@ -34,6 +39,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from kvzip_tpu_torch import ops
 from kvzip_tpu_torch import prune as prune_lib
 from kvzip_tpu_torch import template as template_lib
 from kvzip_tpu_torch.cache import (FlatInt4KV, FlatKV, Int4KVCache, KVCache,
@@ -51,6 +57,8 @@ from kvzip_tpu_torch.tokenizer import load_tokenizer
 # exact decomposition of any token count into a few chunk sizes
 CHUNK_LADDER = (16384, 4096, 1024, 256, 64, 16, 4, 1)
 POOL_LADDER = (64, 16, 4, 1)
+# decode steps between two host reads of the answer and its end flag
+DECODE_CHUNK = 8
 
 
 def ladder_split(n: int, ladder: Sequence[int] = CHUNK_LADDER) -> List[int]:
@@ -90,12 +98,119 @@ class KVState:
     pruned: bool = False
     refolds: int = 0               # tail folds into the pool / flat rows so far
     _snap: Optional[dict] = None
+    # the captured decode steps of this cache (a copy of the state starts
+    # with none; a refold or a prune drops them with the cache they read)
+    _steps: "_Steps" = dataclasses.field(default_factory=lambda: _Steps(), init=False,
+                                          repr=False, compare=False)
 
     def snapshot(self):
         self._snap = snapshot(self.cache)
 
     def restore_snapshot(self):
         restore(self.cache, self._snap)
+
+
+class _Steps(dict):
+    """A state's decode steps by key; a copy of the state gets none."""
+
+    def __copy__(self):
+        return _Steps()
+
+    def __deepcopy__(self, memo):
+        return _Steps()
+
+
+class DecodeStep:
+    """One greedy decode step over a state's cache with no host read (the
+    body of the reference's ``_decode_loop``): forward the token at step i
+    (``collect_logits="last"``), write its argmax at i + 1 in a device
+    token buffer, ``done |= (token in eos)``, i += 1; all of it, and the
+    cache's counters, only while the answer is running (not done and i <
+    the step budget); otherwise the step advances nothing and its rows land
+    past the live tail, where nothing reads them (the engine has reserved
+    the room). On the card it is captured once as a CUDA graph and
+    replayed; on the CPU the same step runs eagerly.
+
+    ``buf`` (int64): [i, done, token 0, token 1, ...]; the host reads its
+    head once a chunk of steps. Launch counts: the capture's counts
+    (``ops.counts_since``) are added once for each step that advanced
+    (``ops.COUNTS``), as the eager calls would have counted them; a replay
+    that advances nothing counts none.
+    """
+
+    def __init__(self, engine: "Engine", state: KVState, q8: bool):
+        cache = state.cache
+        dev = engine.device
+        self.engine, self.cache, self.q8 = engine, cache, q8
+        rows = (cache.k_tail.shape[2] if isinstance(cache, DECODE_CACHES)
+                else cache.capacity)
+        self.buf = torch.zeros(rows + 3, dtype=torch.int64, device=dev)
+        self.i, self.done, self.tokens = self.buf[0:1], self.buf[1:2], self.buf[2:]
+        self.budget = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.eos = torch.tensor(engine.eos_ids, dtype=torch.int64, device=dev)
+        self.graph = None
+        self.steps_read = 0  # i at the last host read
+        # a warm-up step that advances nothing (done set): builds every
+        # kernel library and scratch buffer outside the capture
+        saved = ops.counts_snapshot()
+        self.done.fill_(1)
+        if dev.type == "cuda":
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self.step()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            warm = ops.counts_snapshot()
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.step()
+            self.delta = ops.counts_since(warm)
+            # the ticket buffers the graph replays, alive while it is
+            self.tickets = ops.ticket_buffers()
+        else:
+            self.step()
+            self.delta = ops.counts_since(saved)
+        ops.counts_restore(saved)
+
+    def step(self) -> None:
+        eng = self.engine
+        running = (self.done == 0) & (self.i < self.budget)
+        ids = self.tokens.index_select(0, self.i)
+        res = forward(eng.params, eng.config, ids, self.cache, collect_logits="last",
+                      attn_q8=self.q8, fuse_layer=eng.fuse_layer,
+                      advance=running.to(torch.int32).reshape(()))
+        nxt = torch.argmax(res.logits[-1]).reshape(1)
+        at = self.i + 1
+        self.tokens.index_copy_(0, at, torch.where(running, nxt, self.tokens.index_select(0, at)))
+        self.done += running & (nxt[:, None] == self.eos).any(-1)
+        self.i += running
+
+    def start(self, last_logits: torch.Tensor, budget: int) -> None:
+        """A new answer: token 0 the argmax of ``last_logits`` (the query's
+        last row), done if it is an eos token, ``budget`` steps at most."""
+        first = torch.argmax(last_logits).reshape(1)
+        self.i.zero_()
+        self.tokens[0:1].copy_(first)
+        self.done.copy_((first[:, None] == self.eos).any(-1))
+        self.budget.fill_(budget)
+        self.steps_read = 0
+
+    def run(self, n: int) -> Tuple[int, bool, list]:
+        """n steps (replays on the card), then one host read: (i, done, the
+        tokens 0..i)."""
+        saved = None if self.graph is not None else ops.counts_snapshot()
+        for _ in range(n):
+            if self.graph is not None:
+                self.graph.replay()
+            else:
+                self.step()
+        head = self.buf[:3 + min(self.steps_read + n, self.tokens.numel() - 1)].tolist()
+        i, done = head[0], bool(head[1])
+        if saved is not None:
+            ops.counts_restore(saved)
+        ops.counts_add(self.delta, i - self.steps_read)
+        self.steps_read = i
+        return i, done, head[2:3 + i]
 
 
 class Engine:
@@ -216,7 +331,8 @@ class Engine:
     def _forward_chunks(self, ids: np.ndarray, state: KVState,
                         collect: str = "none") -> Optional[torch.Tensor]:
         """Run ids through the model on the chunk ladder; maybe return
-        logits ("last" or "all")."""
+        logits ("last" or "all"). The caller has checked the cache's room
+        (``_check_capacity``)."""
         ladder = POOL_LADDER if isinstance(state.cache, DECODE_CACHES) else CHUNK_LADDER
         q8 = self._q8(state)
         parts = []
@@ -347,6 +463,7 @@ class Engine:
         keep, thres, true_ratio = prune_lib.prune_mask(
             state.score, ratio, level, method="histogram")
         state.score = None
+        state._steps.clear()
         dense = state.cache
         if self.flat_decode == "legacy":
             # the reference's round-3 layout: every layer padded to the
@@ -422,11 +539,16 @@ class Engine:
         return st
 
     # -------------------------------------------------------------- generate
-    def _check_capacity(self, state: KVState, need: int):
-        """Fail loudly instead of writing past the cache."""
+    def _check_capacity(self, state: KVState, need: int, cur: Optional[int] = None):
+        """Fail loudly instead of writing past the cache: the one room check
+        of a call that forwards into it (``forward`` reads nothing back).
+        ``cur``: a pool or flat cache's tail length already read (a generate
+        reads it once and shares it with ``_maybe_refold``, as the
+        reference does)."""
         cache = state.cache
         if isinstance(cache, DECODE_CACHES):
-            cap, cur = cache.k_tail.shape[2], cache.tail_len
+            cap = cache.k_tail.shape[2]
+            cur = int(cache.tail_len) if cur is None else cur
             if cur + need > cap:
                 raise ValueError(
                     f"query+generation needs {need} tail rows but only "
@@ -439,15 +561,18 @@ class Engine:
                     f"query+generation needs {need} rows beyond {cur} but "
                     f"capacity is {cache.capacity}; raise decode_budget")
 
-    def _maybe_refold(self, state: KVState, need: int) -> bool:
-        """Fold the committed tail into the pool or the flat rows when the
-        next turn would overflow it; returns whether it did."""
+    def _maybe_refold(self, state: KVState, need: int, cur: int) -> bool:
+        """Fold the committed tail (``cur`` rows) into the pool or the flat
+        rows when the next turn would overflow it; returns whether it
+        did."""
         cache = state.cache
-        if not isinstance(cache, DECODE_CACHES) or \
-                cache.tail_len + need <= cache.k_tail.shape[2]:
+        if not isinstance(cache, DECODE_CACHES):
             return False
+        if cur + need <= cache.k_tail.shape[2]:
+            return False
+        state._steps.clear()
         if isinstance(cache, (FlatKV, FlatInt4KV)):
-            rows = int((cache.lengths + cache.tail_len).sum(dim=-1).max())
+            rows = int((cache.lengths + cur).sum(dim=-1).max())
             state.cache = refold_flat(cache, _round_flat_rows(rows))
         else:
             state.cache = refold_pool(cache)
@@ -469,28 +594,29 @@ class Engine:
                      max_new_tokens: Optional[int] = None) -> np.ndarray:
         """:meth:`generate`, returning the answer's token ids (eos
         excluded)."""
+        return self._generate(query, state, update_cache, max_new_tokens, self._decode_loop)
+
+    def _generate(self, query, state: KVState, update_cache: bool,
+                  max_new_tokens: Optional[int], loop) -> np.ndarray:
+        """The query's forward, then ``loop(state, last_logits, max_new)``
+        (the answer's tokens, eos excluded), then the restore or the
+        commit. The tail length is read once (the reference's one
+        ``device_get``)."""
         query_ids = (self.encode(query) if isinstance(query, str)
                      else np.asarray(query))
         max_new = max_new_tokens or self.max_new_tokens
         need = len(query_ids) + max_new
         # the tail only holds committed rows between generates, so folding
         # is always sound, whatever update_cache is
-        self._maybe_refold(state, need)
-        self._check_capacity(state, need)
+        cur = (int(state.cache.tail_len) if isinstance(state.cache, DECODE_CACHES)
+               else None)
+        if self._maybe_refold(state, need, cur):
+            cur = 0
+        self._check_capacity(state, need, cur)
         state.snapshot()
 
         logits = self._forward_chunks(query_ids.astype(np.int32), state, "last")
-        tokens = [int(torch.argmax(logits[-1]))]
-        done = tokens[-1] in self.eos_ids
-        q8 = self._q8(state)
-        while not done and len(tokens) < max_new:
-            res = forward(self.params, self.config, self._ids(tokens[-1:]),
-                          state.cache, collect_logits="last", sink=state.sink, attn_q8=q8,
-                          fuse_layer=self.fuse_layer)
-            tokens.append(int(torch.argmax(res.logits[-1])))
-            done = tokens[-1] in self.eos_ids
-        if done:
-            tokens = tokens[:-1]
+        tokens = loop(state, logits[-1], max_new)
 
         if not update_cache:
             state.restore_snapshot()
@@ -500,12 +626,57 @@ class Engine:
             state.snapshot()
         return np.asarray(tokens, np.int32)
 
+    def decode_step(self, state: KVState) -> DecodeStep:
+        """The state's decode step for this engine, its eos ids,
+        ``fuse_layer`` and int8-attention mode, captured at its first use
+        and kept on the state with its cache (a refold or a prune drops the
+        steps; so does a cache the caller put in the state)."""
+        q8 = self._q8(state)
+        key = (self, tuple(self.eos_ids), self.fuse_layer, q8)
+        steps = state._steps
+        if any(st.cache is not state.cache for st in steps.values()):
+            steps.clear()
+        if key not in steps:
+            steps[key] = DecodeStep(self, state, q8)
+        return steps[key]
+
+    def _decode_loop(self, state: KVState, last_logits: torch.Tensor,
+                     max_new: int) -> list:
+        """The reference's on-device loop: token 0 from the query's last
+        logits, then at most ``max_new - 1`` steps of the captured decode
+        step (the eos token and the last token are never forwarded), the
+        host reading the answer once every ``DECODE_CHUNK`` steps."""
+        step = self.decode_step(state)
+        budget = max_new - 1
+        step.start(last_logits, budget)
+        while True:
+            i, done, tokens = step.run(min(DECODE_CHUNK, budget - step.steps_read))
+            if done or i >= budget:
+                break
+        return tokens[:-1] if done else tokens
+
+    def _per_token_loop(self, state: KVState, last_logits: torch.Tensor,
+                        max_new: int) -> list:
+        """The port's first decode loop: one eager forward and one host read
+        of its argmax a token (see :func:`generate_ids_per_token`)."""
+        tokens = [int(torch.argmax(last_logits))]
+        done = tokens[-1] in self.eos_ids
+        q8 = self._q8(state)
+        while not done and len(tokens) < max_new:
+            res = forward(self.params, self.config, self._ids(tokens[-1:]),
+                          state.cache, collect_logits="last", sink=state.sink, attn_q8=q8,
+                          fuse_layer=self.fuse_layer)
+            tokens.append(int(torch.argmax(res.logits[-1])))
+            done = tokens[-1] in self.eos_ids
+        return tokens[:-1] if done else tokens
+
     # --------------------------------------------------------------- __call__
     def forward_ids(self, input_ids: np.ndarray, state: KVState,
                     update_cache: bool = False,
                     return_logits: bool = False) -> Optional[np.ndarray]:
         """Plain forward; the cache is restored afterwards unless
         ``update_cache``."""
+        self._check_capacity(state, len(input_ids))
         if not update_cache:
             state.snapshot()
         logits = self._forward_chunks(np.asarray(input_ids, np.int32), state,
@@ -516,7 +687,19 @@ class Engine:
 
     def prob(self, input_ids: np.ndarray, state: KVState) -> np.ndarray:
         """Next-token probabilities for every position; restores the cache."""
+        self._check_capacity(state, len(input_ids))
         state.snapshot()
         logits = self._forward_chunks(np.asarray(input_ids, np.int32), state, "all")
         state.restore_snapshot()
         return torch.softmax(logits.float(), dim=-1).cpu().numpy()
+
+
+def generate_ids_per_token(engine: Engine, query: Union[str, np.ndarray], state: KVState,
+                           update_cache: bool = False,
+                           max_new_tokens: Optional[int] = None) -> np.ndarray:
+    """:meth:`Engine.generate_ids` through the port's first decode loop: an
+    eager forward from Python and a host read of its argmax every token. A
+    yardstick for the captured step (``chip_smoke.py`` times both, tests
+    hold their tokens equal), not a route of the engine."""
+    return engine._generate(query, state, update_cache, max_new_tokens,
+                            engine._per_token_loop)

@@ -76,10 +76,23 @@ def attention_scaling(rope: RopeConfig) -> float:
     return 1.0
 
 
+_INV_FREQ = {}  # (rope, dim, device) -> inv_freq (dim // 2,) float32
+
+
+def _inv_freq(rope: RopeConfig, dim: int, device: torch.device) -> torch.Tensor:
+    """inv_frequencies on ``device``, copied there once: a CUDA-graph
+    capture of a decode step may not copy from the host."""
+    key = (rope, dim, torch.device(device))
+    t = _INV_FREQ.get(key)
+    if t is None:
+        t = _INV_FREQ[key] = torch.from_numpy(inv_frequencies(rope, dim)).to(device)
+    return t
+
+
 def rope_cos_sin(rope: RopeConfig, dim: int, positions: torch.Tensor):
     """cos/sin tables (T, dim) float32 for positions (T,) — the freqs
     duplicated over both halves (HF convention)."""
-    inv_freq = torch.from_numpy(inv_frequencies(rope, dim)).to(positions.device)
+    inv_freq = _inv_freq(rope, dim, positions.device)
     freqs = positions.to(torch.float32)[:, None] * inv_freq[None, :]
     emb = torch.cat([freqs, freqs], dim=-1)
     scale = attention_scaling(rope)

@@ -23,7 +23,8 @@ Dispatch, as in the reference:
   makes the scores;
 - pool cache: K3 (``pool_decode_attend``) or, for an int4 pool, K7
   (``pool_decode_attend_int4``), after the T new rows are written into the
-  full (L, Hkv, Tcap, D) tail stacks at ``tail_len``;
+  full (L, Hkv, Tcap, D) tail stacks at ``tail_len`` (``index_copy_`` at
+  rows the device forms; the kernels take the ``tail_lens`` vector);
 - flat cache (``flat_decode="legacy"``): the same uniform tail append, then
   K10 (``flat_decode_attend``) or, for int4 rows, K11
   (``flat_decode_attend_int4``) on the stacked flat arrays and the layer's
@@ -164,10 +165,13 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
             score_start: int = 0, score_len: int = 0, score_qlen: int = 0,
             score_width: int = 0, sink: int = 0,
             scoring_attend: str = "full", attn_q8: bool = False,
-            fuse_layer: str = "off") -> ForwardResult:
+            fuse_layer: str = "off",
+            advance: Optional[torch.Tensor] = None) -> ForwardResult:
     """Run ids (T,) through the model, appending their KV to ``cache`` in
-    place (``lengths``/``seen``, or ``tail_len``/``seen`` for a pool or a
-    flat cache).
+    place (``lengths``/``seen``, or ``tail_lens``/``seen`` for a pool or a
+    flat cache). Nothing here reads the device back, so a decode step can
+    be captured as a CUDA graph; the caller makes sure a pool or flat
+    cache's tail holds T more rows (the engine checks once a generate).
 
     ``collect_logits``: "none" | "last" | "all". ``scoring``: the KVzip
     repeat pass on a dense cache; ``score_start`` is the cache row of the
@@ -177,7 +181,10 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
     repeat] only). ``attn_q8``: int8 attention on an int4 pool or flat
     cache (K7/K11 with ``q8``). ``fuse_layer``: "off", "auto" or "on", the
     fused W4A8 decode layer (K12) where its shapes allow ("auto" on the
-    card only).
+    card only). ``advance``: a 0-dim int32 tensor the counters advance by
+    instead of T (the engine's decode step gives 0 once its answer has
+    ended: its rows then land past the live tail, where nothing reads
+    them).
     """
     T = ids.shape[0]
     L, H, Hkv, Dh = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -192,13 +199,14 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
     if fuse_layer not in ("off", "auto", "on"):
         raise ValueError(f"fuse_layer: {fuse_layer!r}")
     window = scoring and scoring_attend == "window"
-    if (is_pool or is_flat) and cache.tail_len + T > cache.k_tail.shape[2]:
-        raise ValueError("pool tail overflow" if is_pool else "flat tail overflow")
     emb = params["embed"]
     dtype = emb["s"].dtype if isinstance(emb, dict) else emb.dtype
 
     x = embed_lookup(emb, ids)
-    positions = torch.arange(cache.seen, cache.seen + T, device=ids.device)
+    positions = cache.seen + torch.arange(T, device=ids.device)
+    if is_pool or is_flat:
+        # this step's tail rows, formed on the device
+        tail_rows = cache.tail_len + torch.arange(T, device=ids.device)
     cos, sin = rope_cos_sin(cfg.rope, Dh, positions)
     lp_all = params["layers"]
     w4 = {k: v for k, v in lp_all.items() if _is_w4(v)}
@@ -235,34 +243,33 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
         k = apply_rope(k.reshape(T, Hkv, Dh), cos, sin)
         v = v.reshape(T, Hkv, Dh)
 
-        if is_flat:
+        if is_pool or is_flat:
             # uniform tail append at tail_len (all heads advance together)
-            t0 = cache.tail_len
-            cache.k_tail[l, :, t0:t0 + T] = k.transpose(0, 1)
-            cache.v_tail[l, :, t0:t0 + T] = v.transpose(0, 1)
-            tail = (cache.k_tail[l], cache.v_tail[l], t0)
+            cache.k_tail[l].index_copy_(1, tail_rows, k.transpose(0, 1))
+            cache.v_tail[l].index_copy_(1, tail_rows, v.transpose(0, 1))
+        if is_flat:
+            tail = (cache.k_tail[l], cache.v_tail[l], cache.tail_lens)
             if isinstance(cache, FlatInt4KV):
                 attn = flat_decode_attend_int4(
                     q, cache.k_flat_q, cache.k_flat_s, cache.k_flat_z, cache.v_flat_q,
                     cache.v_flat_s, cache.v_flat_z, cache.row_head, *tail, scale=scale,
-                    q8=attn_q8, layer=l, seg_rows=cache.seg_rows)
+                    q8=attn_q8, layer=l, seg_rows=cache.seg_rows, check_tail=False)
             else:
                 attn = flat_decode_attend(q, cache.k_flat, cache.v_flat, cache.row_head,
-                                          *tail, scale=scale, layer=l, seg_rows=cache.seg_rows)
+                                          *tail, scale=scale, layer=l, seg_rows=cache.seg_rows,
+                                          check_tail=False)
         elif is_pool:
-            t0 = cache.tail_len
-            cache.k_tail[l, :, t0:t0 + T] = k.transpose(0, 1)
-            cache.v_tail[l, :, t0:t0 + T] = v.transpose(0, 1)
             meta = (cache.row_head, cache.layer_off, cache.layer_rows,
-                    cache.k_tail, cache.v_tail, t0, l)
+                    cache.k_tail, cache.v_tail, cache.tail_lens, l)
             if isinstance(cache, PoolInt4KV):
                 attn = pool_decode_attend_int4(
                     q, cache.k_pool_q, cache.k_pool_s, cache.k_pool_z,
                     cache.v_pool_q, cache.v_pool_s, cache.v_pool_z, *meta,
-                    scale=scale, max_rows=cache.max_rows, q8=attn_q8)
+                    scale=scale, max_rows=cache.max_rows, q8=attn_q8, check_tail=False)
             else:
                 attn = pool_decode_attend(q, cache.k_pool, cache.v_pool, *meta,
-                                          scale=scale, max_rows=cache.max_rows)
+                                          scale=scale, max_rows=cache.max_rows,
+                                          check_tail=False)
         elif is_int4:
             layer = (cache.k_q[l], cache.v_q[l], cache.k_s[l], cache.k_z[l],
                      cache.v_s[l], cache.v_z[l])
@@ -342,13 +349,14 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
         else:
             x = x + _lin(_act(gate, cfg.hidden_act) * up, lp["w_down"])
 
+    step = T if advance is None else advance
     if is_pool or is_flat:
-        cache.tail_len += T
-        cache.seen += T
+        cache.tail_lens += step  # tail_len, its view, moves with it
+        cache.seen += step
     elif not (is_int4 and scoring):  # int4 scoring appended nothing
         # stream-ordered after every kernel above that read the old lengths
-        cache.lengths += T
-        cache.seen += T
+        cache.lengths += step
+        cache.seen += step
 
     logits = None
     if collect_logits != "none":

@@ -7,7 +7,15 @@ kernel launch adds one to ``LAUNCHES[<wrapper name>]`` (``<wrapper
 name>_q8`` for the int8-attention mode of K7 and K11), so a run can show
 which kernels its path went through. K5's decode form (T <= 16) also adds
 one to ``LAUNCHES["flash_attend_int4_decode"]``, so its two forms can be
-told apart.
+told apart. A replayed CUDA graph runs no Python: the engine's captured
+decode step adds its capture's counts once for each replay that advanced
+its answer, to ``LAUNCHES`` and to every other dict of int counts in
+``COUNTS`` (a caller's own tally of some wrapper's calls, registered
+there), so each count stays what the eager calls would have made. Decode
+counts are therefore per advanced step, not raw launches: a replay that
+advances nothing (the capture's warm-up, the rest of a chunk after the
+answer ends, replays made only to time the step) launches every captured
+kernel and counts none.
 """
 
 from __future__ import annotations
@@ -26,9 +34,37 @@ LAUNCHES = {"flash_attend": 0, "fused_scores": 0, "ragged_decode_attend": 0,
             "w4a8_layer_fused": 0, "w4a8_matmul_stacked": 0, "w4a8_matmul": 0}
 
 
+COUNTS = [LAUNCHES]  # every dict of int counts a replay adds to
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def counts_snapshot() -> list:
+    """Copies of every dict in ``COUNTS``."""
+    return [dict(c) for c in COUNTS]
+
+
+def counts_restore(snap: list) -> None:
+    """Set every dict in ``COUNTS`` back to a snapshot."""
+    for c, old in zip(COUNTS, snap):
+        c.clear()
+        c.update(old)
+
+
+def counts_since(snap: list) -> list:
+    """What each dict in ``COUNTS`` gained since a snapshot."""
+    return [{k: v - old.get(k, 0) for k, v in c.items() if v != old.get(k, 0)}
+            for c, old in zip(COUNTS, snap)]
+
+
+def counts_add(delta: list, times: int) -> None:
+    """Add ``times`` x a ``counts_since`` delta to the dicts in ``COUNTS``."""
+    for c, d in zip(COUNTS, delta):
+        for k, v in d.items():
+            c[k] = c.get(k, 0) + v * times
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
@@ -88,12 +124,20 @@ _tickets = {}  # (kernel, device) -> its arrival counts, zero between launches
 def ticket_buffer(owner: str, device: torch.device, n: int) -> torch.Tensor:
     """At least n zeroed int32 arrival counts of the kernel ``owner`` on
     ``device`` (the first call at a size must not be inside a CUDA-graph
-    capture); each of its launches leaves its counts zero."""
+    capture); each of its launches leaves its counts zero. A larger request
+    replaces the buffer here; a CUDA graph captured with the old one keeps
+    it alive by holding it (``ticket_buffers``)."""
     t = _tickets.get((owner, device))
     if t is None or t.numel() < n:
         t = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _tickets[(owner, device)] = t
     return t
+
+
+def ticket_buffers() -> list:
+    """Every ticket buffer in use now: what a CUDA graph captured now may
+    replay (the engine's decode step holds them as long as its graph)."""
+    return list(_tickets.values())
 
 
 # Holding a kernel's output against its plain version computed in float32

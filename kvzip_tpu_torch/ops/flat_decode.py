@@ -124,17 +124,19 @@ def flat_decode_attend_int4_plain(q, k_flat_q, k_flat_s, k_flat_z, v_flat_q, v_f
 
 
 def tail_arg(tail_len: TailLen, n_heads: int, T: int, Tcap: int, device,
-             what: str) -> tuple:
+             what: str, check: bool = True) -> tuple:
     """A kernel's tail length: (the ``(n_heads,)`` int32 vector or None, the
     one int). The largest entry must leave room for the T new rows; a
     vector's entries are read back for that check (a host sync), except
-    while a CUDA graph is being captured, where the kernels' clamp of each
-    head's rows at Tcap still keeps every read inside the tail."""
+    with ``check=False`` (the caller has checked: the model's forward, whose
+    engine checks the room once a generate) or while a CUDA graph is being
+    captured, where the kernels' clamp of each head's rows at Tcap still
+    keeps every read inside the tail."""
     if isinstance(tail_len, torch.Tensor) and tail_len.dim() > 0:
         if tail_len.shape != (n_heads,) or tail_len.dtype != torch.int32 \
                 or tail_len.device != device or not tail_len.is_contiguous():
             raise ValueError(f"{what}: tail_len must be ({n_heads},) int32 on {device}")
-        if tail_len.is_cuda and torch.cuda.is_current_stream_capturing():
+        if not check or (tail_len.is_cuda and torch.cuda.is_current_stream_capturing()):
             return tail_len, 0
         lo, hi = torch.stack([tail_len.min(), tail_len.max()]).tolist()
         if hi + T > Tcap or lo < 0:
@@ -146,7 +148,8 @@ def tail_arg(tail_len: TailLen, n_heads: int, T: int, Tcap: int, device,
     return None, scalar
 
 
-def _launch_geometry(q, k_tail, rows_total, n_seq, layer, L, what, tail_len, seg_rows):
+def _launch_geometry(q, k_tail, rows_total, n_seq, layer, L, what, tail_len, seg_rows,
+                     check_tail):
     """Shared checks and geometry of K10/K11's launch: (T, H_all, Hkv, Tcap,
     R_seg, tail pointer, tail scalar, seg_rows pointer, layer), Hkv per
     sequence."""
@@ -164,7 +167,7 @@ def _launch_geometry(q, k_tail, rows_total, n_seq, layer, L, what, tail_len, seg
             or not seg_rows.is_contiguous()):
         raise ValueError(f"{what}: seg_rows must be {(L, n_seq) if stacked else (n_seq,)} "
                          f"int32 on {q.device}, got {tuple(seg_rows.shape)} {seg_rows.dtype}")
-    lens_t, scalar = tail_arg(tail_len, Hkv_all, T, Tcap, q.device, what)
+    lens_t, scalar = tail_arg(tail_len, Hkv_all, T, Tcap, q.device, what, check_tail)
     return (T, H_all, Hkv_all // n_seq, Tcap, rows_total // n_seq,
             lens_t.data_ptr() if lens_t is not None else None, scalar,
             seg_rows.data_ptr() if seg_rows is not None else None, layer)
@@ -174,12 +177,14 @@ def flat_decode_attend(q: torch.Tensor, k_flat: torch.Tensor, v_flat: torch.Tens
                        row_head: torch.Tensor, k_tail: torch.Tensor, v_tail: torch.Tensor,
                        tail_len: TailLen, *, scale: float, n_seq: int = 1,
                        layer: Optional[int] = None,
-                       seg_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       seg_rows: Optional[torch.Tensor] = None,
+                       check_tail: bool = True) -> torch.Tensor:
     """q (T, n_seq*H, D); k_flat/v_flat ([L,] R_pad, D); row_head ([L,]
     R_pad) int32 (-1 padding); k_tail/v_tail (n_seq*Hkv, Tcap, D), this
     layer's, with this step's T rows already written at ``tail_len``;
     ``layer`` selects the layer of stacked flat arrays; ``seg_rows`` ([L,]
-    n_seq) int32, the live rows a segment -> (T, n_seq*H, D)."""
+    n_seq) int32, the live rows a segment; ``check_tail=False``: a tail
+    vector is not read back (``tail_arg``) -> (T, n_seq*H, D)."""
     if not on_cuda(q, k_flat, v_flat, row_head, k_tail, v_tail):
         return flat_decode_attend_plain(q, k_flat, v_flat, row_head, k_tail, v_tail, tail_len,
                                         scale=scale, n_seq=n_seq, layer=layer)
@@ -194,7 +199,7 @@ def flat_decode_attend(q: torch.Tensor, k_flat: torch.Tensor, v_flat: torch.Tens
     L = k_flat.shape[0] if stacked else 1
     (T, H_all, Hkv, Tcap, R_seg, lens_ptr, scalar, seg_ptr,
      layer) = _launch_geometry(q, k_tail, k_flat.shape[-2], n_seq, layer, L, what, tail_len,
-                               seg_rows)
+                               seg_rows, check_tail)
     mtc, groups, S = int4_decode.plan(H_all // n_seq * T, n_seq, R_seg, sm_count(q.device),
                                       int4_decode.BF_TILE)
     out = torch.empty_like(q)
@@ -216,7 +221,8 @@ def flat_decode_attend_int4(q: torch.Tensor, k_flat_q: torch.Tensor, k_flat_s: t
                             row_head: torch.Tensor, k_tail: torch.Tensor,
                             v_tail: torch.Tensor, tail_len: TailLen, *, scale: float,
                             q8: bool = False, n_seq: int = 1, layer: Optional[int] = None,
-                            seg_rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+                            seg_rows: Optional[torch.Tensor] = None,
+                            check_tail: bool = True) -> torch.Tensor:
     """As :func:`flat_decode_attend` over int4 rows: k/v_flat_q ([L,] R_pad,
     D//2) uint8 split-packed, k/v_flat_s/z ([L,] R_pad) float32. ``q8``:
     the int8-attention mode (``attention.attend_int4_q8``)."""
@@ -241,7 +247,7 @@ def flat_decode_attend_int4(q: torch.Tensor, k_flat_q: torch.Tensor, k_flat_s: t
     L = rows_shape[0] if stacked else 1
     (T, H_all, Hkv, Tcap, R_seg, lens_ptr, scalar, seg_ptr,
      layer) = _launch_geometry(q, k_tail, rows_shape[-1], n_seq, layer, L, what, tail_len,
-                               seg_rows)
+                               seg_rows, check_tail)
     mtc, groups, S = int4_decode.plan(H_all // n_seq * T, n_seq, R_seg, sm_count(q.device))
     out = torch.empty_like(q)
     part_acc, part_ml, tickets = int4_decode.scratch(q.device, what, n_seq, groups, S, mtc)

@@ -13,8 +13,10 @@ between the norm (or activation) and the quantization:
 ``s = amax(|h|) / 127 + 1e-8`` and ``q = clamp(round(h / s), -127, 127)``,
 round half to even. Both return (int8 (T, W), float32 scales (T, 1)).
 
-K14's kernel has two forms, which :func:`plan` picks and the CUDA entry
-takes as given: at small T a row is split over a cluster of C CTAs (each
+K13's kernel takes its rows every grid-th over a grid sized to the card,
+each CTA keeping a few rows in flight (:func:`plan_norm`), each row split
+over a CTA's threads as :func:`norm_vectors` gives. K14's kernel has two forms, which :func:`plan`
+picks and the CUDA entry takes as given: at small T a row is split over a cluster of C CTAs (each
 warp's maximum pushed into every CTA's shared memory), at large T one CTA
 a row stages gate and up in shared memory. :func:`cta_vectors` gives
 the 16-byte vectors each thread of either form takes.
@@ -43,8 +45,61 @@ CL_THREADS = 256   # K14: threads a CTA of the cluster form, at most
 CL_VPT = 4         # K14: vectors a thread of the cluster form, at most
 RF_THREADS = 512   # K14: threads a CTA of the row form
 
+MAX_THREADS = 1024  # K13: threads of the first form's CTA, at most
+MAX_VPT = 4        # K13: vectors a thread, at most
+NORM_SPLIT = 2     # K13: the first form's threads a thread stands for (one vector each)
+NORM_STAGES = 2    # K13: rows a CTA keeps in flight, at most (the entry takes 4)
+NORM_SMEM = 196608  # K13: bytes of rows in flight an SM, at most
 _ARGS_NORM = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [
-    ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def norm_geometry(D: int) -> Tuple[int, int]:
+    """K13's split of a row of D elements (``csrc/fused_act.cu::geometry``):
+    (vectors a thread, threads a CTA), the fewest vectors a thread (a power
+    of two) that 1,024 threads cover the row's D / 8 vectors with."""
+    nvec = D // VEC
+    vpt = 1
+    while vpt * MAX_THREADS < nvec:
+        vpt *= 2
+    vecs = -(-nvec // vpt)  # a thread's share of the row's vectors, VPT at most
+    return vpt, -(-vecs // 32) * 32
+
+
+def plan_norm(T: int, D: int, sms: int, split: int = NORM_SPLIT) -> Tuple[int, int, int, int]:
+    """K13's launch for T rows of width D on ``sms`` SMs: (grid, the first
+    form's threads ``norm_geometry`` gives, K, rows a CTA keeps in flight).
+    At one vector a thread, a thread of the kernel stands for K (``split``
+    at most, 1, 2 or 4, whole warps) of the first form's threads, so a CTA
+    has threads / K. A CTA takes rows b, b + grid, ...; the grid holds what
+    the card surely keeps resident (K = 1 at one vector a thread: a kernel
+    built for 32 registers, 2,048 threads an SM; otherwise 64 registers,
+    1,024 threads; 32 CTAs an SM at most) and splits the rows evenly over
+    as few rounds as that allows: one row a CTA up to that size. A CTA's
+    ring holds up to ``NORM_STAGES`` rows (two ran T 4,096 in 0.0208 ms on
+    the H100 where four took 0.0230), ``NORM_SMEM`` bytes an SM and 128 KB
+    a CTA at most."""
+    vpt, nthr = norm_geometry(D)
+    K = next((k for k in (4, 2) if k <= split and vpt == 1 and nthr % (32 * k) == 0), 1)
+    per_sm = min(32, (2 if vpt == 1 and K == 1 else 1) * MAX_THREADS // (nthr // K))
+    rounds = -(-T // (sms * per_sm))
+    stages = max(1, min(NORM_STAGES, NORM_SMEM // (per_sm * 2 * D), 131072 // (2 * D)))
+    return max(1, -(-T // max(rounds, 1))), nthr, K, stages
+
+
+def norm_vectors(D: int, nthr: int, K: int = 1) -> list:
+    """The 16-byte vectors of a row each of K13's threads takes, in the
+    order it adds their squares, for the first form's ``nthr`` threads, a
+    thread of the kernel standing for K of them: [thread][k] -> the vector
+    indices p, p + nthr, ... below D / 8 (at most ``MAX_VPT``) of the first
+    form's thread p = (warp + k * warps) * 32 + lane, warps = nthr / K / 32;
+    each k's vectors are summed on their own, as that thread's."""
+    nvec = D // VEC
+    n = nthr // K
+    return [[list(range((t // 32 + k * (n // 32)) * 32 + t % 32, nvec, nthr)) for k in range(K)]
+            for t in range(n)]
+
+
 _ARGS_ACT = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
@@ -127,10 +182,12 @@ def rmsnorm_quant(x: torch.Tensor, w: torch.Tensor, eps: float,
         raise ValueError(f"rmsnorm_quant: w {tuple(w.shape)} != ({D},)")
     q = torch.empty((T, D), dtype=torch.int8, device=x.device)
     s = torch.empty((T, 1), dtype=torch.float32, device=x.device)
+    check_tma_aligned("rmsnorm_quant", x=x, w=w)
+    grid, nthr, K, stages = plan_norm(T, D, sm_count(x.device))
     with torch.cuda.device(x.device):
         fn = _build.kernel("fused_act", "kvz_rmsnorm_quant", _ARGS_NORM)
         _build.check(fn(x.data_ptr(), w.data_ptr(), q.data_ptr(), s.data_ptr(),
-                        T, D, eps, int(gemma), stream_ptr(x.device)),
+                        T, D, eps, int(gemma), grid, nthr, K, stages, stream_ptr(x.device)),
                      "rmsnorm_quant")
     LAUNCHES["rmsnorm_quant"] += 1
     return q, s

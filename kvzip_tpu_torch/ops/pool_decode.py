@@ -110,11 +110,12 @@ def pool_decode_attend(q: torch.Tensor, k_pool: torch.Tensor,
                        layer_off: torch.Tensor, layer_rows: torch.Tensor,
                        k_tail: torch.Tensor, v_tail: torch.Tensor,
                        tail_len: TailLen, layer: int, *, scale: float,
-                       max_rows: int) -> torch.Tensor:
+                       max_rows: int, check_tail: bool = True) -> torch.Tensor:
     """q (T, H, D); k_pool/v_pool (P, D); row_head (P,) int32 (-1 padding);
     layer_off/layer_rows (L,) int32; k_tail/v_tail (L, Hkv, Tcap, D) with
     this step's T rows already written at ``tail_len``; ``max_rows`` bounds
-    every layer's live rows -> (T, H, D)."""
+    every layer's live rows; ``check_tail=False``: a tail vector is not read
+    back (``flat_decode.tail_arg``) -> (T, H, D)."""
     if not on_cuda(q, k_pool, v_pool, row_head, layer_off, layer_rows,
                    k_tail, v_tail):
         return pool_decode_attend_plain(q, k_pool, v_pool, row_head,
@@ -131,7 +132,8 @@ def pool_decode_attend(q: torch.Tensor, k_pool: torch.Tensor,
             or row_head.shape != (k_pool.shape[0],) or not 0 <= layer < L:
         raise ValueError(f"pool_decode_attend: bad shapes q {tuple(q.shape)} "
                          f"pool {tuple(k_pool.shape)} tail {tuple(k_tail.shape)}")
-    lens_t, scalar = tail_arg(tail_len, Hkv, T, Tcap, q.device, "pool_decode_attend")
+    lens_t, scalar = tail_arg(tail_len, Hkv, T, Tcap, q.device, "pool_decode_attend",
+                              check_tail)
     mtc, groups, S = int4_decode.plan(H * T, 1, max_rows, sm_count(q.device),
                                       int4_decode.BF_TILE)
     out = torch.empty_like(q)
@@ -155,7 +157,8 @@ def pool_decode_attend_int4(q: torch.Tensor, k_pool_q: torch.Tensor,
                             layer_off: torch.Tensor, layer_rows: torch.Tensor,
                             k_tail: torch.Tensor, v_tail: torch.Tensor,
                             tail_len: TailLen, layer: int, *, scale: float,
-                            max_rows: int, q8: bool = False) -> torch.Tensor:
+                            max_rows: int, q8: bool = False,
+                            check_tail: bool = True) -> torch.Tensor:
     """As :func:`pool_decode_attend` over an int4 pool: k_pool_q/v_pool_q
     (P, D//2) uint8 split-packed, k/v_pool_s/z (P,) float32 -> (T, H, D).
     ``q8``: the int8-attention mode (``attention.attend_int4_q8``)."""
@@ -181,7 +184,8 @@ def pool_decode_attend_int4(q: torch.Tensor, k_pool_q: torch.Tensor,
             or v_tail.shape != k_tail.shape or not 0 <= layer < L:
         raise ValueError(f"pool_decode_attend_int4: bad shapes q {tuple(q.shape)} "
                          f"pool {tuple(k_pool_q.shape)} tail {tuple(k_tail.shape)}")
-    lens_t, scalar = tail_arg(tail_len, Hkv, T, Tcap, q.device, "pool_decode_attend_int4")
+    lens_t, scalar = tail_arg(tail_len, Hkv, T, Tcap, q.device, "pool_decode_attend_int4",
+                              check_tail)
     mtc, groups, S = int4_decode.plan(H * T, 1, max_rows, sm_count(q.device))
     out = torch.empty_like(q)
     part_acc, part_ml, tickets = int4_decode.scratch(q.device, "pool_decode_attend_int4", 1,

@@ -5,8 +5,10 @@ Port of ``kvzip_tpu/pool.py`` (``PoolKV``, ``PoolInt4KV``). Layer ``l``'s kept r
 at pool rows ``[layer_off[l], layer_off[l] + layer_rows[l])`` in head-major
 order, each row tagged with its kv head in ``row_head`` (-1 on padding).
 Each segment is padded to a multiple of ``align``. Query/answer KV goes to
-per-layer tails ``(L, Hkv, Tcap, D)``; ``tail_len`` and ``seen`` are host
-ints, so snapshot and restore stay O(1).
+per-layer tails ``(L, Hkv, Tcap, D)``; ``tail_lens`` (Hkv,), ``tail_len``
+(its entry 0) and ``seen`` are int32 device tensors, as in ``cache.py``
+(:func:`~kvzip_tpu_torch.cache.device_counters`): snapshot and restore
+stay O(1) and a decode step reads nothing back.
 
 The port keeps K row-major ``(P, D)`` like V (the reference stores K
 transposed for the TPU's matrix unit) and uses a 64-row alignment, the key
@@ -25,7 +27,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from kvzip_tpu_torch.cache import Int4KVCache, KVCache
+from kvzip_tpu_torch.cache import Int4KVCache, KVCache, device_counters
 
 POOL_ALIGN = 64
 
@@ -40,10 +42,13 @@ class PoolKV:
     k_tail: torch.Tensor      # (L, Hkv, Tcap, D)
     v_tail: torch.Tensor
     lengths: torch.Tensor     # (L, Hkv) int32 kept context rows
-    tail_len: int
-    seen: int
+    tail_len: torch.Tensor    # () int32, tail_lens[0] (an int given)
+    seen: torch.Tensor        # () int32 (an int given)
     align: int
     max_rows: int             # max over layers of round_up(live, align)
+
+    def __post_init__(self):
+        device_counters(self, self.k_tail.shape[1])  # tail_lens (Hkv,) int32
 
     def used_bytes(self) -> float:
         rows = int(self.lengths.sum())
@@ -64,10 +69,13 @@ class PoolInt4KV:
     k_tail: torch.Tensor      # (L, Hkv, Tcap, D) model dtype
     v_tail: torch.Tensor
     lengths: torch.Tensor     # (L, Hkv) int32
-    tail_len: int
-    seen: int
+    tail_len: torch.Tensor    # () int32, tail_lens[0] (an int given)
+    seen: torch.Tensor        # () int32 (an int given)
     align: int
     max_rows: int
+
+    def __post_init__(self):
+        device_counters(self, self.k_tail.shape[1])  # tail_lens (Hkv,) int32
 
     def used_bytes(self) -> float:
         """Live context bytes: packed row plus its float32 scale and zero,
@@ -231,7 +239,7 @@ def refold_pool(cache):
     from kvzip_tpu_torch.ops.quant import quantize_int4
 
     L, H, Tcap, D = cache.k_tail.shape
-    n_tail = cache.tail_len
+    n_tail = int(cache.tail_len)
     is_int4 = isinstance(cache, PoolInt4KV)
     rows_old = cache.layer_rows.cpu().numpy().astype(np.int64)
     per_layer = rows_old + H * n_tail

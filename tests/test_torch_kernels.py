@@ -29,6 +29,11 @@ K10 and K11 (both modes) are also held with each segment's live rows
 (``seg_rows``) on padding-heavy stacks, where a count short of the live
 rows must give the reference without the rows past it; K14 in both its
 forms (clusters at small T, one CTA a row at large T) at four row widths.
+K13 runs on a grid sized to the card at T 1-4,097 and four widths, and
+under a graph replay. The engine's captured decode loop (one decode step a
+CUDA graph) gives the per-token loop's tokens, counters and launch counts
+on bf16, quantized, fused, W8A8-KV4 and flat states, with an eos inside a
+chunk of steps, and captures one step a state when two states alternate.
 K12 (the fused W4A8 decode layer) goes through ``parity`` with the output
 rtol on both outputs: its chained s8 quantizations may flip a value at a
 rounding boundary, which moves later sums by one s8 step of one input;
@@ -1471,3 +1476,136 @@ def test_silu_mul_quant_rejects_misaligned_rows(gen):
     with pytest.raises(ValueError, match="16-byte"):
         fused_act.silu_mul_quant(gate, gate)
     assert sum(LAUNCHES.values()) == 0
+
+
+# K13 (its grid sized to the card, rows every grid-th, ``plan_norm``) at T
+# 1-4,097: one row a CTA up to the grid's size, several rounds above (T
+# 2,304 and 4,097 at D 4,096), at llama3.1-8b's D 4,096, 5,120, the
+# narrowest row (8: one warp) and the widest (32,768: four vectors a
+# thread), with and without gemma's 1 + w; the reference with row 0's scale
+# doubled must fail (``_hold_quant``).
+@pytest.mark.parametrize("gemma", [False, True])
+@pytest.mark.parametrize("W", [4096, 5120, 8, 32768])
+@pytest.mark.parametrize("T", [1, 2, 3, 16, 17, 2304, 4097])
+def test_rmsnorm_quant_grid(gen, gemma, T, W):
+    from kvzip_tpu_torch.ops import fused_act
+
+    g = torch.Generator(device="cuda").manual_seed(T * 100003 + W)
+    x = (torch.randn(T, W, generator=g, device="cuda") * 3).to(torch.bfloat16)
+    w = (1 + 0.2 * torch.randn(W, generator=g, device="cuda")).to(torch.bfloat16)
+    got = fused_act.rmsnorm_quant(x, w, 1e-5, gemma=gemma)
+    assert _hold_quant(got, fused_act.rmsnorm_quant_plain(x, w, 1e-5, gemma=gemma))
+    assert LAUNCHES["rmsnorm_quant"] == 1
+
+
+@pytest.mark.parametrize("T", [1, 2304])
+def test_rmsnorm_quant_repeat_and_graph(gen, T):
+    """K13: repeated calls give the same bits, and a CUDA-graph replay (its
+    programmatic dependent launches back to back) equals the eager call."""
+    from kvzip_tpu_torch.ops import fused_act
+
+    x = _rn(gen, T, 4096) * 3
+    w = (1 + 0.2 * torch.randn(4096, generator=gen)).to("cuda", torch.bfloat16)
+
+    def run():
+        return torch.cat([t.float().reshape(T, -1)
+                          for t in fused_act.rmsnorm_quant(x, w, 1e-5)], dim=1)
+
+    first, second = run(), run()
+    assert torch.equal(first, second)
+    eager, replay = _graph_replay(run)
+    assert torch.equal(eager, replay)
+
+
+# The captured decode loop (``engine.DecodeStep``: one step a CUDA graph,
+# replayed; the host reads the answer every DECODE_CHUNK steps) against the
+# per-token loop (``generate_ids_per_token``) on the same state, on a small
+# model the kernels take (head_dim 128, G 4): the greedy tokens, the
+# counters after an ``update_cache`` turn and ``LAUNCHES`` equal, with no
+# early stop and with an eos the answer emits inside a chunk.
+LOOP_KINDS = {"bf16": {}, "quant": dict(kv_quant="int4", weight_quant="w4a8",
+                                       embed_quant="int8"),
+              "fused": dict(kv_quant="int4", weight_quant="w4a8", embed_quant="int8"),
+              "w8a8": dict(kv_quant="int4", weight_quant="w8a8", act_fused="pallas"),
+              "flat": dict(flat_decode="legacy")}
+
+
+def _loop_engine(kind, device="cuda", dtype=torch.bfloat16):
+    """The small model, its weights from a seed at 7x the init scale (at 1x
+    the greedy answer repeats one token)."""
+    from kvzip_tpu_torch.config import tiny_config
+    from kvzip_tpu_torch.engine import Engine
+    from kvzip_tpu_torch.models.params import init_params
+    from kvzip_tpu_torch.tokenizer import ByteTokenizer
+
+    cfg = tiny_config("llama", vocab_size=2048, hidden_size=1024, intermediate_size=2048,
+                      num_layers=2, num_heads=8, num_kv_heads=2, head_dim=128)
+    params = init_params(cfg, torch.Generator(device).manual_seed(1), device, dtype)
+    params["layers"] = {k: v * 7 if k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+                        else v for k, v in params["layers"].items()}
+    eng = Engine("tiny-llama", config=cfg, params=params, tokenizer=ByteTokenizer(2048),
+                 dtype=dtype, device=device, max_new_tokens=20, decode_budget=160,
+                 capacity_granularity=256, score_chunk_size=256, **LOOP_KINDS[kind])
+    eng.fuse_layer = "on" if kind == "fused" else "off"
+    eng.eos_ids = (-1,)
+    return eng
+
+
+def _loop_state(eng, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    st = eng.prefill(rng.integers(0, 2048, 700).astype(np.int32), prefill_chunk_size=512)
+    eng.prune(st, 0.3, "pair")
+    return st, rng.integers(0, 2048, 24).astype(np.int32)
+
+
+def _counters(cache):
+    return (int(cache.seen), cache.lengths.tolist(), int(getattr(cache, "tail_len", 0)))
+
+
+def _both_loops(eng, st, q):
+    """(tokens, LAUNCHES, counters) of an update_cache turn through each
+    loop, the state put back after each."""
+    from kvzip_tpu_torch.cache import restore, snapshot
+    from kvzip_tpu_torch.engine import Engine, generate_ids_per_token
+
+    snap, ids = snapshot(st.cache), st.prefill_ids
+    out = []
+    for fn in (Engine.generate_ids, generate_ids_per_token):
+        reset_launches()
+        toks = fn(eng, q, st, update_cache=True).tolist()
+        out.append((toks, dict(LAUNCHES), _counters(st.cache)))
+        restore(st.cache, snap)
+        st.prefill_ids = ids
+        st.snapshot()
+    return out
+
+
+@pytest.mark.parametrize("kind", list(LOOP_KINDS))
+def test_captured_loop_matches_per_token_loop(gen, kind):
+    eng = _loop_engine(kind)
+    st, q = _loop_state(eng, 5)
+    (t1, l1, c1), (t2, l2, c2) = _both_loops(eng, st, q)
+    assert t1 == t2 and len(t1) == eng.max_new_tokens and l1 == l2 and c1 == c2
+    assert len(st._steps) == 1 and next(iter(st._steps.values())).graph is not None
+    eos = next(t for i, t in enumerate(t1) if 2 <= i < 8 and t not in t1[:i])
+    eng.eos_ids = (eos,)
+    (t1, l1, c1), (t2, l2, c2) = _both_loops(eng, st, q)
+    assert t1 == t2 and len(t1) < 8 and l1 == l2 and c1 == c2
+
+
+def test_captured_loop_alternates_two_states(gen):
+    from kvzip_tpu_torch.engine import generate_ids_per_token
+
+    eng = _loop_engine("bf16")
+    (st1, q1), (st2, q2) = _loop_state(eng, 5), _loop_state(eng, 6)
+    want = {1: generate_ids_per_token(eng, q1, st1).tolist(),
+            2: generate_ids_per_token(eng, q2, st2).tolist()}
+    steps = {}
+    for _ in range(2):
+        for i, st, q in ((1, st1, q1), (2, st2, q2)):
+            assert eng.generate_ids(q, st).tolist() == want[i]
+            step = eng.decode_step(st)
+            assert steps.setdefault(i, step) is step  # captured once a state
+    assert steps[1] is not steps[2]
