@@ -65,6 +65,32 @@
    layouts are then held against each other: K10 against K3 layer by
    layer on the real rows (``cross_layout_attention``) and teacher-forced
    logits (``allkept_check`` between pool and flat).
+   Then batched serving (``kvzip_tpu_torch/serving.py``) on four contexts
+   of 8,192 random tokens, each scored once and pruned at pair 0.3, 0.4,
+   0.5 and 0.6 into the pool and, from a copy, into the flat layout:
+   ``serving_pool`` and ``serving_flat`` (``serving_path``):
+   ``batched_generate_ids`` over the four states (the smoke's three
+   24-token queries and one more, 32 new tokens), one merged cache and one
+   captured decode step for the batch; in that call K3 (K10 at n_seq 4)
+   must launch exactly once a layer a merged forward (the ingest and each
+   step) and no other kernel; the merged step is held against each
+   state's own on the same tokens and counters (``hold_merged``:
+   teacher-forced logits along the single-state answer, one token a
+   forward, within twice the larger of the single path's schedule noise
+   and the merged stack's distance from it at B = 1; argmax at clear
+   margins; the merged answer equal up to the first near-tie); every
+   state's counters must be back at their snapshot and its next answer
+   its first. Reported: the merged step's host-clock and device ms (per
+   step and divided by four) beside the sum of the four states' own
+   captured decodes; ``batched_generate_ids``' seconds beside the four
+   states' own ``generate_ids`` seconds, and the merge's and the
+   capture's seconds in it; the memory the merged and single-state graphs
+   hold, and the merged cache's bytes (``mem_bytes``).
+   ``serving_continuous``: ``Scheduler.run_continuous(segment=8)`` with
+   six requests over the four pool states at ``max_batch`` 4 (one
+   admitted mid-flight at least), each request held by ``hold_merged``
+   (the six in batches of four); each round's batch, admissions and
+   capture seconds.
 5. Quantized main path (the reference's flagship: int4 KV, W4A8 weights,
    int8 embedding and lm_head) at the same width and context, after the
    bf16 engine is freed: prefill, read-only int4 scoring, a dense int4
@@ -99,7 +125,11 @@
    states held to the reference's bound (error below 0.2 of the largest
    logit, argmax kept at clear top-2 margins), and K8 held against its
    plain version on the head's weights at every row count the phase sends
-   it. After the qwen2.5-7b engines
+   it. Then batched serving on four int4 pools of the same four contexts
+   (``serving_quant``: K7 once a layer a merged forward, K8 four times at
+   T = 4 rows on each step; ``serving_quant_q8`` with
+   ``attn_quant="int8"``: K7-q8 and no K7, held against the single-state
+   q8 step on the same states). After the qwen2.5-7b engines
    are freed, ``checkpoint_load``: a small qwen2 checkpoint (bf16, two
    shards) and its W8A8 export written by ``write_safetensors`` (the card
    has no ``safetensors``), loaded by ``Engine(<dir>)`` through the port's
@@ -128,7 +158,9 @@
    forward from Python and a host read a token); the two loops' answers
    must be equal. A replay runs no Python: the engine adds its capture's
    counts once a step that advanced, to ``LAUNCHES`` and to the smoke's
-   own tallies (forwards over a flat cache, K13's and K14's calls by rows),
+   own tallies (forwards over a flat cache, K13's and K14's calls by rows,
+   the serving module's merged forwards, K10/K11 calls by ``n_seq`` and
+   W4A8 linears by rows),
    which sit beside it in ``ops.COUNTS``; every launch assertion above
    holds on those counts. Decode counts are thus per advanced step, not
    raw launches: replays that advance nothing (a capture's warm-up, the
@@ -1465,10 +1497,23 @@ def allkept_check(eng, dense, full, query, dense_ans, full_eng=None,
     l_dense = teacher_forced(eng, dense, seq, step=False)
     l_steps = teacher_forced(eng, dense, seq, step=True)
     l_full = teacher_forced(full_eng, full, seq, step=full_step)
+    return hold_logits(phase, l_dense, l_steps, l_full, full_step, query, dense_ans, full_ans)
+
+
+def hold_logits(phase, l_dense, l_steps, l_full, full_step, query, dense_ans, full_ans,
+                floor=None, **extra):
+    """``allkept_check``'s holds on teacher-forced logits along
+    ``dense_ans``: the reference's in chunks (``l_dense``) and token by
+    token (``l_steps``), the other path's (``l_full``, compared with
+    ``l_steps`` where ``full_step``) and its own greedy answer
+    ``full_ans``. ``floor``: a noise floor that replaces the schedule's
+    where it is larger. ``extra`` goes into the logged line."""
+    import numpy as np
+
     for a in (l_dense, l_steps, l_full):
         if not np.isfinite(a).all():
             raise AssertionError("non-finite logits")
-    floor = float(np.abs(l_dense - l_steps).max())
+    floor = max(float(np.abs(l_dense - l_steps).max()), floor or 0.0)
     l_ref = l_steps if full_step else l_dense
     diff = float(np.abs(l_ref - l_full).max())
     top2 = np.sort(l_ref, axis=-1)[:, -2:]
@@ -1485,7 +1530,7 @@ def allkept_check(eng, dense, full, query, dense_ans, full_eng=None,
         argmax_agree=f"{int(agree.sum())}/{len(agree)}",
         greedy_equal=bool(np.array_equal(full_ans, dense_ans)),
         first_greedy_mismatch=first_mism, first_near_tie=first_near)
-    log(phase=phase, **stats)
+    log(phase=phase, **stats, **extra)
     if diff > 2 * floor:
         raise AssertionError(f"{phase}: logits differ by {diff} > 2 x {floor}")
     if not (agree | (gap <= diff)).all():
@@ -2158,6 +2203,275 @@ def windowed_pass(weng, eng, ctx_ids):
                 keep_share_exact=float(keep_e.float().mean()))
 
 
+# ------------------------------------------------------------------ serving
+SERVE_CTX = 8192
+SERVE_RATIOS = (0.3, 0.4, 0.5, 0.6)  # per-layer rows differ between requests
+
+
+class IdsTokenizer:
+    """Decodes an answer to its ids, so that the scheduler's answers
+    compare token for token (the byte tokenizer drops ids >= 256)."""
+
+    def decode(self, ids, skip_special_tokens=True):
+        import numpy as np
+
+        return " ".join(str(int(i)) for i in np.asarray(ids).reshape(-1))
+
+
+def serving_states(engines: dict, ctxs) -> dict:
+    """Each context prefilled and scored once by the first engine, then
+    pruned by every engine (pool, flat) at its ratio, each from its own copy
+    of the scored state: {name: states}."""
+    out = {name: [] for name in engines}
+    first = next(iter(engines.values()))
+    for ctx, ratio in zip(ctxs, SERVE_RATIOS):
+        st = first.prefill(ctx)
+        for i, (name, e) in enumerate(engines.items()):
+            s = st if i == len(engines) - 1 else dataclasses.replace(
+                st, cache=copy.deepcopy(st.cache), score=st.score.clone())
+            e.prune(s, ratio, "pair")
+            out[name].append(s)
+    return out
+
+
+def own_schedule(eng, st, query, ans):
+    """Logits (len(query) + len(ans), V) along state st's own schedule:
+    the query in the engine's chunks (as ``generate_ids`` ingests it), then
+    each answer token alone (what its captured ``DecodeStep`` replays);
+    the state restored."""
+    import numpy as np
+
+    from kvzip_tpu_torch.cache import restore, snapshot
+
+    snap = snapshot(st.cache)
+    out = [eng.forward_ids(query, st, update_cache=True, return_logits=True)] if len(query) else []
+    out += [eng.forward_ids(ans[i:i + 1], st, update_cache=True, return_logits=True)
+            for i in range(len(ans))]
+    restore(st.cache, snap)
+    return np.concatenate(out)
+
+
+def hold_merged(phase, eng, states, queries, singles, gots, alone=False):
+    """The merged decode step held against each state's own step on the
+    same tokens: teacher-forced logits along each request's single-state
+    answer, the queries through the merged stack in one padded pass and
+    each answer token a forward (``batched_logits(ingest=...)``: the
+    stack ``MergedDecodeStep`` captures, on ``batched_generate``'s
+    schedule), beside each state's own schedule (``own_schedule``). With
+    ``alone`` (continuous batching's schedule) each query goes through its
+    state's own chunks on both sides and only the answers through the
+    merged stack. Its launches count with the phase's. Two controls on the
+    same state and tokens: the merged stack at B = 1 (held within twice
+    the single path's schedule noise, its chunks against its tokens on the
+    first request), and a batch of B copies of the state, which changes
+    only the batch shape (the linears at B times the rows, the copies'
+    rows one after another in the merged cache) and carries no other
+    sequence's context: its largest distance from the state's own logits,
+    or the schedule noise where that is larger, is the request's floor.
+    ``hold_logits`` holds the merged difference within twice the floor,
+    the argmax wherever the margin is clear and the merged answer ``gots``
+    up to the first near-tie. In the int8-attention mode every side runs
+    q8. Returns each request's floors, difference and logit scale."""
+    import numpy as np
+
+    from kvzip_tpu_torch import serving
+    from kvzip_tpu_torch.cache import restore, snapshot
+
+    B = len(states)
+    if alone and len({id(st) for st in states}) != B:
+        raise ValueError("hold_merged(alone=True) ingests each state once: states must differ")
+    full = np.concatenate([queries[0], singles[0]])
+    noise = float(np.abs(teacher_forced(eng, states[0], full, step=False)
+                         - teacher_forced(eng, states[0], full, step=True)).max())
+    snaps = [snapshot(st.cache) for st in states]
+    if alone:  # the queries ingested alone, the same rows on both sides
+        heads = [eng.forward_ids(q, st, update_cache=True, return_logits=True)
+                 for q, st in zip(queries, states)]
+        seqs, ingest = [np.asarray(a) for a in singles], [0] * B
+        n_q = [0] * B
+    else:
+        heads = [np.zeros((0, 0), np.float32)] * B
+        seqs = [np.concatenate([q, a]) for q, a in zip(queries, singles)]
+        ingest = n_q = [len(q) for q in queries]
+
+    def merged(sts, ss, ks):
+        return serving.batched_logits(eng, ss, sts, ingest=ks)
+
+    def joined(head, tail):
+        return np.concatenate([head, tail]) if head.size else tail
+
+    l_merged = merged(states, seqs, ingest)
+    out = []
+    for b, (st, q, want, got) in enumerate(zip(states, queries, singles, gots)):
+        seq, head = seqs[b], heads[b]
+        l_single = joined(head, own_schedule(eng, st, seq[:n_q[b]], seq[n_q[b]:]))
+        one = joined(head, merged([st], [seq], ingest[b:b + 1])[0])
+        hold_logits(f"{phase}_batch1_{b}", l_single, l_single, one, True, q, want, want,
+                    floor=noise)
+        copies = merged([st] * B, [seq] * B, [ingest[b]] * B)
+        control = max(float(np.abs(joined(head, c) - l_single).max()) for c in copies)
+        batch1 = float(np.abs(one - l_single).max())
+        stats = hold_logits(f"{phase}_step_{b}", l_single, l_single,
+                            joined(head, l_merged[b]), True, q, want, np.asarray(got),
+                            floor=max(noise, control), schedule_noise=noise,
+                            batch1_control=batch1, copies_control=control)
+        out.append(dict(floor=stats["noise_floor"], schedule_noise=noise, batch1_control=batch1,
+                        copies_control=control, max_logit_diff=stats["max_logit_diff"],
+                        logit_absmax=stats["logit_absmax"]))
+    for st, snap in zip(states, snaps):
+        restore(st.cache, snap)
+    return out
+
+
+def device_used() -> int:
+    """Device memory in use, the allocator's cache emptied first (a graph's
+    private pool stays: it is held while its graph lives)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    return total - free
+
+
+def serving_path(eng, states, queries, tally, attn: str):
+    """Batched serving over B pruned states (``serving.batched_generate_ids``,
+    one merged cache, one captured step for the batch) against each state's
+    own captured decode (``generate_ids``). Holds: in the merged call every
+    launch is ``attn`` once a layer a merged forward (the ingest and each
+    step; for W4A8 also K8 four times a layer, at T = B rows on the steps),
+    and no other kernel (no K12, K13, K14, no kernel of another layout or
+    mode); the merged step against each state's own on the same tokens
+    (``hold_merged``, every request); every state's counters are back at
+    their snapshot, and its next answer is its first. Reports the merged
+    step's host-clock ms (t(31 steps) - t(1 step)) / 30 of
+    ``MergedBatch.decode`` on one ingested batch) and device ms (CUDA
+    events around 20 replays of its graph), each also divided by B, beside
+    the sum of the B states' own decode ms/token (``generate_ids``, host
+    clock, and ``step_device_ms``); ``batched_generate_ids``' seconds
+    beside the B states' own ``generate_ids`` seconds (the same queries and
+    budget, their steps captured before) and the seconds of a merge
+    (``MergedBatch``) and of a capture, which every call pays; the memory
+    the merged and the single-state graphs hold (``device_used`` growth
+    around their captures); the merged cache's bytes (``mem_bytes``)
+    beside the states'."""
+    import numpy as np
+    import torch
+
+    from kvzip_tpu_torch import ops, serving
+    from kvzip_tpu_torch.cache import restore, snapshot
+    from kvzip_tpu_torch.ops import LAUNCHES
+
+    L, B = eng.config.num_layers, len(states)
+    rep = {}
+    snaps = [snapshot(st.cache) for st in states]
+    used = device_used()
+    singles = [eng.generate_ids(q, st) for q, st in zip(queries, states)]
+    rep["single_graphs_bytes"] = device_used() - used
+    host, dev, gen_s = [], [], []
+    for q, st in zip(queries, states):
+        ans, t_long = timed(lambda: eng.generate_ids(q, st))
+        ans2, t_short = timed(lambda: eng.generate_ids(q, st, max_new_tokens=2))
+        host.append((t_long - t_short) / (len(ans) - len(ans2)) * 1e3)
+        gen_s.append(t_long)
+        dev.append(step_device_ms(eng, st))
+    rep.update(single_ms_per_token=host, single_sum_ms=sum(host), single_device_ms=dev,
+               single_device_sum_ms=sum(dev), single_generate_s=gen_s,
+               single_generate_sum_s=sum(gen_s))
+
+    l0, t0 = dict(LAUNCHES), dict(tally)
+    gots, rep["batched_generate_s"] = timed(
+        lambda: serving.batched_generate_ids(eng, queries, states, max_new_tokens=NEW_TOKENS))
+    launched = {k: v - l0.get(k, 0) for k, v in LAUNCHES.items() if v != l0.get(k, 0)}
+    counts = {k: v - t0.get(k, 0) for k, v in tally.items() if v != t0.get(k, 0)}
+    fwd = counts.get("merged_forwards", 0)
+    steps = fwd - 1
+    want = {attn: L * fwd}
+    if "w4a8_matmul_stacked_v2" in launched:
+        want["w4a8_matmul_stacked_v2"] = 4 * L * fwd
+        if counts.get(f"serving w4a8 T {B}", 0) != 4 * L * steps:
+            raise AssertionError(f"K8 at T = {B}: {counts} over {steps} merged steps")
+    if attn.startswith("flat") and counts.get(f"{attn} n_seq {B}", 0) != L * fwd:
+        raise AssertionError(f"{attn} not once a layer at n_seq {B}: {counts}")
+    rep.update(merged_forwards=fwd, merged_launches=launched, merged_tally=counts)
+    if launched != want:
+        raise AssertionError(f"merged launches {launched}, want {want} ({fwd} merged forwards)")
+    for st, snap in zip(states, snaps):
+        if any(not torch.equal(getattr(st.cache, f), v) for f, v in snap.items()):
+            raise AssertionError("a state's counters are not back at their snapshot")
+    rep["held"] = hold_merged(f"serving_{attn}", eng, states, queries, singles, gots)
+    if not np.array_equal(eng.generate_ids(queries[0], states[0]), singles[0]):
+        raise AssertionError("a state's answer changed after the merged batch")
+    rep.update(answers_equal=[bool(np.array_equal(a, g)) for a, g in zip(singles, gots)],
+               answer_tokens=[g.tolist() for g in gots])
+
+    # the merged step alone, on one ingested batch (no launch counted)
+    saved = ops.counts_snapshot()
+    batch, rep["merge_s"] = timed(lambda: serving.MergedBatch(eng, states))
+    batch.check_room(24 + NEW_TOKENS)
+    first = batch.ingest(queries)
+    snap = snapshot(batch.cache)
+    used = device_used()
+    step = batch.decode_step()
+    rep.update(capture_s=batch.capture_s, merged_graph_bytes=device_used() - used)
+    per = {}
+    for n in (1, NEW_TOKENS - 1, 1):
+        restore(batch.cache, snap)
+        (_, k), secs = timed(lambda: batch.decode(first, n))
+        per[n] = (secs, k)
+    step_ms = (per[NEW_TOKENS - 1][0] - per[1][0]) / (per[NEW_TOKENS - 1][1] - per[1][1]) * 1e3
+    step.done.fill_(1)
+    dev_ms = time_ms(lambda: step.graph.replay(), 20)
+    ops.counts_restore(saved)
+    rep.update(merged_step_ms=step_ms, merged_ms_per_token=step_ms / B,
+               merged_step_device_ms=dev_ms, merged_device_ms_per_token=dev_ms / B,
+               merged_mem_bytes=batch.cache.mem_bytes(),
+               states_mem_bytes=[st.cache.mem_bytes() for st in states])
+    del batch, step
+    return rep
+
+
+def continuous_path(eng, states, queries, tally):
+    """``Scheduler.run_continuous(segment=8)``: six requests over the B
+    pool states at ``max_batch`` B, budgets such that requests retire in
+    different rounds and queued ones are admitted mid-flight (a request
+    whose state is busy waits). Each request is held against its state's
+    own ``generate_ids`` with the same budget by ``hold_merged``, the six
+    in batches of B in submission order; every state restored. Reports
+    each round (batch, admissions, capture seconds)."""
+    import numpy as np
+
+    from kvzip_tpu_torch import serving
+
+    reqs = [(0, 8), (1, 16), (2, 24), (3, 32), (0, 16), (1, 8)]  # (state, max_new_tokens)
+    ieng = copy.copy(eng)
+    ieng.tokenizer = IdsTokenizer()
+    B = len(states)
+    sched = serving.Scheduler(ieng, max_batch=B)
+    for i, (s, mn) in enumerate(reqs):
+        sched.submit(queries[i], states[s], max_new_tokens=mn)
+    got, secs = timed(lambda: sched.run_continuous(segment=8))
+    got = [np.asarray([int(t) for t in g.split()], np.int64) for g in got]
+    singles = [eng.generate_ids(queries[i], states[s], max_new_tokens=mn)
+               for i, (s, mn) in enumerate(reqs)]
+    sts = [states[s] for s, _ in reqs]
+    held = []
+    for i in range(0, len(reqs), B):
+        held += hold_merged(f"serving_continuous_{i // B}", eng, sts[i:i + B],
+                            queries[i:i + B], singles[i:i + B], got[i:i + B], alone=True)
+    if not any(r["admitted"] for r in sched.rounds[1:]):
+        raise AssertionError(f"no request admitted mid-flight: {sched.rounds}")
+    if any(int(st.cache.tail_len) or int(st.cache.seen) != st.prefill_len for st in states):
+        raise AssertionError("a state was not restored after the continuous run")
+    return dict(seconds=secs, rounds=sched.rounds, held=held,
+                answers_equal=[bool(np.array_equal(a, g)) for a, g in zip(singles, got)])
+
+
+def add_launches(launches: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "kvzip_tpu_torch")):
         sys.exit("chip_smoke.py runs from a checkout of the repository "
@@ -2175,6 +2489,7 @@ def main() -> int:
     from kvzip_tpu_torch.engine import Engine
     from kvzip_tpu_torch.models import transformer as transformer_module
     from kvzip_tpu_torch import ops
+    from kvzip_tpu_torch import serving as serving_module
     from kvzip_tpu_torch.ops import LAUNCHES, reset_launches
     from kvzip_tpu_torch.tokenizer import ByteTokenizer
 
@@ -2230,18 +2545,27 @@ def main() -> int:
             tally["flat_forwards"] = tally.get("flat_forwards", 0) + 1
         return forward(params, cfg_, ids, cache, **fkw)
 
-    def by_rows(name):
-        real = getattr(transformer_module, name)
+    def tallied(module, name, key):
+        """module.name counted in the tally under key(its arguments)."""
+        real = getattr(module, name)
 
-        def call(x, *args, **kw):
-            key = f"{name} T {x.shape[0]}"
-            tally[key] = tally.get(key, 0) + 1
-            return real(x, *args, **kw)
-        return call
+        def call(*args, **kw):
+            k = key(*args, **kw)
+            tally[k] = tally.get(k, 0) + 1
+            return real(*args, **kw)
+        setattr(module, name, call)
 
     engine_module.forward = counting_forward
     for n in ("rmsnorm_quant", "silu_mul_quant"):
-        setattr(transformer_module, n, by_rows(n))
+        tallied(transformer_module, n, lambda x, *a, _n=n, **kw: f"{_n} T {x.shape[0]}")
+    # the serving module's merged forwards, K10/K11 calls by n_seq and W4A8
+    # linears by rows, counted the same way
+    tallied(serving_module, "_stack_forward", lambda *a, **kw: "merged_forwards")
+    for n in ("flat_decode_attend", "flat_decode_attend_int4"):
+        tallied(serving_module, n,
+                lambda *a, _n=n, **kw: f"{_n}{'_q8' if kw.get('q8') else ''} n_seq {kw['n_seq']}")
+    tallied(serving_module, "w4a8_linear_stacked",
+            lambda x, *a, **kw: f"serving w4a8 T {x.shape[0]}")
 
     def counted(tag, engine, kernel_names, path, *args, absent=(), per_flat_layer=None, **kw):
         """One path between a counter reset and a read; every kernel of the
@@ -2252,13 +2576,15 @@ def main() -> int:
         reset_launches()
         torch.cuda.reset_peak_memory_stats()
         before = dict(tally)
+        t0 = time.perf_counter()
         rep = path(engine, *args, **kw)
+        seconds = time.perf_counter() - t0
         counts = {k: v - before.get(k, 0) for k, v in tally.items() if v != before.get(k, 0)}
         flat_forwards = counts.pop("flat_forwards", 0)
         launches = {n: LAUNCHES[n] for n in (*kernel_names, *absent)}
         log(phase=tag, model=engine.name, layers=engine.config.num_layers, ctx=CTX, **rep,
             launches=launches, flat_forwards=flat_forwards, tally=counts,
-            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, phase_s=seconds)
         missing = [n for n in kernel_names if launches[n] == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the {tag}: {missing}")
@@ -2298,9 +2624,29 @@ def main() -> int:
     cross_layout_attention(keep["pool"].cache, keep["flat"].cache, cfg.num_heads, int4=False)
     allkept_check(eng, keep["pool"], keep["flat"], queries[0], keep["answers"][0],
                   full_eng=feng, phase="cross_layout_logits")
+    # batched serving: four contexts pruned at four ratios, merged
+    del keep
+    gc.collect()
+    t0 = time.perf_counter()
+    serve_ctxs = [rng.integers(0, cfg.vocab_size, SERVE_CTX).astype(np.int32) for _ in range(4)]
+    serve_q = queries + [rng.integers(0, cfg.vocab_size, 24).astype(np.int32) for _ in range(3)]
+    sv = serving_states({"flat": feng, "pool": eng}, serve_ctxs)
+    log(phase="serving_states", seconds=time.perf_counter() - t0, ctx=SERVE_CTX,
+        ratios=SERVE_RATIOS)
+    no_fused = ("w4a8_layer_fused", "rmsnorm_quant", "silu_mul_quant")
+    add_launches(launches, counted(
+        "serving_pool", eng, ("pool_decode_attend",), serving_path, sv["pool"], serve_q[:4],
+        tally, "pool_decode_attend", absent=(*flat_kernels, *no_fused)))
+    add_launches(launches, counted(
+        "serving_flat", feng, ("flat_decode_attend",), serving_path, sv["flat"], serve_q[:4],
+        tally, "flat_decode_attend", absent=(*pool_kernels, *no_fused)))
+    add_launches(launches, counted(
+        "serving_continuous", eng, ("pool_decode_attend",), continuous_path, sv["pool"],
+        serve_q, tally, absent=(*flat_kernels, *no_fused)))
+    del sv
     for r in kernels + kernels_f:
         r["launches"] = launches.get(r["name"], 0)
-    del eng, feng, keep
+    del eng, feng
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2376,6 +2722,20 @@ def main() -> int:
     cross_layout_attention(pool_st.cache, flat_st.cache, cfg.num_heads, int4=True)
     allkept_check(eng, pool_st, flat_st, queries[0], keep["answers"][0], full_eng=feng,
                   phase="cross_layout_logits_quant")
+    # batched serving on the int4 pool: exact attention, then int8
+    t0 = time.perf_counter()
+    sv = serving_states({"pool": eng}, serve_ctxs)
+    log(phase="serving_states_quant", seconds=time.perf_counter() - t0)
+    q8_kernels = ("pool_decode_attend_int4_q8", "flat_decode_attend_int4_q8")
+    add_launches(launches, counted(
+        "serving_quant", eng, ("pool_decode_attend_int4", "w4a8_matmul_stacked_v2"),
+        serving_path, sv["pool"], serve_q[:4], tally, "pool_decode_attend_int4",
+        absent=(*q8_kernels, *flat_kernels, *no_fused)))
+    add_launches(launches, counted(
+        "serving_quant_q8", qpeng, ("pool_decode_attend_int4_q8",), serving_path, sv["pool"],
+        serve_q[:4], tally, "pool_decode_attend_int4_q8",
+        absent=("pool_decode_attend_int4", *flat_kernels, *no_fused)))
+    del sv
     # K5's forms: the wrapper counts every launch, the decode form also apart
     launches["flash_attend_int4"] -= launches["flash_attend_int4_decode"]
     if not launches["flash_attend_int4"]:

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -120,40 +121,23 @@ class _Steps(dict):
         return _Steps()
 
 
-class DecodeStep:
-    """One greedy decode step over a state's cache with no host read (the
-    body of the reference's ``_decode_loop``): forward the token at step i
-    (``collect_logits="last"``), write its argmax at i + 1 in a device
-    token buffer, ``done |= (token in eos)``, i += 1; all of it, and the
-    cache's counters, only while the answer is running (not done and i <
-    the step budget); otherwise the step advances nothing and its rows land
-    past the live tail, where nothing reads them (the engine has reserved
-    the room). On the card it is captured once as a CUDA graph and
-    replayed; on the CPU the same step runs eagerly.
-
-    ``buf`` (int64): [i, done, token 0, token 1, ...]; the host reads its
-    head once a chunk of steps. Launch counts: the capture's counts
+class CapturedStep:
+    """A decode step (``self.step()``, no host read) over device buffers
+    ``buf`` = [i, ...]: captured once as a CUDA graph on the card and
+    replayed, run eagerly on the CPU. Launch counts: the capture's counts
     (``ops.counts_since``) are added once for each step that advanced
     (``ops.COUNTS``), as the eager calls would have counted them; a replay
-    that advances nothing counts none.
-    """
+    that advances nothing counts none."""
 
-    def __init__(self, engine: "Engine", state: KVState, q8: bool):
-        cache = state.cache
-        dev = engine.device
-        self.engine, self.cache, self.q8 = engine, cache, q8
-        rows = (cache.k_tail.shape[2] if isinstance(cache, DECODE_CACHES)
-                else cache.capacity)
-        self.buf = torch.zeros(rows + 3, dtype=torch.int64, device=dev)
-        self.i, self.done, self.tokens = self.buf[0:1], self.buf[1:2], self.buf[2:]
-        self.budget = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.eos = torch.tensor(engine.eos_ids, dtype=torch.int64, device=dev)
+    def _capture(self, dev: torch.device, done: torch.Tensor) -> None:
+        """A warm-up step that advances nothing (``done`` set) builds every
+        kernel library and scratch buffer outside the capture; then the
+        capture (``capture_s`` seconds, both)."""
         self.graph = None
         self.steps_read = 0  # i at the last host read
-        # a warm-up step that advances nothing (done set): builds every
-        # kernel library and scratch buffer outside the capture
         saved = ops.counts_snapshot()
-        self.done.fill_(1)
+        done.fill_(1)
+        t0 = time.perf_counter()
         if dev.type == "cuda":
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
@@ -167,10 +151,58 @@ class DecodeStep:
             self.delta = ops.counts_since(warm)
             # the ticket buffers the graph replays, alive while it is
             self.tickets = ops.ticket_buffers()
+            torch.cuda.synchronize(dev)
         else:
             self.step()
             self.delta = ops.counts_since(saved)
+        self.capture_s = time.perf_counter() - t0
         ops.counts_restore(saved)
+
+    def step(self) -> None:
+        raise NotImplementedError
+
+    def _run(self, n: int, head_len: int) -> list:
+        """n steps (replays on the card), then one host read of ``buf``'s
+        first ``head_len`` entries (``buf[0]`` the step index i)."""
+        saved = None if self.graph is not None else ops.counts_snapshot()
+        for _ in range(n):
+            if self.graph is not None:
+                self.graph.replay()
+            else:
+                self.step()
+        head = self.buf[:head_len].tolist()
+        if saved is not None:
+            ops.counts_restore(saved)
+        ops.counts_add(self.delta, head[0] - self.steps_read)
+        self.steps_read = head[0]
+        return head
+
+
+class DecodeStep(CapturedStep):
+    """One greedy decode step over a state's cache with no host read (the
+    body of the reference's ``_decode_loop``): forward the token at step i
+    (``collect_logits="last"``), write its argmax at i + 1 in a device
+    token buffer, ``done |= (token in eos)``, i += 1; all of it, and the
+    cache's counters, only while the answer is running (not done and i <
+    the step budget); otherwise the step advances nothing and its rows land
+    past the live tail, where nothing reads them (the engine has reserved
+    the room). Captured and counted as :class:`CapturedStep` says.
+
+    ``buf`` (int64): [i, done, token 0, token 1, ...]; the host reads its
+    head once a chunk of steps.
+    """
+
+    def __init__(self, engine: "Engine", state: KVState, q8: bool):
+        cache = state.cache
+        dev = engine.device
+        self.engine, self.cache, self.q8 = engine, cache, q8
+        rows = (cache.k_tail.shape[2] if isinstance(cache, DECODE_CACHES)
+                else cache.capacity)
+        self.buf = torch.zeros(rows + 3, dtype=torch.int64, device=dev)
+        self.i, self.done, self.tokens = self.buf[0:1], self.buf[1:2], self.buf[2:]
+        self.budget = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.eos = torch.tensor(engine.eos_ids, dtype=torch.int64, device=dev)
+        self._capture(dev, self.done)
 
     def step(self) -> None:
         eng = self.engine
@@ -198,19 +230,9 @@ class DecodeStep:
     def run(self, n: int) -> Tuple[int, bool, list]:
         """n steps (replays on the card), then one host read: (i, done, the
         tokens 0..i)."""
-        saved = None if self.graph is not None else ops.counts_snapshot()
-        for _ in range(n):
-            if self.graph is not None:
-                self.graph.replay()
-            else:
-                self.step()
-        head = self.buf[:3 + min(self.steps_read + n, self.tokens.numel() - 1)].tolist()
-        i, done = head[0], bool(head[1])
-        if saved is not None:
-            ops.counts_restore(saved)
-        ops.counts_add(self.delta, i - self.steps_read)
-        self.steps_read = i
-        return i, done, head[2:3 + i]
+        head = self._run(n, 3 + min(self.steps_read + n, self.tokens.numel() - 1))
+        i = head[0]
+        return i, bool(head[1]), head[2:3 + i]
 
 
 class Engine:

@@ -50,6 +50,13 @@ class PoolKV:
     def __post_init__(self):
         device_counters(self, self.k_tail.shape[1])  # tail_lens (Hkv,) int32
 
+    def mem_bytes(self) -> int:
+        """Bytes allocated (the reference's count): K and V pools, row_head
+        and both tails."""
+        ctx = ((self.k_pool.numel() + self.v_pool.numel()) * self.k_pool.element_size()
+               + self.row_head.numel() * self.row_head.element_size())
+        return ctx + self.k_tail.numel() * self.k_tail.element_size() * 2
+
     def used_bytes(self) -> float:
         rows = int(self.lengths.sum())
         return float(rows * self.k_pool.shape[1] * self.k_pool.element_size() * 2)
@@ -76,6 +83,14 @@ class PoolInt4KV:
 
     def __post_init__(self):
         device_counters(self, self.k_tail.shape[1])  # tail_lens (Hkv,) int32
+
+    def mem_bytes(self) -> int:
+        """Bytes allocated (the reference's count): packed K and V, the four
+        float32 scale and zero arrays, row_head and both tails."""
+        ctx = (self.k_pool_q.numel() + self.v_pool_q.numel()
+               + 4 * self.k_pool_s.numel() * self.k_pool_s.element_size()
+               + self.row_head.numel() * self.row_head.element_size())
+        return ctx + self.k_tail.numel() * self.k_tail.element_size() * 2
 
     def used_bytes(self) -> float:
         """Live context bytes: packed row plus its float32 scale and zero,

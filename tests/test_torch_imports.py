@@ -24,7 +24,7 @@ def test_import_loads_no_jax_and_no_reference():
             "kvzip_tpu_torch.ops.windowed_attend, kvzip_tpu_torch.ops.flat_decode, "
             "kvzip_tpu_torch.ops.w4a8_fused, "
             "kvzip_tpu_torch.cache, kvzip_tpu_torch.models.params, "
-            "kvzip_tpu_torch.models.transformer\n"
+            "kvzip_tpu_torch.models.transformer, kvzip_tpu_torch.serving\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'kvzip_tpu' or m.startswith('kvzip_tpu.')"
             " or m.split('.')[0] in ('safetensors', 'ml_dtypes')]\n"

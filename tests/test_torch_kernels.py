@@ -1530,7 +1530,7 @@ LOOP_KINDS = {"bf16": {}, "quant": dict(kv_quant="int4", weight_quant="w4a8",
               "flat": dict(flat_decode="legacy")}
 
 
-def _loop_engine(kind, device="cuda", dtype=torch.bfloat16):
+def _loop_engine(kind, device="cuda", dtype=torch.bfloat16, **options):
     """The small model, its weights from a seed at 7x the init scale (at 1x
     the greedy answer repeats one token)."""
     from kvzip_tpu_torch.config import tiny_config
@@ -1545,18 +1545,19 @@ def _loop_engine(kind, device="cuda", dtype=torch.bfloat16):
                         else v for k, v in params["layers"].items()}
     eng = Engine("tiny-llama", config=cfg, params=params, tokenizer=ByteTokenizer(2048),
                  dtype=dtype, device=device, max_new_tokens=20, decode_budget=160,
-                 capacity_granularity=256, score_chunk_size=256, **LOOP_KINDS[kind])
+                 capacity_granularity=256, score_chunk_size=256,
+                 **{**LOOP_KINDS[kind], **options})
     eng.fuse_layer = "on" if kind == "fused" else "off"
     eng.eos_ids = (-1,)
     return eng
 
 
-def _loop_state(eng, seed):
+def _loop_state(eng, seed, ratio=0.3):
     import numpy as np
 
     rng = np.random.default_rng(seed)
     st = eng.prefill(rng.integers(0, 2048, 700).astype(np.int32), prefill_chunk_size=512)
-    eng.prune(st, 0.3, "pair")
+    eng.prune(st, ratio, "pair")
     return st, rng.integers(0, 2048, 24).astype(np.int32)
 
 
@@ -1609,3 +1610,41 @@ def test_captured_loop_alternates_two_states(gen):
             step = eng.decode_step(st)
             assert steps.setdefault(i, step) is step  # captured once a state
     assert steps[1] is not steps[2]
+
+
+# Batched serving (``serving.MergedBatch``): three pruned states at ratios
+# 0.4-0.6 merged into one pool (bf16, int4) or one flat cache (bf16, int4,
+# n_seq 3), the queries ingested together, then 12 steps of the merged
+# decode step as a CUDA graph; the same step run eagerly from the same
+# counters gives the same tokens and the same launch counts.
+SERVING_KINDS = {"pool": ("bf16", {}), "int4_pool": ("quant", {}),
+                 "flat": ("flat", {}), "int4_flat": ("quant", dict(flat_decode="legacy"))}
+
+
+@pytest.mark.parametrize("kind", list(SERVING_KINDS))
+def test_merged_decode_captured_step_matches_eager(gen, kind):
+    from kvzip_tpu_torch import serving
+    from kvzip_tpu_torch.cache import restore, snapshot
+
+    loop_kind, options = SERVING_KINDS[kind]
+    eng = _loop_engine(loop_kind, **options)
+    states, queries = zip(*(_loop_state(eng, 5 + i, r) for i, r in enumerate((0.4, 0.5, 0.6))))
+    batch = serving.MergedBatch(eng, states)
+    batch.check_room(24 + 12)
+    first = batch.ingest(queries)
+    snap = snapshot(batch.cache)
+    reset_launches()
+    toks, n = batch.decode(first, 12, stop_on_eos=False)
+    captured = dict(LAUNCHES)
+    step = batch.step
+    assert step.graph is not None and n == 12 and toks.shape == (3, 13)
+    attn = ("flat_decode_attend" if "flat" in kind else "pool_decode_attend") + (
+        "_int4" if "int4" in kind else "")
+    assert captured[attn] == 12 * eng.config.num_layers
+    restore(batch.cache, snap)
+    reset_launches()
+    step.start(first, 12, stop_on_eos=False)
+    for _ in range(12):
+        step.step()
+    assert int(step.i) == 12 and dict(LAUNCHES) == captured
+    assert (step.tokens[:13].T.cpu().numpy() == toks).all()
