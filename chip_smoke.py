@@ -65,6 +65,23 @@
    layouts are then held against each other: K10 against K3 layer by
    layer on the real rows (``cross_layout_attention``) and teacher-forced
    logits (``allkept_check`` between pool and flat).
+   Then the dense routes on the same engine's weights: ``retain_path``
+   (``kv_type="retain"``: one prefill and scoring of the context, pruned at
+   pair 0.3, 0.6 and 1.0 on the same state, the three queries each through
+   the captured step over the masked route, which must launch nothing;
+   ms/token host clock and device beside the pool's; retain 0.3 held
+   against a copy of the scored state compacted with ``flat_decode="off"``
+   on the same scores: the same rows per head, teacher-forced logits within
+   twice the schedule noise; retain 1.0 against the unpruned state),
+   ``compact_path`` (that compacted state: K4 at T 1, 8 and K1 at T 16, 24,
+   64 held against their plain versions on its far-apart lengths, then the
+   three queries with no eos stop, whose K1 and K4 launches must be
+   exactly the ladder's), ``head_path`` (the retain state's scores saved
+   as head scores, loaded with ``load_score=True``, head 0.6 evicted as a
+   lengths update, no row moved; the same kernel holds on its lengths;
+   held against the retain state's head 0.6) and ``state_io``
+   (``save_state`` of the main path's pool, ``load_state`` into a fresh
+   state: arrays, counters and answer equal; seconds, bytes).
    Then batched serving (``kvzip_tpu_torch/serving.py``) on four contexts
    of 8,192 random tokens, each scored once and pruned at pair 0.3, 0.4,
    0.5 and 0.6 into the pool and, from a copy, into the flat layout:
@@ -90,7 +107,10 @@
    six requests over the four pool states at ``max_batch`` 4 (one
    admitted mid-flight at least), each request held by ``hold_merged``
    (the six in batches of four); each round's batch, admissions and
-   capture seconds.
+   capture seconds. ``serving_dense``: four retain states of the same
+   contexts (pair 0.3-0.6) through the same ``serving_path``: one dense
+   cache over 4 x Hkv heads (``_merge_dense``), the masked route, no kernel
+   launched, every request held as above.
 5. Quantized main path (the reference's flagship: int4 KV, W4A8 weights,
    int8 embedding and lm_head) at the same width and context, after the
    bf16 engine is freed: prefill, read-only int4 scoring, a dense int4
@@ -99,7 +119,10 @@
    on the int4 pool and the full int4 pool baseline. Counters zeroed
    before and read after; K2 and K5-K8 (K5 in both forms) must have run.
    Then the int4 flat
-   layout on the same kept rows (K11), the same flat state with
+   layout on the same kept rows (K11), then ``compact_path_quant`` (a copy
+   of the scored int4 state compacted with ``flat_decode="off"``: K5's
+   decode form at T 1, 4 held on its lengths, its launches exact on the
+   three queries), then the same flat state with
    ``attn_quant="int8"`` (K11-q8) and the pool with it (K7-q8), each its
    own counted phase that must not run the other modes' or layout's
    kernels (K11 and K11-q8 once a layer of each flat forward), with the
@@ -166,7 +189,12 @@
    raw launches: replays that advance nothing (a capture's warm-up, the
    rest of a chunk after the answer ends, ``step_device_ms``'s timing
    replays) count none.
-7. Prints the kernels line, then as the last line
+7. ``llama3.2-1b`` (16 layers, head_dim 64, which no kernel takes) at full
+   width, random weights from the seed, its own 16,384-token context:
+   prefill, scoring, pair 0.3 prune (a compaction: ``_use_flat`` is False
+   at head_dim 64), three queries, all through the masked route; the
+   phase must launch no kernel; "dense" held against "blockwise" logits.
+8. Prints the kernels line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -192,6 +220,8 @@ QUANT = dict(kv_quant="int4", weight_quant="w4a8", embed_quant="int8")
 # QServe's W8A8-KV4 geometry (get_model_id("llama3-8b-4m-w8a8kv4"))
 W8_MODEL = "llama3.1-8b"
 W8 = dict(kv_quant="int4", weight_quant="w8a8", act_fused="pallas")
+# head_dim 64: no kernel takes it, the masked route carries the model
+L1_MODEL = "llama3.2-1b"
 # a v1 W4A8 tree passed in as it is (every projection through K15)
 V1 = dict(kv_quant="int4", weight_quant="none", embed_quant="int8")
 # H100 SXM data-sheet peaks (dense bf16 and int8 tensor cores, HBM3)
@@ -1564,7 +1594,7 @@ def step_device_ms(eng, state, iters: int = 20) -> float:
     return time_ms(step.graph.replay, iters)
 
 
-def decode_ms_per_token(eng, state, queries):
+def decode_ms_per_token(eng, state, queries, eager: bool = True):
     """Per query, (t(32 new tokens) - t(2 new tokens)) / 30 on the host
     clock, after one warm-up call of each loop on the state (the first
     captures the step): ``ms_per_token`` through ``generate_ids`` (the
@@ -1573,16 +1603,19 @@ def decode_ms_per_token(eng, state, queries):
     loop (``generate_ids_per_token``: a forward issued from Python and a
     host read a token), their means and per-query values; and the step's
     device time (``step_device_ms``). The two loops' answers must be equal
-    token for token."""
+    token for token. ``eager`` False leaves the per-token loop out (a state
+    whose loops were held already)."""
     import numpy as np
 
     from kvzip_tpu_torch.engine import generate_ids_per_token
 
     rep = {"ms_per_token": [], "eager_ms_per_token": []}
     answers = []
-    for loop, key in ((eng.generate_ids, "ms_per_token"),
-                      (lambda q, st, **kw: generate_ids_per_token(eng, q, st, **kw),
-                       "eager_ms_per_token")):
+    loops = [(eng.generate_ids, "ms_per_token")]
+    if eager:
+        loops.append((lambda q, st, **kw: generate_ids_per_token(eng, q, st, **kw),
+                      "eager_ms_per_token"))
+    for loop, key in loops:
         loop(queries[0], state, max_new_tokens=2)  # warm-up
         for i, qids in enumerate(queries):
             ans, t_long = timed(lambda: loop(qids, state))
@@ -1596,7 +1629,7 @@ def decode_ms_per_token(eng, state, queries):
                 raise AssertionError(f"the captured step's answer {answers[i].tolist()} is not "
                                      f"the per-token loop's {ans.tolist()}")
     rep["device_ms_per_token"] = step_device_ms(eng, state)
-    out = {k: float(np.mean(v)) for k, v in rep.items() if isinstance(v, list)}
+    out = {k: float(np.mean(v)) for k, v in rep.items() if isinstance(v, list) and v}
     out.update(device_ms_per_token=rep["device_ms_per_token"],
                per_query=rep["ms_per_token"], eager_per_query=rep["eager_ms_per_token"])
     return out, answers
@@ -1713,7 +1746,7 @@ def main_path(eng, ctx_ids, queries, quant: bool = False, keep: dict = None):
     rep["dense_answer_tokens"] = dense_ans.tolist()
     rep["answer_tokens"] = [a.tolist() for a in answers]
     if keep is not None:
-        keep.update(pool=st, answers=answers)
+        keep.update(pool=st, answers=answers, pool_ms=rep["evicted_ms_per_token"])
     return rep
 
 
@@ -2386,12 +2419,12 @@ def serving_path(eng, states, queries, tally, attn: str):
     counts = {k: v - t0.get(k, 0) for k, v in tally.items() if v != t0.get(k, 0)}
     fwd = counts.get("merged_forwards", 0)
     steps = fwd - 1
-    want = {attn: L * fwd}
+    want = {attn: L * fwd} if attn else {}
     if "w4a8_matmul_stacked_v2" in launched:
         want["w4a8_matmul_stacked_v2"] = 4 * L * fwd
         if counts.get(f"serving w4a8 T {B}", 0) != 4 * L * steps:
             raise AssertionError(f"K8 at T = {B}: {counts} over {steps} merged steps")
-    if attn.startswith("flat") and counts.get(f"{attn} n_seq {B}", 0) != L * fwd:
+    if attn and attn.startswith("flat") and counts.get(f"{attn} n_seq {B}", 0) != L * fwd:
         raise AssertionError(f"{attn} not once a layer at n_seq {B}: {counts}")
     rep.update(merged_forwards=fwd, merged_launches=launched, merged_tally=counts)
     if launched != want:
@@ -2399,7 +2432,7 @@ def serving_path(eng, states, queries, tally, attn: str):
     for st, snap in zip(states, snaps):
         if any(not torch.equal(getattr(st.cache, f), v) for f, v in snap.items()):
             raise AssertionError("a state's counters are not back at their snapshot")
-    rep["held"] = hold_merged(f"serving_{attn}", eng, states, queries, singles, gots)
+    rep["held"] = hold_merged(f"serving_{attn or 'dense'}", eng, states, queries, singles, gots)
     if not np.array_equal(eng.generate_ids(queries[0], states[0]), singles[0]):
         raise AssertionError("a state's answer changed after the merged batch")
     rep.update(answers_equal=[bool(np.array_equal(a, g)) for a, g in zip(singles, gots)],
@@ -2465,6 +2498,283 @@ def continuous_path(eng, states, queries, tally):
         raise AssertionError("a state was not restored after the continuous run")
     return dict(seconds=secs, rounds=sched.rounds, held=held,
                 answers_equal=[bool(np.array_equal(a, g)) for a, g in zip(singles, got)])
+
+
+# ------------------------------------------------- the dense routes (retain,
+# compaction, head-level zero-copy eviction, the masked route)
+def dense_kernel_parity(cache, num_heads: int, tag: str):
+    """The dense-cache kernels at the shapes a compacted or head-evicted
+    cache gives them (its heads' lengths far apart): K4 (T 1, 8) and K1 (T
+    16, 24, 64) on a bf16 cache, K5's decode form (T 1, 4) on an int4 one,
+    at its first and last layers, the T new rows written at each head's
+    length in a copy of the layer; each held by ``ops.parity`` against its
+    plain version. Its launches are not counted."""
+    import torch
+
+    from kvzip_tpu_torch.ops import LAUNCHES, OUT_RTOL, flash, flash_int4, parity, ragged_decode
+    from kvzip_tpu_torch.ops.quant import quantize_int4
+
+    saved = dict(LAUNCHES)
+    int4 = hasattr(cache, "k_q")
+    L, Hkv, C = cache.lengths.shape[0], cache.lengths.shape[1], cache.capacity
+    D = 128
+    dev = cache.lengths.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    worst = {}
+    for l in (0, L - 1):
+        lens = cache.lengths[l]
+        for T in ((1, 4) if int4 else (1, 8, 16, 24, 64)):
+            q = rn(T, num_heads, D)
+            if int4:
+                layer = [a[l].clone() for a in (cache.k_q, cache.k_s, cache.k_z, cache.v_q,
+                                                 cache.v_s, cache.v_z)]
+                for i in (0, 3):
+                    p, s_, z = quantize_int4(rn(Hkv, T, D), pack="split")
+                    for h, n in enumerate(lens.tolist()):
+                        layer[i][h, n:n + T], layer[i + 1][h, n:n + T] = p[h], s_[h, :, 0]
+                        layer[i + 2][h, n:n + T] = z[h, :, 0]
+                got = flash_int4.flash_attend_int4(q, *layer, lens, scale=D ** -0.5)
+                want = flash_int4.flash_attend_int4_plain(q.float(), *layer, lens,
+                                                          scale=D ** -0.5)
+                name = "flash_attend_int4_decode"
+            else:
+                kd, vd = cache.k[l].clone(), cache.v[l].clone()
+                for h, n in enumerate(lens.tolist()):
+                    kd[h, n:n + T], vd[h, n:n + T] = rn(T, D), rn(T, D)
+                kern = ragged_decode.ragged_decode_attend if T <= 8 else flash.flash_attend
+                name = kern.__name__
+                got = kern(q, kd, vd, lens, scale=D ** -0.5)
+                want = ragged_decode.ragged_decode_attend_plain(q.float(), kd.float(), vd.float(),
+                                                                lens, scale=D ** -0.5)
+            r = parity(got, want, OUT_RTOL)
+            if not r["ok"]:
+                raise AssertionError(f"{tag}: {name} T={T} layer {l} on lengths "
+                                     f"{lens.tolist()}: {r}")
+            worst[f"{name} T {T}"] = max(worst.get(f"{name} T {T}", 0.0), r["worst_to_tol"])
+    LAUNCHES.update(saved)
+    log(phase=f"{tag}_kernel_parity", capacity=C, lengths_min=int(cache.lengths.min()),
+        lengths_max=int(cache.lengths.max()), worst_to_tol=worst)
+    return worst
+
+
+def no_launches(what: str, fn):
+    """fn()'s result; fails if it launched any kernel (the masked route
+    runs torch ops only)."""
+    from kvzip_tpu_torch.ops import LAUNCHES
+
+    before = dict(LAUNCHES)
+    out = fn()
+    ran = {k: v - before[k] for k, v in LAUNCHES.items() if v != before[k]}
+    if ran:
+        raise AssertionError(f"{what} launched kernels: {ran}")
+    return out
+
+
+def retain_path(reng, eng, ceng, ctx_ids, queries, keep):
+    """``Engine(kv_type="retain")``: one prefill and scoring (K1, K2: the
+    unpruned retain cache takes the kernels), then prune at pair 0.3, 0.6
+    and 1.0 on the same state, three queries each through the captured
+    step over the masked route (``attn_impl`` "blockwise" above 4,096 rows
+    a head), which must launch no kernel; ms/token host clock and device
+    beside the pool's (the main path's, ``keep["pool_ms"]``), the per-token
+    loop's at 0.3 only (its answers held equal to the step's there). Holds: at
+    0.3, a copy of the scored state compacted (``flat_decode="off"``,
+    ``ceng``) keeps the same rows per head and its teacher-forced logits
+    (K1/K4) stay within twice the retain state's schedule noise
+    (``allkept_check``); at 1.0, against a copy of the unpruned state
+    (K1/K4). The retain and compacted states stay in ``keep``."""
+    import torch
+
+    rep = {}
+    st, rep["prefill_s"] = timed(lambda: reng.prefill(ctx_ids, do_score=False))
+    _, rep["scoring_s"] = timed(lambda: reng.scoring(st, st.ctx_ids))
+
+    def evict_copy():
+        return dataclasses.replace(st, kv_type="evict", cache=copy.deepcopy(st.cache),
+                                   score=st.score.clone())
+
+    unpruned, compacted = evict_copy(), evict_copy()
+    for ratio in (0.3, 0.6, 1.0):
+        (_, kept), secs = timed(lambda: reng.prune(st, ratio, "pair"))
+        ms, answers = no_launches("retain decode", lambda: decode_ms_per_token(
+            reng, st, queries, eager=ratio == 0.3))
+        rep[f"pair_{ratio}"] = dict(prune_s=secs, kept_ratio=kept, attn_impl=reng._impl(st),
+                                    ms_per_token=ms, answer_tokens=[a.tolist() for a in answers])
+        if ratio == 0.3:
+            _, rep["compact_prune_s"] = timed(lambda: ceng.prune(compacted, 0.3, "pair"))
+            rows = st.cache.valid[:, :, :st.prefill_len].sum(-1).to(torch.int32)
+            if not torch.equal(rows, compacted.cache.lengths):
+                raise AssertionError("retain 0.3 keeps other rows than the compaction")
+            rep["vs_compact"] = allkept_check(reng, st, compacted, queries[0], answers[0],
+                                              full_eng=ceng, phase="retain_vs_compact")
+        elif ratio == 1.0:
+            if not st.cache.valid.all():
+                raise AssertionError("retain 1.0 masked a row")
+            ans = eng.generate_ids(queries[0], unpruned)
+            rep["vs_unpruned"] = allkept_check(eng, unpruned, st, queries[0], ans, full_eng=reng,
+                                               phase="retain_vs_unpruned")
+    rep["pool_ms_per_token"] = keep["pool_ms"]
+    rep["kv_bytes_allocated"] = dict(retain=st.cache.mem_bytes(),
+                                     compact=compacted.cache.mem_bytes())
+    keep.update(retain=st, compact=compacted)
+    return rep
+
+
+def compact_path(ceng, st, queries, quant: bool):
+    """The dense compaction (``flat_decode="off"``) of a scored state at pair
+    0.3 (pruned here unless it is already): the kernels at its shapes
+    (``dense_kernel_parity``), then the three queries with no eos stop
+    (32 tokens each), whose launches must be exactly the ladder's: bf16 K1
+    once a layer a query chunk of more than 8 rows, K4 once a layer a
+    shorter chunk and a decode step; int4 K5 once a layer a chunk and a
+    step, in its decode form at 16 rows or fewer; no other attention
+    kernel. Then ms/token (host clock, device)."""
+    import numpy as np
+
+    from kvzip_tpu_torch.engine import ladder_split
+    from kvzip_tpu_torch.ops import LAUNCHES
+
+    rep = {}
+    if not st.pruned:
+        _, rep["prune_s"] = timed(lambda: ceng.prune(st, 0.3, "pair"))
+    cache = st.cache
+    rep.update(capacity=cache.capacity, kv_bytes_pruned=int(cache.used_bytes()),
+               kv_bytes_allocated=cache.mem_bytes(), attn_impl=ceng._impl(st))
+    rep["kernel_parity"] = dense_kernel_parity(cache, ceng.config.num_heads,
+                                               "compact_quant" if quant else "compact")
+    neng = copy.copy(ceng)
+    neng.eos_ids = (-1,)
+    L, steps = ceng.config.num_layers, NEW_TOKENS - 1
+    before = dict(LAUNCHES)
+    for q in queries:
+        if len(neng.generate_ids(q, st)) != NEW_TOKENS:
+            raise AssertionError("an answer with no eos stopped early")
+    got = {k: v - before[k] for k, v in LAUNCHES.items()
+           if v != before[k] and k not in ("w4a8_matmul_stacked_v2",)}
+    chunks = [c for q in queries for c in ladder_split(len(q))]
+    big = sum(c > (16 if quant else 8) for c in chunks)
+    small = len(chunks) - big + steps * len(queries)
+    want = (dict(flash_attend_int4=L * (big + small), flash_attend_int4_decode=L * small)
+            if quant else dict(flash_attend=L * big, ragged_decode_attend=L * small))
+    want = {k: v for k, v in want.items() if v}
+    rep.update(launches_exact=got, launches_want=want)
+    if got != want:
+        raise AssertionError(f"compacted decode launched {got}, want {want}")
+    rep["ms_per_token"], answers = decode_ms_per_token(ceng, st, queries)
+    rep["answer_tokens"] = [np.asarray(a).tolist() for a in answers]
+    return rep
+
+
+def head_path(heng, reng, ctx_ids, queries, keep):
+    """The head-level zero-copy eviction: the retain state's own scores
+    saved as head scores (``prune.save_head_score``, each head's maximum)
+    in a temporary directory, two prefills of the context with
+    ``load_score=True`` (no scoring), one pruned at head 0.6 by ``heng``
+    (evict, ``flat_decode="off"``: dropped heads' lengths set to the
+    sink, the K and V buffers kept), one by the retain engine. Holds: no
+    row moved, each head keeps the whole context or none, the kernels at
+    its lengths (``dense_kernel_parity``), and its teacher-forced logits
+    (K1/K4) within twice the retain state's schedule noise
+    (``allkept_check``). ms/token of both."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from kvzip_tpu_torch import prune as prune_lib
+
+    rep = {}
+    tmp = tempfile.mkdtemp()
+    try:
+        prune_lib.save_head_score(keep.pop("retain").score, heng.name, "smoke", 0, out_dir=tmp)
+        hst, rep["prefill_s"] = timed(lambda: heng.prefill(ctx_ids, load_score=True,
+                                                           head_score_dirs=[tmp]))
+        rst = reng.prefill(ctx_ids, load_score=True, head_score_dirs=[tmp])
+    finally:
+        shutil.rmtree(tmp)
+    k_buf, live = hst.cache.k, hst.cache.used_bytes()
+    (_, kept), rep["prune_s"] = timed(lambda: heng.prune(hst, 0.6, "head"))
+    reng.prune(rst, 0.6, "head")
+    ctx_rows = set((hst.cache.lengths - hst.sink).unique().tolist())
+    if hst.cache.k is not k_buf or not ctx_rows <= {0, hst.ctx_len}:
+        raise AssertionError(f"head prune moved rows or kept part of a head: {ctx_rows}")
+    rows = rst.cache.valid[:, :, :rst.prefill_len].sum(-1).to(torch.int32)
+    if not torch.equal(rows, hst.cache.lengths):
+        raise AssertionError("the head-level evict keeps other rows than retain")
+    rep.update(kept_ratio=kept, heads_kept=int((hst.cache.lengths > hst.sink).sum()),
+               kv_bytes_live=[int(live), int(hst.cache.used_bytes())])
+    rep["kernel_parity"] = dense_kernel_parity(hst.cache, heng.config.num_heads, "head")
+    rep["ms_per_token"], answers = decode_ms_per_token(heng, hst, queries)
+    rep["retain_ms_per_token"], r_answers = no_launches(
+        "retain decode", lambda: decode_ms_per_token(reng, rst, queries, eager=False))
+    rep["held"] = allkept_check(reng, rst, hst, queries[0], r_answers[0], full_eng=heng,
+                                phase="head_vs_retain")
+    return rep
+
+
+def state_io(eng, st, queries):
+    """``save_state`` of the main path's pruned pool into a temporary
+    directory, ``load_state`` into a fresh state: every array and counter
+    equal, the same answer; seconds and bytes of each side."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    rep = {}
+    with tempfile.TemporaryDirectory() as d:
+        path, rep["save_s"] = timed(lambda: eng.save_state(st, os.path.join(d, "pool")))
+        rep["file_bytes"] = os.path.getsize(path) + os.path.getsize(path[:-4] + ".json")
+        got, rep["load_s"] = timed(lambda: eng.load_state(path))
+    for f in ("k_pool", "v_pool", "row_head", "layer_off", "layer_rows", "k_tail", "v_tail",
+              "lengths", "tail_lens", "seen"):
+        if not torch.equal(getattr(got.cache, f), getattr(st.cache, f)):
+            raise AssertionError(f"loaded pool differs in {f}")
+    want = eng.generate_ids(queries[0], st)
+    ans = eng.generate_ids(queries[0], got)
+    if not np.array_equal(ans, want):
+        raise AssertionError(f"loaded state answers {ans.tolist()}, saved {want.tolist()}")
+    rep.update(mem_bytes=got.cache.mem_bytes(), answer_tokens=ans.tolist())
+    return rep
+
+
+def llama1b_path(eng, ctx_ids, queries):
+    """``llama3.2-1b`` (head_dim 64, which no kernel takes): the engine
+    routes every attention to the masked route (``_impl``: "blockwise"),
+    and a pair 0.3 evict prune compacts (``_use_flat`` False), as the
+    reference does. Prefill, scoring, prune, three queries; the phase must
+    launch no kernel. Holds: finite non-negative scores of the context's
+    shape; "dense" against "blockwise" (the same attention, other blocks)
+    teacher-forced within twice the schedule noise (``allkept_check``)."""
+    import torch
+
+    cfg = eng.config
+    rep = {}
+    st, rep["prefill_s"] = timed(lambda: eng.prefill(ctx_ids, do_score=False))
+    rep["attn_impl_prefill"] = eng._impl(st)
+    _, rep["scoring_s"] = timed(lambda: eng.scoring(st, st.ctx_ids))
+    score = st.score
+    if score.shape != (cfg.num_layers, cfg.num_kv_heads, len(ctx_ids)) \
+            or not torch.isfinite(score).all() or not (score >= 0).all():
+        raise AssertionError(f"bad scores: {tuple(score.shape)}")
+    rep["kv_bytes_dense"] = int(st.cache.used_bytes())
+    (_, kept), rep["prune_s"] = timed(lambda: eng.prune(st, 0.3, "pair"))
+    if type(st.cache).__name__ != "KVCache":
+        raise AssertionError(f"llama3.2-1b pruned into {type(st.cache).__name__}")
+    rep.update(kept_ratio=kept, capacity=st.cache.capacity, attn_impl=eng._impl(st),
+               kv_bytes_pruned=int(st.cache.used_bytes()))
+    rep["ms_per_token"], answers = decode_ms_per_token(eng, st, queries)
+    deng = copy.copy(eng)
+    deng.attn_impl = "dense"
+    ans = deng.generate_ids(queries[0], st)
+    rep["dense_vs_blockwise"] = allkept_check(deng, st, st, queries[0], ans, full_eng=eng,
+                                              phase="llama1b_dense_vs_blockwise")
+    rep["answer_tokens"] = [a.tolist() for a in answers]
+    return rep
 
 
 def add_launches(launches: dict, counts: dict) -> None:
@@ -2624,6 +2934,26 @@ def main() -> int:
     cross_layout_attention(keep["pool"].cache, keep["flat"].cache, cfg.num_heads, int4=False)
     allkept_check(eng, keep["pool"], keep["flat"], queries[0], keep["answers"][0],
                   full_eng=feng, phase="cross_layout_logits")
+    # the dense routes: retain, the compaction, the head-level zero-copy
+    # eviction (the masked route launches nothing), the state file
+    reng = variant(eng, kv_type="retain")
+    ceng = variant(eng, flat_decode="off")
+    every_kernel = tuple(LAUNCHES)
+    layouts = (*pool_kernels, *flat_kernels)
+    # K1 and K2 on the prefill and scoring, K4 (and K1) on the holds' compacted
+    # and unpruned copies; the retain decodes themselves launch nothing
+    add_launches(launches, counted("retain_path", reng,
+                                   ("flash_attend", "fused_scores", "ragged_decode_attend"),
+                                   retain_path, eng, ceng, ctx_ids, queries, keep,
+                                   absent=layouts))
+    add_launches(launches, counted("compact_path", ceng, ("flash_attend", "ragged_decode_attend"),
+                                   compact_path, keep.pop("compact"), queries, False,
+                                   absent=(*layouts, "fused_scores")))
+    add_launches(launches, counted("head_path", ceng, ("flash_attend", "ragged_decode_attend"),
+                                   head_path, reng, ctx_ids, queries, keep,
+                                   absent=(*layouts, "fused_scores")))
+    add_launches(launches, counted("state_io", eng, ("pool_decode_attend",), state_io,
+                                   keep["pool"], queries, absent=flat_kernels))
     # batched serving: four contexts pruned at four ratios, merged
     del keep
     gc.collect()
@@ -2644,6 +2974,12 @@ def main() -> int:
         "serving_continuous", eng, ("pool_decode_attend",), continuous_path, sv["pool"],
         serve_q, tally, absent=(*flat_kernels, *no_fused)))
     del sv
+    # four retain states on the same contexts: the dense batch path (the
+    # masked route over 4 x Hkv heads, no kernel)
+    sv = serving_states({"retain": reng}, serve_ctxs)
+    add_launches(launches, counted("serving_dense", reng, (), serving_path, sv["retain"],
+                                   serve_q[:4], tally, None, absent=every_kernel))
+    del sv, reng, ceng
     for r in kernels + kernels_f:
         r["launches"] = launches.get(r["name"], 0)
     del eng, feng
@@ -2661,12 +2997,20 @@ def main() -> int:
                     "flash_attend_int4_extra", "pool_decode_attend_int4",
                     "w4a8_matmul_stacked_v2"),
                    absent=("pool_decode_attend_int4_q8", *flat_kernels), quant=True, keep=keep)
+    scored_q = dataclasses.replace(keep["scored"], cache=copy.deepcopy(keep["scored"].cache),
+                                   score=keep["scored"].score.clone())
     feng = variant(eng, flat_decode="legacy")
     launches.update(counted("flat_path_quant", feng, ("flat_decode_attend_int4",), flat_path,
                             keep, queries, True,
                             absent=("flat_decode_attend_int4_q8", *pool_kernels),
                             per_flat_layer="flat_decode_attend_int4"))
     pool_st, flat_st = keep["pool"], keep["flat"]
+    add_launches(launches, counted(
+        "compact_path_quant", variant(eng, flat_decode="off"),
+        ("flash_attend_int4", "flash_attend_int4_decode", "w4a8_matmul_stacked_v2"),
+        compact_path, scored_q, queries, True,
+        absent=("flash_attend", "ragged_decode_attend", *pool_kernels, *flat_kernels)))
+    del scored_q
     qfeng = variant(feng, attn_quant="int8")
     launches.update(counted(
         "flat_path_quant_q8", qfeng, ("flat_decode_attend_int4_q8",), q8_path, flat_st,
@@ -2787,6 +3131,18 @@ def main() -> int:
     for r in kernels_w8:
         r["launches"] = launches[r["name"]]
     kernels += kernels_w8 + kernels_f
+    del eng, weng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # llama3.2-1b (head_dim 64): every attention on the masked route
+    cfg = resolve_config(L1_MODEL)
+    eng = Engine(L1_MODEL, config=cfg, dtype=torch.bfloat16, device="cuda",
+                 max_new_tokens=NEW_TOKENS, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    ctx_ids = rng.integers(0, cfg.vocab_size, CTX).astype(np.int32)
+    queries = [rng.integers(0, cfg.vocab_size, 24).astype(np.int32) for _ in range(3)]
+    counted("llama1b_path", eng, (), llama1b_path, ctx_ids, queries, absent=tuple(LAUNCHES))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "rms_want",
             "worst_to_tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

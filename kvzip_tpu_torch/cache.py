@@ -5,7 +5,10 @@ Port of ``kvzip_tpu/cache.py``. Dense: fixed-capacity buffers
 ``k/v (L, Hkv, C, D)`` with per-(layer, head) live lengths. Appends write in
 place at ``lengths`` (where the reference donated its buffers to XLA), and
 attention reads only ``[0, lengths)``, so dropping a query's rows is an O(1)
-restore of the counters.
+restore of the counters. A dense cache also holds ``valid (L, Hkv, C)``,
+the retain path's mask (all True until :func:`set_retain_mask` writes it
+in place), which the masked attention route applies; :func:`compact`
+evicts physically into a smaller dense cache (``flat_decode="off"``).
 
 Flat (the reference's round-3 layout, ``Engine(flat_decode="legacy")``):
 every layer holds the same ``R_pad`` rows, its kept rows first, head-major
@@ -56,19 +59,33 @@ def device_counters(cache, n_heads: int = 0) -> None:
         cache.tail_len = cache.tail_lens[0]
 
 
+def _init_valid(cache, rows: torch.Tensor) -> None:
+    """A dense cache's retain mask (L, Hkv, C) bool, all True unless given."""
+    if cache.valid is None:
+        cache.valid = torch.ones(rows.shape[:3], dtype=torch.bool, device=rows.device)
+
+
 @dataclasses.dataclass
 class KVCache:
     k: torch.Tensor        # (L, Hkv, C, D)
     v: torch.Tensor        # (L, Hkv, C, D)
     lengths: torch.Tensor  # (L, Hkv) int32 live rows
     seen: torch.Tensor     # () int32 tokens processed (an int given)
+    # (L, Hkv, C) bool: the retain path's mask, which the masked route
+    # applies as -inf (all True unless a retain prune wrote it)
+    valid: torch.Tensor = None
 
     def __post_init__(self):
         device_counters(self)
+        _init_valid(self, self.k)
 
     @property
     def capacity(self) -> int:
         return self.k.shape[2]
+
+    def mem_bytes(self) -> int:
+        """Bytes held by the K and V buffers (the reference's count)."""
+        return self.k.numel() * self.k.element_size() * 2
 
     def used_bytes(self) -> float:
         rows = int(self.lengths.sum())
@@ -94,13 +111,20 @@ class Int4KVCache:
     v_z: torch.Tensor
     lengths: torch.Tensor  # (L, Hkv) int32 live rows
     seen: torch.Tensor     # () int32 (an int given)
+    valid: torch.Tensor = None  # (L, Hkv, C) bool, as KVCache's
 
     def __post_init__(self):
         device_counters(self)
+        _init_valid(self, self.k_s)
 
     @property
     def capacity(self) -> int:
         return self.k_q.shape[2]
+
+    def mem_bytes(self) -> int:
+        """Bytes held by packed K and V and their four scale and zero
+        arrays (the reference's count)."""
+        return (self.k_q.numel() + self.k_s.numel() * self.k_s.element_size() * 2) * 2
 
     def used_bytes(self) -> float:
         """Live bytes of K and V: packed row plus its scale and zero."""
@@ -240,16 +264,24 @@ _DENSE_INT4 = dict(k_flat_q="k_q", v_flat_q="v_q", k_flat_s="k_s", k_flat_z="k_z
                    v_flat_s="v_s", v_flat_z="v_z")
 
 
+def full_keep(keep: torch.Tensor, sink: int, C: int) -> torch.Tensor:
+    """(L, Hkv, C) bool: the sink rows, then ``keep`` (L, Hkv, ctx_len) over
+    the context; rows past the context False."""
+    L, H, ctx_len = keep.shape
+    full = torch.zeros((L, H, C), dtype=torch.bool, device=keep.device)
+    full[:, :, :sink] = True
+    full[:, :, sink:sink + ctx_len] = keep.bool()
+    return full
+
+
 def flat_plan(keep: torch.Tensor, sink: int, r_pad: int, C: int):
     """The flat gather plan of the reference's ``_build_flat``: per layer,
     the dense (head * C + row) index of each flat row (kept rows first,
     head-major, in their original order), whether it is kept, the kept rows
     per (layer, head) with the sink, and ``row_head``. A layer holds
     ``min(r_pad, Hkv * C)`` rows, as the reference's slice gives."""
-    L, H, ctx_len = keep.shape
-    keep_full = torch.zeros((L, H, C), dtype=torch.bool, device=keep.device)
-    keep_full[:, :, :sink] = True
-    keep_full[:, :, sink:sink + ctx_len] = keep.bool()
+    L, H, _ = keep.shape
+    keep_full = full_keep(keep, sink, C)
     flat = keep_full.reshape(L, H * C)
     take = torch.sort((~flat).to(torch.uint8), dim=1, stable=True).indices[:, :r_pad]
     kept = torch.gather(flat, 1, take)
@@ -438,3 +470,46 @@ def restore(cache, snap: dict) -> None:
     tensors a captured decode step reads."""
     for f, v in snap.items():
         getattr(cache, f).copy_(v)
+
+
+def set_retain_mask(cache, keep: torch.Tensor, sink: int) -> None:
+    """The retain path's prune (reference ``set_retain_mask``): ``valid``
+    becomes [sink rows | ``keep`` over the context | every later row], and
+    the masked route applies it as -inf. Written IN PLACE, so a pruned
+    state can be pruned again at another ratio and a captured step keeps
+    reading the same tensor."""
+    cache.valid.fill_(True)
+    cache.valid[:, :, sink:sink + keep.shape[-1]] = keep.bool()
+
+
+def compact(cache, keep: torch.Tensor, sink: int, new_capacity: int):
+    """Physical eviction into a dense cache of ``new_capacity`` rows a head
+    (reference ``compact``, ``flat_decode="off"``): each (layer, head)'s
+    kept rows, sink included, moved to its front in their original order
+    by a stable sort, rows past its new length zeroed. One layer at a time
+    (the gather index stays one layer's). Returns a new
+    :class:`KVCache` or :class:`Int4KVCache` (the port's row-major packed
+    rows) whose ``valid`` is all True; the input cache is left intact."""
+    L, H, C = cache.valid.shape
+    keep_full = full_keep(keep, sink, C)
+    take = torch.sort((~keep_full).to(torch.uint8), dim=-1, stable=True).indices
+    take = take[:, :, :new_capacity]
+    lengths = keep_full.sum(dim=-1).to(torch.int32)
+    live = (torch.arange(take.shape[-1], device=take.device)[None, None]
+            < lengths[..., None])
+    heads = torch.arange(H, device=take.device)[:, None]
+
+    def gather(a):
+        out = a.new_zeros((L, H, new_capacity, *a.shape[3:]))
+        n = take.shape[-1]
+        for l in range(L):
+            rows = a[l][heads, take[l]]
+            mask = live[l].reshape(H, n, *([1] * (a.dim() - 3)))
+            out[l, :, :n] = rows.masked_fill(~mask, 0)
+        return out
+
+    common = dict(lengths=lengths, seen=cache.seen)
+    if isinstance(cache, Int4KVCache):
+        return Int4KVCache(**{f: gather(getattr(cache, f)) for f in
+                              ("k_q", "v_q", "k_s", "k_z", "v_s", "v_z")}, **common)
+    return KVCache(k=gather(cache.k), v=gather(cache.v), **common)

@@ -1,9 +1,14 @@
 """KVzip engine of the port: prefill -> reconstruction scoring -> prune ->
-decode over the pool (or the legacy flat layout).
+decode over the pool (or the legacy flat layout, the compacted dense cache,
+or a dense cache with a retain mask).
 
-Port of the ``Engine``/``KVState`` main path of ``kvzip_tpu/engine.py``
-(evict path; bf16 or float32 weights and KV, random from a seed, passed in
-(a v1 W4A8 tree with ``weight_quant="none"`` runs as it is) or loaded from
+Port of the ``Engine``/``KVState`` of ``kvzip_tpu/engine.py`` (the evict
+and retain paths, ``kv_type``; the prune's branches and the dense caches'
+attention route, ``_use_flat`` and ``_impl``, as the reference's without
+its backend tests; ``save_state``/``load_state`` in the port's own file
+format, ``state_file.py``; bf16 or float32 weights and KV, random from a
+seed, passed in (a v1 W4A8 tree with ``weight_quant="none"`` runs as it
+is) or loaded from
 a safetensors checkpoint directory given as ``model_name``, with the
 quantized options ``kv_quant="int4"``, ``weight_quant="w8a8"`` or
 ``"w4a8"`` and ``embed_quant="int8"`` or ``"int4h"`` (int8 embedding, int4
@@ -22,12 +27,15 @@ card and replayed, and the host reads the tokens and the end flag once
 every ``DECODE_CHUNK`` steps; on the CPU the same step runs eagerly in the
 same loop.
 
-Device rule: on a CUDA device every attention op, every W4A8 linear below
-512 rows and every fused activation quantization launches its kernel
-(K1-K16); on the CPU the same calls run the plain PyTorch
-versions. Both devices build the pool (or the flat layout) at prune time,
-and both honour ``attn_quant`` (the reference ignores it on the CPU, where
-its kernels run in interpret mode).
+Device rule: on a CUDA device every attention op of the kernels' route,
+every W4A8 linear below 512 rows and every fused activation quantization
+launches its kernel (K1-K16); on the CPU the same calls run the plain
+PyTorch versions. The masked route (``attn_impl`` "dense"/"blockwise":
+a pruned retain cache or a head_dim not a multiple of 128, as the
+reference's XLA route) is torch ops on either device. Both devices
+build the pool (or the flat layout) at prune time, and both honour
+``attn_quant`` (the reference ignores it on the CPU, where its kernels run
+in interpret mode).
 """
 
 from __future__ import annotations
@@ -42,11 +50,12 @@ import torch
 
 from kvzip_tpu_torch import ops
 from kvzip_tpu_torch import prune as prune_lib
+from kvzip_tpu_torch import state_file
 from kvzip_tpu_torch import template as template_lib
 from kvzip_tpu_torch.cache import (FlatInt4KV, FlatKV, Int4KVCache, KVCache,
                                    build_flat, build_flat_int4, build_flat_int4_stepped,
-                                   init_cache, init_int4_cache, refold_flat, restore,
-                                   snapshot, synthetic_full_flat)
+                                   compact, init_cache, init_int4_cache, refold_flat,
+                                   restore, set_retain_mask, snapshot, synthetic_full_flat)
 from kvzip_tpu_torch.config import ModelConfig, resolve_config
 from kvzip_tpu_torch.models.params import prepare_params
 from kvzip_tpu_torch.models.transformer import check_supported, forward
@@ -109,6 +118,12 @@ class KVState:
 
     def restore_snapshot(self):
         restore(self.cache, self._snap)
+
+    def mem_gb(self) -> float:
+        return round(self.cache.mem_bytes() / 1e9, 3)
+
+    def used_gb(self) -> float:
+        return round(self.cache.used_bytes() / 1e9, 3)
 
 
 class _Steps(dict):
@@ -192,10 +207,10 @@ class DecodeStep(CapturedStep):
     head once a chunk of steps.
     """
 
-    def __init__(self, engine: "Engine", state: KVState, q8: bool):
+    def __init__(self, engine: "Engine", state: KVState, q8: bool, impl: str):
         cache = state.cache
         dev = engine.device
-        self.engine, self.cache, self.q8 = engine, cache, q8
+        self.engine, self.cache, self.q8, self.impl = engine, cache, q8, impl
         rows = (cache.k_tail.shape[2] if isinstance(cache, DECODE_CACHES)
                 else cache.capacity)
         self.buf = torch.zeros(rows + 3, dtype=torch.int64, device=dev)
@@ -209,7 +224,7 @@ class DecodeStep(CapturedStep):
         running = (self.done == 0) & (self.i < self.budget)
         ids = self.tokens.index_select(0, self.i)
         res = forward(eng.params, eng.config, ids, self.cache, collect_logits="last",
-                      attn_q8=self.q8, fuse_layer=eng.fuse_layer,
+                      attn_q8=self.q8, fuse_layer=eng.fuse_layer, attn_impl=self.impl,
                       advance=running.to(torch.int32).reshape(()))
         nxt = torch.argmax(res.logits[-1]).reshape(1)
         at = self.i + 1
@@ -236,7 +251,7 @@ class DecodeStep(CapturedStep):
 
 
 class Engine:
-    """KVzip engine (reference ``kvzip_tpu.engine.Engine``, evict path)."""
+    """KVzip engine (reference ``kvzip_tpu.engine.Engine``)."""
 
     def __init__(self, model_name: str, kv_type: str = "evict", *,
                  config: Optional[ModelConfig] = None, params=None,
@@ -247,38 +262,42 @@ class Engine:
                  weight_quant: str = "none", embed_quant: str = "none",
                  act_fused: str = "xla", scoring_attend: str = "full",
                  flat_decode: str = "auto", attn_quant: str = "none",
-                 seed: int = 0):
-        """``act_fused``: "xla" (the W8A8 norm, activation and quantization
-        as separate ops) or "pallas" (fused, K13 and K14; the values keep
-        the reference's names). ``scoring_attend``: "full" (exact scoring)
-        or "window" (the O(ctx * window) approximation through K9).
-        ``flat_decode``: the decode layout the prune builds, "auto" or "on"
-        the pool, "legacy" the reference's round-3 flat layout (K10/K11);
-        "off" (the dense compaction) is not ported. ``attn_quant``: "none"
-        or "int8", the int8 attention (K7/K11 ``q8``) on an int4 pool or
-        flat cache."""
+                 attn_impl: str = "auto", seed: int = 0):
+        """``kv_type``: "evict" (the prune evicts rows) or "retain" (the
+        prune stores a mask and keeps every row, so one prefill can be
+        pruned again at other ratios). ``act_fused``: "xla" (the W8A8 norm,
+        activation and quantization as separate ops) or "pallas" (fused,
+        K13 and K14; the values keep the reference's names).
+        ``scoring_attend``: "full" (exact scoring) or "window" (the
+        O(ctx * window) approximation through K9). ``flat_decode``: the
+        evict path's decode layout (:meth:`_use_flat`), "auto" (the pool
+        where head_dim is a multiple of 128) or "on" the pool, "legacy" the
+        reference's round-3 flat layout (K10/K11), "off" the dense
+        compaction (``cache.compact``). ``attn_quant``: "none" or "int8",
+        the int8 attention (K7/K11 ``q8``) on an int4 pool or flat cache.
+        ``attn_impl``: a dense cache's attention, "auto" (:meth:`_impl`),
+        "flash" (the kernels), "dense" or "blockwise" (the masked route)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device: pass device='cpu' to run the plain versions")
         if self.device.type == "cuda" and dtype != torch.bfloat16:
             raise TypeError("the CUDA kernels take bfloat16 weights and KV")
-        if kv_type != "evict":
-            raise NotImplementedError("the port covers kv_type='evict' only")
+        if kv_type not in ("evict", "retain"):
+            raise ValueError(f"kv_type: {kv_type!r}")
+        if attn_impl not in ("auto", "flash", "dense", "blockwise"):
+            raise ValueError(f"attn_impl: {attn_impl!r}")
         if kv_quant not in ("none", "int4"):
             raise ValueError(f"kv_quant: {kv_quant!r}")
         if act_fused not in ("xla", "pallas"):
             raise ValueError(f"act_fused: {act_fused!r}")
         if flat_decode not in ("auto", "on", "legacy", "off"):
             raise ValueError(f"flat_decode: {flat_decode!r}")
-        if flat_decode == "off":
-            raise NotImplementedError(
-                "flat_decode='off' (the dense evict compaction, `compact`) and the "
-                "retain path are not ported yet")
         if attn_quant not in ("none", "int8"):
             raise ValueError(f"attn_quant: {attn_quant!r}")
         self.flat_decode = flat_decode
         self.attn_quant = attn_quant
+        self.attn_impl = attn_impl
         self.config = config or resolve_config(model_name)
         if act_fused == "pallas":
             self.config = dataclasses.replace(self.config, fused_act=True)
@@ -347,6 +366,42 @@ class Engine:
         reference's ``_impl`` choice of "flash_q8")."""
         return self.attn_quant == "int8" and isinstance(state.cache, (PoolInt4KV, FlatInt4KV))
 
+    def _use_flat(self, state: KVState) -> bool:
+        """Does an evict prune build a decode layout (the pool, or the flat
+        layout with ``flat_decode="legacy"``)? The reference's rule without
+        its backend test: the port builds both layouts on either device.
+        Otherwise the prune compacts the dense cache (``cache.compact``), or
+        at head level updates its lengths."""
+        if self.flat_decode == "off":
+            return False
+        if self.kv_quant == "int4" and self.config.head_dim != 128:
+            return False
+        if self.flat_decode in ("on", "legacy"):
+            return True
+        return self.config.head_dim % 128 == 0
+
+    def _impl(self, state: KVState) -> str:
+        """The attention of the state's cache (the reference's ``_impl``):
+        a pool or flat cache runs its kernels; a dense cache "flash" (the
+        kernels) unless it is a pruned retain cache (the kernels read no
+        mask) or head_dim is not a multiple of 128, else the masked route:
+        "dense" up to 4,096 rows a head, "blockwise" above. The reference
+        also sends a capacity that is not a multiple of 128 to the masked
+        route (a Mosaic block limit); the port's kernels take any
+        capacity, so it does not. ``attn_impl`` other than "auto" is taken
+        as given, but "flash" on a pruned retain cache raises."""
+        if isinstance(state.cache, DECODE_CACHES):
+            return "flash"
+        needs_valid = state.pruned and state.kv_type == "retain"
+        if self.attn_impl != "auto":
+            if self.attn_impl == "flash" and needs_valid:
+                raise ValueError("attn_impl='flash' reads no retain mask: a pruned retain "
+                                 "cache needs 'dense' or 'blockwise'")
+            return self.attn_impl
+        if not needs_valid and self.config.head_dim % 128 == 0:
+            return "flash"
+        return "dense" if state.cache.capacity <= 4096 else "blockwise"
+
     def _ids(self, ids: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
 
@@ -357,6 +412,7 @@ class Engine:
         (``_check_capacity``)."""
         ladder = POOL_LADDER if isinstance(state.cache, DECODE_CACHES) else CHUNK_LADDER
         q8 = self._q8(state)
+        impl = self._impl(state)
         parts = []
         pos = 0
         for size in ladder_split(len(ids), ladder):
@@ -366,7 +422,7 @@ class Engine:
                 "last" if pos == len(ids) and collect == "last" else "none")
             res = forward(self.params, self.config, self._ids(chunk),
                           state.cache, collect_logits=want, sink=state.sink, attn_q8=q8,
-                          fuse_layer=self.fuse_layer)
+                          fuse_layer=self.fuse_layer, attn_impl=impl)
             if res.logits is not None:
                 parts.append(res.logits)
         if collect == "all":
@@ -449,6 +505,7 @@ class Engine:
              _round_up(max(state.ctx_len, 1), self.score_width) + self.score_width),
             dtype=torch.float32, device=self.device)
         start = state.sink
+        impl = self._impl(state)
         for a_ids, rep_ids in self.self_task(ctx_ids, self.score_chunk_size):
             n_q = len(rep_ids)
             if n_q > self.score_q_pad:
@@ -460,7 +517,8 @@ class Engine:
             res = forward(self.params, cfg, self._ids(rep_padded), state.cache,
                           scoring=True, score_start=start, score_len=len(a_ids),
                           score_qlen=n_q, score_width=self.score_width,
-                          sink=state.sink, scoring_attend=self.scoring_attend)
+                          sink=state.sink, scoring_attend=self.scoring_attend,
+                          attn_impl=impl)
             o = start - state.sink
             score[:, :, o:o + len(a_ids)] = res.chunk_scores[:, :, :len(a_ids)].float()
             start += len(a_ids)
@@ -472,39 +530,60 @@ class Engine:
     # ----------------------------------------------------------------- prune
     def prune(self, state: KVState, ratio: float, level: str = "pair"
               ) -> Tuple[float, float]:
-        """Evict to the pool layout (the flat layout with
-        ``flat_decode="legacy"``); returns (threshold, true_ratio).
-
-        One-shot, as in the reference: the dense cache is compacted."""
-        if isinstance(state.cache, DECODE_CACHES) or state.pruned:
+        """Prune the cache at ``ratio``; returns (threshold, true_ratio).
+        The reference's four branches, in order: a retain state stores the
+        mask and keeps its scores (it can be pruned again at another
+        ratio); an evict prune at head level where no decode layout applies
+        (:meth:`_use_flat`) sets the dropped heads' lengths to the sink, no
+        row moving; else the pool (the flat layout with
+        ``flat_decode="legacy"``); else the dense compaction into
+        ``round_up(kept + decode_budget, capacity_granularity)`` rows a
+        head. An evict prune is one-shot. Every prune drops the state's
+        captured decode steps."""
+        if isinstance(state.cache, DECODE_CACHES) or (state.kv_type == "evict"
+                                                      and state.pruned):
             raise RuntimeError(
                 "evict-path prune is one-shot (the cache was physically "
-                "compacted)")
+                "compacted); use kv_type='retain' to sweep multiple ratios")
         if state.score is None:
             raise RuntimeError("run scoring() first")
         keep, thres, true_ratio = prune_lib.prune_mask(
             state.score, ratio, level, method="histogram")
-        state.score = None
         state._steps.clear()
-        dense = state.cache
-        if self.flat_decode == "legacy":
-            # the reference's round-3 layout: every layer padded to the
-            # largest one's kept rows (sink included)
-            per_layer = keep.sum(dim=(1, 2))
-            r_pad = _round_flat_rows(int(per_layer.max())
-                                     + state.sink * self.config.num_kv_heads)
-            if isinstance(dense, Int4KVCache):
-                state.cache = build_flat_int4_stepped(dense, keep, state.sink, r_pad,
+        if state.kv_type == "retain":
+            set_retain_mask(state.cache, keep, state.sink)
+        elif level == "head" and not self._use_flat(state):
+            # whole heads kept or dropped: eviction is a lengths update,
+            # attention reads [0, lengths) of each head
+            state.score = None
+            lens = state.cache.lengths
+            lens.copy_(torch.where(keep.any(dim=-1), lens, torch.full_like(lens, state.sink)))
+        else:
+            state.score = None
+            dense = state.cache
+            if not self._use_flat(state):
+                kept = int(keep.sum(dim=-1).max()) + state.sink
+                state.cache = compact(dense, keep, state.sink, _round_up(
+                    kept + self.decode_budget, self.capacity_granularity))
+            elif self.flat_decode == "legacy":
+                # the reference's round-3 layout: every layer padded to the
+                # largest one's kept rows (sink included)
+                per_layer = keep.sum(dim=(1, 2))
+                r_pad = _round_flat_rows(int(per_layer.max())
+                                         + state.sink * self.config.num_kv_heads)
+                if isinstance(dense, Int4KVCache):
+                    state.cache = build_flat_int4_stepped(dense, keep, state.sink, r_pad,
+                                                          self.decode_budget, self.dtype)
+                else:
+                    state.cache = build_flat(dense, keep, state.sink, r_pad,
+                                             self.decode_budget)
+            elif isinstance(dense, Int4KVCache):
+                state.cache = build_pool_int4_stepped(dense, keep, state.sink,
                                                       self.decode_budget, self.dtype)
             else:
-                state.cache = build_flat(dense, keep, state.sink, r_pad, self.decode_budget)
-        elif isinstance(dense, Int4KVCache):
-            state.cache = build_pool_int4_stepped(dense, keep, state.sink,
-                                                  self.decode_budget, self.dtype)
-        else:
-            state.cache = build_pool_stepped(dense, keep, state.sink,
-                                             self.decode_budget)
-        del dense
+                state.cache = build_pool_stepped(dense, keep, state.sink,
+                                                 self.decode_budget)
+            del dense
         state.pruned = True
         state.snapshot()
         return thres, true_ratio
@@ -559,6 +638,62 @@ class Engine:
         st = dataclasses.replace(state, cache=cache, pruned=True)
         st.snapshot()
         return st
+
+    # ------------------------------------------------------ state save/load
+    def save_state(self, state: KVState, path: str) -> str:
+        """Save a pruned pool state (``state_file``'s format: the pool's
+        arrays and device counters in an npz, bfloat16 as uint16 bits,
+        beside a JSON sidecar), so a later run serves the compressed cache
+        without prefill and scoring again (reference ``save_state``).
+        Returns the npz path."""
+        cache = state.cache
+        if not isinstance(cache, (PoolKV, PoolInt4KV)):
+            raise ValueError("save_state saves a pool cache (after an evict prune)")
+        arrays, dtypes = {}, {}
+        for name in [f.name for f in dataclasses.fields(cache)] + ["tail_lens"]:
+            v = getattr(cache, name)
+            if name == "tail_len" or not isinstance(v, torch.Tensor):
+                continue
+            dtypes[name] = str(v.dtype).replace("torch.", "")
+            v = v.detach().cpu()
+            arrays[name] = (v.view(torch.int16).numpy().view(np.uint16)
+                            if v.dtype == torch.bfloat16 else v.numpy())
+        return state_file.write(path, arrays, dtypes, dict(
+            kind=type(cache).__name__, align=cache.align, max_rows=cache.max_rows,
+            model=self.name, kv_type=state.kv_type, sink=state.sink, ctx_len=state.ctx_len,
+            prefill_len=state.prefill_len, dtype=str(self.dtype).replace("torch.", "")))
+
+    def load_state(self, path: str) -> KVState:
+        """A :meth:`save_state` file (or a converted ``kvzip_tpu`` one,
+        ``state_file.convert_reference_state``) as a pruned pool state on
+        the engine's device; the (empty) tail grown to this engine's
+        ``decode_budget`` where the file's is shorter."""
+        arrays, meta = state_file.read(path)
+        if meta["model"] != self.name:
+            raise ValueError(f"state was saved for {meta['model']!r}, engine is {self.name!r}")
+        if meta["dtype"] != str(self.dtype).replace("torch.", ""):
+            raise ValueError(f"state holds {meta['dtype']} KV, the engine {self.dtype}")
+
+        def tensor(name, a):
+            if meta["array_dtypes"][name] == "bfloat16":
+                return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(self.device)
+            return torch.from_numpy(a).to(self.device)
+
+        t = {k: tensor(k, v) for k, v in arrays.items()}
+        grow = self.decode_budget - t["k_tail"].shape[2]
+        if grow > 0:
+            for f in ("k_tail", "v_tail"):
+                t[f] = torch.nn.functional.pad(t[f], (0, 0, 0, grow))
+        tail_lens, seen = t.pop("tail_lens"), t.pop("seen")
+        cls = PoolInt4KV if meta["kind"] == "PoolInt4KV" else PoolKV
+        cache = cls(**t, tail_len=tail_lens[0], seen=seen, align=int(meta["align"]),
+                    max_rows=int(meta["max_rows"]))
+        cache.tail_lens.copy_(tail_lens)
+        state = KVState(cache=cache, kv_type=meta["kv_type"], sink=int(meta["sink"]),
+                        ctx_len=int(meta["ctx_len"]), prefill_len=int(meta["prefill_len"]),
+                        pruned=True)
+        state.snapshot()
+        return state
 
     # -------------------------------------------------------------- generate
     def _check_capacity(self, state: KVState, need: int, cur: Optional[int] = None):
@@ -653,13 +788,13 @@ class Engine:
         ``fuse_layer`` and int8-attention mode, captured at its first use
         and kept on the state with its cache (a refold or a prune drops the
         steps; so does a cache the caller put in the state)."""
-        q8 = self._q8(state)
-        key = (self, tuple(self.eos_ids), self.fuse_layer, q8)
+        q8, impl = self._q8(state), self._impl(state)
+        key = (self, tuple(self.eos_ids), self.fuse_layer, q8, impl)
         steps = state._steps
         if any(st.cache is not state.cache for st in steps.values()):
             steps.clear()
         if key not in steps:
-            steps[key] = DecodeStep(self, state, q8)
+            steps[key] = DecodeStep(self, state, q8, impl)
         return steps[key]
 
     def _decode_loop(self, state: KVState, last_logits: torch.Tensor,
@@ -683,11 +818,11 @@ class Engine:
         of its argmax a token (see :func:`generate_ids_per_token`)."""
         tokens = [int(torch.argmax(last_logits))]
         done = tokens[-1] in self.eos_ids
-        q8 = self._q8(state)
+        q8, impl = self._q8(state), self._impl(state)
         while not done and len(tokens) < max_new:
             res = forward(self.params, self.config, self._ids(tokens[-1:]),
                           state.cache, collect_logits="last", sink=state.sink, attn_q8=q8,
-                          fuse_layer=self.fuse_layer)
+                          fuse_layer=self.fuse_layer, attn_impl=impl)
             tokens.append(int(torch.argmax(res.logits[-1])))
             done = tokens[-1] in self.eos_ids
         return tokens[:-1] if done else tokens

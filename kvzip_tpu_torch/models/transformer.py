@@ -6,6 +6,13 @@ weights and a plain or int8 embedding / lm_head. PyTorch runs eagerly, so
 the layer loop is a Python loop and the cache is updated in place.
 Dispatch, as in the reference:
 
+- ``attn_impl`` "flash" (the engine's ``_impl``); "dense" and "blockwise"
+  send a dense cache's attention to the masked route instead
+  (``ops/attention.py``: ``attend_dense``/``attend_blockwise`` with the
+  layer's ``valid``, ``attend_blockwise_int4``), its scores to
+  ``reconstruction_scores`` and its windowed scoring to
+  ``windowed_scoring_attend`` (K2's and K9's plain versions), as the
+  reference's XLA route: no kernel runs;
 - dense bf16 cache: the KVzip score hook goes to K2 (``fused_scores``);
   T <= 8 queries go to K4 (``ragged_decode_attend``), longer blocks to K1
   (``flash_attend``);
@@ -58,6 +65,8 @@ from kvzip_tpu_torch.cache import (FlatInt4KV, FlatKV, Int4KVCache, append_layer
                                    append_layer_int4)
 from kvzip_tpu_torch.config import ModelConfig
 from kvzip_tpu_torch.models.rope import apply_rope, rope_cos_sin
+from kvzip_tpu_torch.ops.attention import (attend_blockwise, attend_blockwise_int4,
+                                           attend_dense)
 from kvzip_tpu_torch.ops.flash import flash_attend
 from kvzip_tpu_torch.ops.flash_int4 import flash_attend_int4, flash_attend_int4_extra
 from kvzip_tpu_torch.ops.flat_decode import flat_decode_attend, flat_decode_attend_int4
@@ -67,11 +76,11 @@ from kvzip_tpu_torch.ops.quant import (dequantize_int4, embed_lookup, head_logit
                                        int8_linear, int8_matmul, is_w8,
                                        quantize_act_int8, quantize_int4)
 from kvzip_tpu_torch.ops.ragged_decode import MAX_T, ragged_decode_attend
-from kvzip_tpu_torch.ops.score_kernel import fused_scores
+from kvzip_tpu_torch.ops.score_kernel import fused_scores, fused_scores_plain
 from kvzip_tpu_torch.ops.w4a8 import w4a8_linear, w4a8_linear_stacked
 from kvzip_tpu_torch.ops.w4a8_fused import MAX_T as FUSED_MAX_T
 from kvzip_tpu_torch.ops.w4a8_fused import w4a8_layer_fused
-from kvzip_tpu_torch.ops.windowed_attend import windowed_attend
+from kvzip_tpu_torch.ops.windowed_attend import windowed_attend, windowed_attend_plain
 from kvzip_tpu_torch.pool import PoolInt4KV, PoolKV
 
 
@@ -165,7 +174,7 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
             score_start: int = 0, score_len: int = 0, score_qlen: int = 0,
             score_width: int = 0, sink: int = 0,
             scoring_attend: str = "full", attn_q8: bool = False,
-            fuse_layer: str = "off",
+            fuse_layer: str = "off", attn_impl: str = "flash",
             advance: Optional[torch.Tensor] = None) -> ForwardResult:
     """Run ids (T,) through the model, appending their KV to ``cache`` in
     place (``lengths``/``seen``, or ``tail_lens``/``seen`` for a pool or a
@@ -181,7 +190,12 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
     repeat] only). ``attn_q8``: int8 attention on an int4 pool or flat
     cache (K7/K11 with ``q8``). ``fuse_layer``: "off", "auto" or "on", the
     fused W4A8 decode layer (K12) where its shapes allow ("auto" on the
-    card only). ``advance``: a 0-dim int32 tensor the counters advance by
+    card only). ``attn_impl``: a dense cache's attention, "flash" (the
+    kernels K1/K2/K4/K5/K6/K9, which read no retain mask) or "dense" /
+    "blockwise" (the masked route of ``ops/attention.py`` with the layer's
+    ``valid``, and the torch scoring and windowed attention); the engine's
+    ``_impl`` picks it. A pool or flat cache always runs its kernels.
+    ``advance``: a 0-dim int32 tensor the counters advance by
     instead of T (the engine's decode step gives 0 once its answer has
     ended: its rows then land past the live tail, where nothing reads
     them).
@@ -198,6 +212,9 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
         raise ValueError(f"scoring_attend: {scoring_attend!r}")
     if fuse_layer not in ("off", "auto", "on"):
         raise ValueError(f"fuse_layer: {fuse_layer!r}")
+    if attn_impl not in ("flash", "dense", "blockwise"):
+        raise ValueError(f"attn_impl: {attn_impl!r}")
+    flash = attn_impl == "flash"
     window = scoring and scoring_attend == "window"
     emb = params["embed"]
     dtype = emb["s"].dtype if isinstance(emb, dict) else emb.dtype
@@ -280,37 +297,47 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
                 win = slice(score_start, score_start + score_width)
                 keys = _window_rows((kq_l, ks_l, kz_l), (rows[0], rows[2], rows[3]),
                                     sink, win, dtype)
-                scores.append(fused_scores(
+                scores.append((fused_scores if flash else fused_scores_plain)(
                     q, keys, score_len, score_qlen, sink=sink,
                     s_ctx=score_width, scale=scale, model_dtype=dtype).to(dtype))
             if window:
                 vals = _window_rows((layer[1], layer[4], layer[5]),
                                     (rows[1], rows[4], rows[5]), sink, win, dtype)
-                attn = windowed_attend(q, keys, vals, score_len, sink=sink,
-                                       s_ctx=score_width, scale=scale)
-            elif scoring:
+                attn = (windowed_attend if flash else windowed_attend_plain)(
+                    q, keys, vals, score_len, sink=sink, s_ctx=score_width, scale=scale)
+            elif scoring and flash:
                 # read-only: the chunk's rows ride beside the cache
                 attn = flash_attend_int4_extra(
                     q, layer[0], layer[2], layer[3], layer[1], layer[4], layer[5],
                     base, rows[0], rows[2], rows[3], rows[1], rows[4], rows[5],
                     scale=scale)
             else:
+                # a scoring pass's rows land past the live lengths, which it
+                # does not advance: they stay dead
                 append_layer_int4(layer, base, rows)
-                attn = flash_attend_int4(q, layer[0], layer[2], layer[3], layer[1],
-                                         layer[4], layer[5], base, scale=scale)
+                if flash:
+                    attn = flash_attend_int4(q, layer[0], layer[2], layer[3], layer[1],
+                                             layer[4], layer[5], base, scale=scale)
+                else:
+                    attn = attend_blockwise_int4(q, layer[0], layer[2], layer[3], layer[1],
+                                                 layer[4], layer[5], base, cache.valid[l],
+                                                 scale=scale)
         else:
             k_l, v_l, base = cache.k[l], cache.v[l], cache.lengths[l]
             append_layer(k_l, v_l, base, k, v)
             if scoring:
                 win = slice(score_start, score_start + score_width)
                 keys = torch.cat([k_l[:, :sink], k_l[:, win], k.transpose(0, 1)], dim=1)
-                scores.append(fused_scores(
+                scores.append((fused_scores if flash else fused_scores_plain)(
                     q, keys, score_len, score_qlen, sink=sink,
                     s_ctx=score_width, scale=scale, model_dtype=dtype).to(dtype))
             if window:
                 vals = torch.cat([v_l[:, :sink], v_l[:, win], v.transpose(0, 1)], dim=1)
-                attn = windowed_attend(q, keys, vals, score_len, sink=sink,
-                                       s_ctx=score_width, scale=scale)
+                attn = (windowed_attend if flash else windowed_attend_plain)(
+                    q, keys, vals, score_len, sink=sink, s_ctx=score_width, scale=scale)
+            elif not flash:
+                masked = attend_dense if attn_impl == "dense" else attend_blockwise
+                attn = masked(q, k_l, v_l, base, cache.valid[l], scale=scale)
             elif T <= MAX_T:
                 attn = ragged_decode_attend(q, k_l, v_l, base, scale=scale)
             else:

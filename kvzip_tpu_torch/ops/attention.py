@@ -1,19 +1,33 @@
 """Plain PyTorch attention over the dense cache and the KVzip score.
 
-The plain versions of kernels K1, K2, K4, K5/K6 and K9 (``ops/flash.py``,
+The masked route of the dense caches (the reference's XLA
+``attend_dense``/``attend_blockwise``/``attend_blockwise_int4``, which the
+engine picks with ``attn_impl="dense"``/``"blockwise"``: a pruned retain
+cache, a head_dim the kernels are not built for), the plain versions of
+kernels K1, K2, K4, K5/K6 and K9 (``ops/flash.py``,
 ``ops/score_kernel.py``, ``ops/ragged_decode.py``, ``ops/flash_int4.py``,
-``ops/windowed_attend.py``), the int8-attention arithmetic of K7 and K11
-(``attend_int4_q8``) and the CPU path of the port. Masking rule: key row ``j`` of kv head ``h`` is visible to query ``i``
-(0-based within the new block) iff ``j < base_lens[h] + i + 1`` — the new
-rows were appended at ``base_lens[h]``. Everything is computed in float32;
-a row that sees no key gives 0.
+``ops/windowed_attend.py``) and the int8-attention arithmetic of K7 and
+K11 (``attend_int4_q8``). Masking rule: key row ``j`` of kv head ``h`` is
+visible to query ``i`` (0-based within the new block) iff ``j <
+base_lens[h] + i + 1`` and ``valid[h, j]`` (the retain mask; None: every
+row) — the new rows were appended at ``base_lens[h]``. Everything is
+computed in float32; a row that sees no key gives 0. The masked route is
+vectorized over kv heads and reads nothing back to the host (every key row
+up to the capacity is scored and masked), so a decode step over it can be
+captured as a CUDA graph.
 """
 
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 
 NEG_INF = float("-inf")
+# scores a kv head of one block may hold: 1,024 queries x 1,024 keys (a
+# 16,384-token prefill at 32 heads would otherwise form 34 GB a layer)
+BLOCK_SCORES = 1 << 20
+KEY_BLOCK = 1024  # keys of one partial softmax in the blockwise route
 
 
 def softmax_guarded(s: torch.Tensor) -> torch.Tensor:
@@ -23,94 +37,131 @@ def softmax_guarded(s: torch.Tensor) -> torch.Tensor:
     return e / e.sum(dim=-1, keepdim=True).clamp_min(1e-37)
 
 
-def causal_mask(base: int, t0: int, t1: int, n_keys: int,
-                device) -> torch.Tensor:
-    """(t1 - t0, n_keys) visibility of keys to queries t0..t1-1."""
-    col = torch.arange(n_keys, device=device)
-    row = torch.arange(t0, t1, device=device)
-    return col[None, :] < base + row[:, None] + 1
+def visible(base_lens: torch.Tensor, valid: Optional[torch.Tensor], t0: int, t1: int,
+            c0: int, c1: int) -> torch.Tensor:
+    """(Hkv, t1 - t0, c1 - c0) visibility of keys c0..c1-1 to queries
+    t0..t1-1, formed on the device."""
+    dev = base_lens.device
+    col = torch.arange(c0, c1, device=dev)
+    row = torch.arange(t0, t1, device=dev)
+    mask = col[None, None, :] < base_lens.long()[:, None, None] + row[None, :, None] + 1
+    if valid is not None:
+        mask = mask & valid[:, None, c0:c1]
+    return mask
+
+
+def _group_queries(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """q (T, H, D) -> float32 (Hkv, G, T, D): the G query heads of each kv
+    head."""
+    T, H, D = q.shape
+    return q.float().reshape(T, n_kv, H // n_kv, D).permute(1, 2, 0, 3)
+
+
+def _ungroup(out: torch.Tensor, dtype) -> torch.Tensor:
+    Hkv, G, T, D = out.shape
+    return out.permute(2, 0, 1, 3).reshape(T, Hkv * G, D).to(dtype)
 
 
 def attend_dense(q: torch.Tensor, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor, base_lens: torch.Tensor, *,
+                 v_cache: torch.Tensor, base_lens: torch.Tensor,
+                 valid: Optional[torch.Tensor] = None, *,
                  scale: float) -> torch.Tensor:
     """Exact-softmax attention of q (T, H, D) over k/v (Hkv, C, D) with
-    per-head base lengths; returns (T, H, D) in q's dtype."""
-    T, H, D = q.shape
+    per-head base lengths (Hkv,) and the retain mask ``valid`` (Hkv, C) or
+    None, every head at once; returns (T, H, D) in q's dtype."""
+    T = q.shape[0]
     Hkv, C, _ = k_cache.shape
-    G = H // Hkv
-    out = torch.empty((Hkv, G, T, D), dtype=torch.float32, device=q.device)
-    for h, base in enumerate(base_lens.tolist()):
-        n = min(base + T, C)
-        qh = q[:, h * G:(h + 1) * G].float().transpose(0, 1)       # (G, T, D)
-        s = qh @ k_cache[h, :n].float().T * scale                   # (G, T, n)
-        s = s.masked_fill(~causal_mask(base, 0, T, n, q.device), NEG_INF)
-        out[h] = softmax_guarded(s) @ v_cache[h, :n].float()
-    return out.permute(2, 0, 1, 3).reshape(T, H, D).to(q.dtype)
+    qg = _group_queries(q, Hkv)
+    s = torch.einsum("hgtd,hcd->hgtc", qg, k_cache.float()) * scale
+    s = s.masked_fill(~visible(base_lens, valid, 0, T, 0, C)[:, None], NEG_INF)
+    out = torch.einsum("hgtc,hcd->hgtd", softmax_guarded(s), v_cache.float())
+    return _ungroup(out, q.dtype)
+
+
+def _online(qg: torch.Tensor, kv: Callable, C: int, base_lens: torch.Tensor,
+            valid: Optional[torch.Tensor], *, scale: float, kv_block: Optional[int],
+            q_block: int) -> torch.Tensor:
+    """Online-softmax attention of qg (Hkv, G, T, D) float32 over blocks of
+    ``kv_block`` keys (``kv(c0, c1)`` gives rows c0..c1-1 of every head as
+    float32 (Hkv, n, D) keys and values), queries in blocks of
+    ``q_block``. As many key blocks as keep a query block's scores within
+    ``BLOCK_SCORES`` a head are one batched product (each block's partial
+    softmax merged after), so a decode step spreads its keys over the card
+    in a fixed number of ops, and a long query block takes its keys a block
+    at a time. A default block is halved (to 128 keys at least) until it
+    divides the capacity, as the reference's is, so the keys need no
+    padding. Returns (Hkv, G, T, D) float32."""
+    Hkv, G, T, D = qg.shape
+    kb = kv_block or KEY_BLOCK
+    while not kv_block and C % kb and kb > 128:
+        kb //= 2
+    out = torch.empty_like(qg)
+    for t0 in range(0, T, q_block):
+        t1 = min(t0 + q_block, T)
+        tq = t1 - t0
+        qb = qg[:, :, t0:t1].reshape(Hkv, 1, G * tq, D)
+        span = kb * max(1, BLOCK_SCORES // (tq * kb))  # keys a batched product
+        m = torch.full((Hkv, G, tq, 1), NEG_INF, device=qg.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((Hkv, G, tq, D), device=qg.device)
+        for c0 in range(0, C, span):
+            c1 = min(c0 + span, C)
+            nb = -(-(c1 - c0) // kb)
+            pad = nb * kb - (c1 - c0)
+            k_blk, v_blk = ((torch.nn.functional.pad(a, (0, 0, 0, pad)) if pad else a)
+                            .reshape(Hkv, nb, kb, D) for a in kv(c0, c1))
+            mask = visible(base_lens, valid, t0, t1, c0, c1)
+            if pad:
+                mask = torch.nn.functional.pad(mask, (0, pad))
+            mask = mask.reshape(Hkv, tq, nb, kb).permute(0, 2, 1, 3)[:, :, None]
+            s = (qb @ k_blk.transpose(-1, -2) * scale).reshape(Hkv, nb, G, tq, kb)
+            s = s.masked_fill(~mask, NEG_INF)
+            m_b = s.amax(dim=-1, keepdim=True)                        # (Hkv, nb, G, tq, 1)
+            p = torch.where(torch.isfinite(s), torch.exp(s - m_b), 0.0)
+            o_b = (p.reshape(Hkv, nb, G * tq, kb) @ v_blk).reshape(Hkv, nb, G, tq, D)
+            m_new = torch.maximum(m, m_b.amax(dim=1))
+            w = torch.where(torch.isfinite(m_b), torch.exp(m_b - m_new[:, None]), 0.0)
+            alpha = torch.where(torch.isfinite(m), torch.exp(m - m_new), 0.0)
+            l = l * alpha + (p.sum(dim=-1, keepdim=True) * w).sum(dim=1)
+            acc = acc * alpha + (o_b * w).sum(dim=1)
+            m = m_new
+        out[:, :, t0:t1] = acc / l.clamp_min(1e-37)
+    return out
 
 
 def attend_blockwise(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, base_lens: torch.Tensor, *,
-                     scale: float, kv_block: int = 1024,
-                     q_block: int = 1024) -> torch.Tensor:
-    """:func:`attend_dense` as an online softmax over key blocks, so memory
-    stays O(q_block * kv_block) per head at long contexts."""
-    return _attend_heads(q, lambda h, n: (k_cache[h, :n], v_cache[h, :n]),
-                         k_cache.shape[1], base_lens, scale=scale,
-                         kv_block=kv_block, q_block=q_block)
-
-
-def _attend_heads(q: torch.Tensor, rows, C: int, base_lens: torch.Tensor, *,
-                  scale: float, kv_block: int = 1024,
-                  q_block: int = 1024) -> torch.Tensor:
-    """Online-softmax attention of q (T, H, D); ``rows(h, n)`` gives kv head
-    h's first n key and value rows (n <= C). Query i sees the rows
-    ``j < base_lens[h] + i + 1``."""
-    T, H, D = q.shape
-    Hkv = base_lens.shape[0]
-    G = H // Hkv
-    out = torch.empty((Hkv, G, T, D), dtype=torch.float32, device=q.device)
-    for h, base in enumerate(base_lens.tolist()):
-        k_h, v_h = rows(h, min(base + T, C))
-        for t0 in range(0, T, q_block):
-            t1 = min(t0 + q_block, T)
-            qh = q[t0:t1, h * G:(h + 1) * G].float().transpose(0, 1)
-            m = torch.full((G, t1 - t0, 1), NEG_INF, device=q.device)
-            l = torch.zeros((G, t1 - t0, 1), device=q.device)
-            acc = torch.zeros((G, t1 - t0, D), device=q.device)
-            for c0 in range(0, min(base + t1, C), kv_block):
-                c1 = min(c0 + kv_block, base + t1, C)
-                s = qh @ k_h[c0:c1].float().T * scale
-                mask = causal_mask(base, t0, t1, c1, q.device)[:, c0:]
-                s = s.masked_fill(~mask, NEG_INF)
-                m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-                alpha = torch.where(torch.isfinite(m), torch.exp(m - m_new),
-                                    torch.zeros_like(m))
-                p = torch.where(torch.isfinite(s), torch.exp(s - m_new),
-                                torch.zeros_like(s))
-                l = l * alpha + p.sum(dim=-1, keepdim=True)
-                acc = acc * alpha + p @ v_h[c0:c1].float()
-                m = m_new
-            out[h, :, t0:t1] = acc / l.clamp_min(1e-37)
-    return out.permute(2, 0, 1, 3).reshape(T, H, D).to(q.dtype)
+                     v_cache: torch.Tensor, base_lens: torch.Tensor,
+                     valid: Optional[torch.Tensor] = None, *, scale: float,
+                     kv_block: Optional[int] = None, q_block: int = 1024) -> torch.Tensor:
+    """:func:`attend_dense` as an online softmax over blocks of queries and
+    keys, so memory stays within ``BLOCK_SCORES`` scores a head at long
+    contexts."""
+    out = _online(_group_queries(q, k_cache.shape[0]),
+                  lambda c0, c1: (k_cache[:, c0:c1].float(), v_cache[:, c0:c1].float()),
+                  k_cache.shape[1], base_lens, valid, scale=scale, kv_block=kv_block,
+                  q_block=q_block)
+    return _ungroup(out, q.dtype)
 
 
 def attend_blockwise_int4(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                           kz: torch.Tensor, vq: torch.Tensor, vs: torch.Tensor,
-                          vz: torch.Tensor, base_lens: torch.Tensor, *,
-                          scale: float, kv_block: int = 512) -> torch.Tensor:
+                          vz: torch.Tensor, base_lens: torch.Tensor,
+                          valid: Optional[torch.Tensor] = None, *, scale: float,
+                          kv_block: Optional[int] = None,
+                          q_block: int = 1024) -> torch.Tensor:
     """:func:`attend_blockwise` over the int4 cache: kq/vq (Hkv, C, D//2)
     split-packed uint8, ks/kz/vs/vz (Hkv, C) per-row scale and zero. Each
-    head's live rows are dequantized in float32 (``ops/quant.py``)."""
+    block's rows are dequantized in float32 (``ops/quant.py``)."""
     from kvzip_tpu_torch.ops.quant import dequantize_int4
 
-    def rows(h, n):
-        return tuple(dequantize_int4(p[h, :n], s[h, :n, None], z[h, :n, None],
+    def kv(c0, c1):
+        return tuple(dequantize_int4(p[:, c0:c1], s[:, c0:c1, None], z[:, c0:c1, None],
                                      torch.float32, pack="split")
                      for p, s, z in ((kq, ks, kz), (vq, vs, vz)))
 
-    return _attend_heads(q, rows, kq.shape[1], base_lens, scale=scale,
-                         kv_block=kv_block)
+    out = _online(_group_queries(q, kq.shape[0]), kv, kq.shape[1], base_lens, valid,
+                  scale=scale, kv_block=kv_block, q_block=q_block)
+    return _ungroup(out, q.dtype)
 
 
 def head_rows(q: torch.Tensor, h: int, G: int) -> torch.Tensor:
@@ -252,23 +303,25 @@ def reconstruction_scores(q: torch.Tensor, k_sink: torch.Tensor,
     q (T, H, D); k_sink (Hkv, S_sink, D); k_ctx (Hkv, S_ctx, D);
     k_rep (T, Hkv, D).
     """
-    T, H, D = q.shape
+    T = q.shape[0]
     Hkv, S_sink, _ = k_sink.shape
     S_ctx = k_ctx.shape[1]
-    G = H // Hkv
     s0 = S_sink + S_ctx
-    keys = torch.cat([k_sink, k_ctx, k_rep.transpose(0, 1)], dim=1)
+    keys = torch.cat([k_sink, k_ctx, k_rep.transpose(0, 1)], dim=1).float()
     col = torch.arange(s0 + T, device=q.device)[None, :]
     row = torch.arange(T, device=q.device)[:, None]
     bad = ((col >= s0) & (col - s0 > row)) | (
         (col >= S_sink + ctx_len) & (col < s0))
-    out = torch.empty((Hkv, S_ctx), dtype=torch.float32, device=q.device)
-    for h in range(Hkv):
-        qh = q[:, h * G:(h + 1) * G].float().transpose(0, 1)        # (G, T, D)
-        s = (qh @ keys[h].float().T * scale).masked_fill(bad, NEG_INF)
-        p = softmax_guarded(s.to(model_dtype).float())
-        p[:, q_valid:] = 0.0
-        out[h] = p[:, :, S_sink:s0].amax(dim=(0, 1))
+    qg = _group_queries(q, Hkv)
+    out = torch.zeros((Hkv, S_ctx), dtype=torch.float32, device=q.device)
+    # queries >= q_valid score 0, so only the valid ones are formed, in
+    # blocks of at most BLOCK_SCORES scores a head
+    step = max(1, BLOCK_SCORES // (s0 + T))
+    for t0 in range(0, min(q_valid, T), step):
+        t1 = min(t0 + step, q_valid, T)
+        s = torch.einsum("hgtd,hkd->hgtk", qg[:, :, t0:t1], keys) * scale
+        p = softmax_guarded(s.masked_fill(bad[t0:t1], NEG_INF).to(model_dtype).float())
+        out = torch.maximum(out, p[..., S_sink:s0].amax(dim=(1, 2)))
     return out
 
 

@@ -27,7 +27,6 @@ from kvzip_tpu_torch import _build
 from kvzip_tpu_torch.ops import (LAUNCHES, HEAD_DIM, attention,
                                  check_kernel_args, check_tma_aligned, on_cuda,
                                  sm_count, stream_ptr)
-from kvzip_tpu_torch.ops.quant import dequantize_int4
 from kvzip_tpu_torch.ops.ragged_decode import plan_splits, split_scratch
 
 SPLIT_T = 16  # T at or below which K5 runs as flash-decoding
@@ -48,26 +47,17 @@ def flash_attend_int4_plain(q, k_q, k_s, k_z, v_q, v_s, v_z, base_lens, *,
 
 def flash_attend_int4_extra_plain(q, k_q, k_s, k_z, v_q, v_s, v_z, base_lens,
                                   kx_q, kx_s, kx_z, vx_q, vx_s, vx_z, *, scale):
-    """The chunk's rows appended after each head's live cache rows, then
+    """The chunk's rows appended after each head's live rows of a copy of
+    the cache (grown by T rows, so they always fit), then
     :func:`flash_attend_int4_plain`'s causal attention."""
+    from kvzip_tpu_torch.cache import append_layer_int4
+
     T = q.shape[0]
-
-    def deq(p, s, z):
-        return dequantize_int4(p, s[..., None], z[..., None], torch.float32,
-                               pack="split")
-
-    def rows(h, n):
-        base = int(base_lens[h])
-        out = []
-        for cache, extra in (((k_q, k_s, k_z), (kx_q, kx_s, kx_z)),
-                             ((v_q, v_s, v_z), (vx_q, vx_s, vx_z))):
-            c = deq(*(a[h, :base] for a in cache))
-            x = deq(*(a[:, h] for a in extra))
-            out.append(torch.cat([c, x])[:n])
-        return out
-
-    return attention._attend_heads(q, rows, int(base_lens.max()) + T,
-                                   base_lens, scale=scale)
+    layer = tuple(torch.cat([a, a.new_zeros((a.shape[0], T, *a.shape[2:]))], dim=1)
+                  for a in (k_q, v_q, k_s, k_z, v_s, v_z))
+    append_layer_int4(layer, base_lens, (kx_q, vx_q, kx_s, kx_z, vx_s, vx_z))
+    return attention.attend_blockwise_int4(q, layer[0], layer[2], layer[3], layer[1],
+                                           layer[4], layer[5], base_lens, scale=scale)
 
 
 def _cache_args(what, q, k_q, k_s, k_z, v_q, v_s, v_z, base_lens):

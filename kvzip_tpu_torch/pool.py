@@ -27,7 +27,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from kvzip_tpu_torch.cache import Int4KVCache, KVCache, device_counters
+from kvzip_tpu_torch.cache import Int4KVCache, KVCache, device_counters, full_keep
 
 POOL_ALIGN = 64
 
@@ -122,10 +122,8 @@ def _plan(keep: torch.Tensor, sink: int, C: int):
     """Gather plan: for each layer, the kept (head * C + row) indices of the
     dense cache in head-major order (sink rows always kept), and the kept
     rows per (layer, head)."""
-    L, H, ctx_len = keep.shape
-    keep_full = torch.zeros((L, H, C), dtype=torch.bool, device=keep.device)
-    keep_full[:, :, :sink] = True
-    keep_full[:, :, sink:sink + ctx_len] = keep.bool()
+    L, H, _ = keep.shape
+    keep_full = full_keep(keep, sink, C)
     flat = keep_full.reshape(L, H * C)
     order = torch.sort((~flat).to(torch.uint8), dim=1, stable=True).indices
     lengths = keep_full.sum(dim=-1).to(torch.int32)

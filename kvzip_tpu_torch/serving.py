@@ -29,14 +29,16 @@ merged cache is a copy: after the loop each state gets its grown tail and
 counters back IN PLACE (``copy_`` into its own tensors, which its own
 captured ``DecodeStep`` reads by address).
 
-The dense (unpruned) batch path of the reference stacks caches and attends
-through XLA ``blockwise``, which the port has only once the retain path and
-the XLA attention route are ported (ROADMAP Queue 1 item 3): it raises
-``NotImplementedError`` here, and nothing falls back to B single
-generates. :func:`stack_caches`, :func:`unstack_caches` and
-:func:`_pad_capacity` are the counterparts of that path's helpers, kept
-(and held against the reference's in the tests) for it: no path of the
-port calls them yet.
+Dense states (a retain state, pruned or not, or one compacted with
+``flat_decode="off"``; the reference's dense batch path) are concatenated
+on the kv-head axis into one dense cache over B·Hkv heads
+(:func:`_merge_dense`: each state's rows padded to the largest capacity,
+its ``valid`` mask beside them) and go through the same merged
+stack and the same captured step; their attention is the masked route
+``ops.attention.attend_blockwise`` over the B·Hkv heads (the reference's
+``blockwise``), each query row appended at its own heads' lengths. Dense
+int4 states have no batch path, as in the reference. Nothing falls back
+to B single generates.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from kvzip_tpu_torch.cache import FLAT_INT4_FIELDS, FlatInt4KV, FlatKV, KVCache,
 from kvzip_tpu_torch.engine import DECODE_CHUNK, CapturedStep, Engine, KVState, _round_up
 from kvzip_tpu_torch.models.rope import apply_rope, rope_cos_sin
 from kvzip_tpu_torch.models.transformer import _act, _is_w4, _lin, _lin_shared, rms_norm
+from kvzip_tpu_torch.ops.attention import attend_blockwise
 from kvzip_tpu_torch.ops.flat_decode import flat_decode_attend, flat_decode_attend_int4
 from kvzip_tpu_torch.ops.pool_decode import pool_decode_attend, pool_decode_attend_int4
 from kvzip_tpu_torch.ops.quant import embed_lookup, head_logits
@@ -59,85 +62,50 @@ from kvzip_tpu_torch.pool import _INT4_FIELDS as POOL_INT4_FIELDS
 from kvzip_tpu_torch.pool import PoolInt4KV, PoolKV, plan_offsets
 
 _MERGEABLE = (FlatKV, FlatInt4KV, PoolKV, PoolInt4KV)
-_DENSE_BATCH = ("the dense (unpruned) batch path attends through the XLA blockwise route, "
-                "which the port does not have yet (ROADMAP Queue 1 item 3); prune the "
-                "states into the pool or the flat layout to batch them")
 
 
 def _raw(cls, fields: dict):
     """A cache dataclass holding ``fields`` as given, without
-    ``__post_init__`` (a stacked or merged cache's counters are vectors)."""
+    ``__post_init__`` (a merged cache's counters are vectors)."""
     obj = object.__new__(cls)
     for k, v in fields.items():
         setattr(obj, k, v)
     return obj
 
 
-def _fields(cache) -> dict:
-    out = {f.name: getattr(cache, f.name) for f in dataclasses.fields(cache)}
-    if hasattr(cache, "tail_lens"):
-        out["tail_lens"] = cache.tail_lens
-    return out
-
-
-def _pad_rows(a: torch.Tensor, n: int, fill) -> torch.Tensor:
-    """a (L, R, ...) padded to (L, n, ...) with ``fill``."""
-    out = torch.full((a.shape[0], n, *a.shape[2:]), fill, dtype=a.dtype, device=a.device)
-    out[:, :a.shape[1]] = a
-    return out
-
-
-def _check_stackable(cache) -> None:
-    if not isinstance(cache, (FlatKV, FlatInt4KV)) and type(cache) is not KVCache:
-        raise NotImplementedError(
-            "batch STACKING takes dense KVCache and flat FlatKV/FlatInt4KV states; pool "
-            "caches batch through the merged pool (serving._merge_pool)")
-
-
-def _pad_capacity(cache, capacity: int):
-    """A flat cache padded to ``capacity`` rows a layer (padding has
-    ``row_head = -1``, zero rows), or a dense cache to ``capacity`` rows a
-    head; other fields shared with ``cache``."""
-    _check_stackable(cache)
-    if isinstance(cache, (FlatKV, FlatInt4KV)):
-        if capacity == cache.capacity:
-            return cache
-        names = FLAT_INT4_FIELDS if isinstance(cache, FlatInt4KV) else ("k_flat", "v_flat")
-        pads = {f: _pad_rows(getattr(cache, f), capacity, 0) for f in names}
-        pads["row_head"] = _pad_rows(cache.row_head, capacity, -1)
-        return _raw(type(cache), {**_fields(cache), **pads})
-    if cache.capacity == capacity:
-        return cache
-    pad = {f: torch.cat([getattr(cache, f), getattr(cache, f).new_zeros(
-        (*cache.k.shape[:2], capacity - cache.capacity, cache.k.shape[3]))], dim=2)
-        for f in ("k", "v")}
-    return _raw(KVCache, {**_fields(cache), **pad})
-
-
-def stack_caches(caches: Sequence):
-    """Stack caches on a leading batch axis, padded to the largest capacity
-    (flat padding rows have ``row_head = -1``, which no query head
-    matches)."""
-    if len({type(c) for c in caches}) != 1:
-        raise ValueError("all caches in a batch must have the same type")
-    _check_stackable(caches[0])
-    cap = max(c.capacity for c in caches)
-    caches = [_pad_capacity(c, cap) for c in caches]
-    return _raw(type(caches[0]), {f: torch.stack([_fields(c)[f] for c in caches])
-                                  for f in _fields(caches[0])})
-
-
-def unstack_caches(batched, n: int) -> List:
-    out = []
-    for i in range(n):
-        c = _raw(type(batched), {f: v[i] for f, v in _fields(batched).items()})
-        if hasattr(c, "tail_lens"):
-            c.tail_len = c.tail_lens[0]
-        out.append(c)
-    return out
-
-
 # ---------------------------------------------------------- merged caches
+def _merge_dense(caches: Sequence):
+    """B dense bf16 caches as one over B·Hkv kv heads (request b's head h
+    at ``b·Hkv + h``), each padded to the largest capacity (padding rows
+    are past every head's length, ``valid`` True there as in the
+    reference's ``_pad_capacity``): ``lengths`` (L, B·Hkv), ``valid`` (L,
+    B·Hkv, C) and ``seen`` (B,)."""
+    cap = max(c.capacity for c in caches)
+
+    def cat(f: str, fill) -> torch.Tensor:
+        parts = []
+        for c in caches:
+            a = getattr(c, f)
+            parts.append(a if a.shape[2] == cap else torch.cat(
+                [a, a.new_full((*a.shape[:2], cap - a.shape[2], *a.shape[3:]), fill)], dim=2))
+        return torch.cat(parts, dim=1)
+
+    return _raw(KVCache, dict(k=cat("k", 0), v=cat("v", 0), valid=cat("valid", True),
+                              lengths=torch.cat([c.lengths for c in caches], dim=1),
+                              seen=torch.stack([c.seen.reshape(()) for c in caches])))
+
+
+def _advance(m, n: torch.Tensor) -> None:
+    """Advance the merged cache's counters by n (B,) rows a sequence: every
+    head's length (a dense cache) or tail length, and the positions."""
+    B = n.shape[0]
+    if isinstance(m, KVCache):
+        m.lengths += n.repeat_interleave(m.lengths.shape[1] // B)
+    else:
+        m.tail_lens += n.repeat_interleave(m.tail_lens.shape[0] // B)
+    m.seen += n
+
+
 def _check_mergeable(caches: Sequence) -> None:
     """One engine's caches agree on kind, layers, kv heads and tail
     capacity; a mixed batch would otherwise fail deep inside a concatenate
@@ -237,6 +205,9 @@ def _merge_pool(caches: Sequence):
 # ------------------------------------------------------ merged layer stack
 def _attend(m, q: torch.Tensor, layer: int, scale: float, q8: bool, B: int) -> torch.Tensor:
     """One layer's attention of q (T, B·H, D) over the merged cache."""
+    if isinstance(m, KVCache):
+        return attend_blockwise(q, m.k[layer], m.v[layer], m.lengths[layer], m.valid[layer],
+                                scale=scale)
     if isinstance(m, (PoolKV, PoolInt4KV)):
         meta = (m.row_head, m.layer_off, m.layer_rows, m.k_tail, m.v_tail, m.tail_lens, layer)
         if isinstance(m, PoolInt4KV):
@@ -257,9 +228,10 @@ def _attend(m, q: torch.Tensor, layer: int, scale: float, q8: bool, B: int) -> t
 def _stack_forward(engine: Engine, m, toks: torch.Tensor, q8: bool) -> torch.Tensor:
     """The merged layer stack (the reference's ``stack_fwd``) over toks
     (B, T): token t of sequence b at position ``seen[b] + t``, its K/V rows
-    appended at its heads' ``tail_lens`` (the counters are not advanced
-    here), query rows given to the kernels as (T, B·H, D) sequence-major.
-    Returns the final hidden states (B, T, Dm). Reads nothing back."""
+    appended at its heads' ``tail_lens`` (a dense cache: ``lengths``; the
+    counters are not advanced here), query rows given to the attention as
+    (T, B·H, D) sequence-major. Returns the final hidden states (B, T, Dm).
+    Reads nothing back."""
     cfg, params = engine.config, engine.params
     B, T = toks.shape
     L, H, Hkv, Dh = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -293,7 +265,10 @@ def _stack_forward(engine: Engine, m, toks: torch.Tensor, q8: bool) -> torch.Ten
         # sequence-major merged heads: (T, B·Hkv, D) rows, (T, B·H, D) queries
         k_rows, v_rows = (a.reshape(B, T, Hkv, Dh).transpose(0, 1).reshape(T, B * Hkv, Dh)
                           for a in (k, v))
-        append_layer(m.k_tail[l], m.v_tail[l], m.tail_lens, k_rows, v_rows)
+        if isinstance(m, KVCache):
+            append_layer(m.k[l], m.v[l], m.lengths[l], k_rows, v_rows)
+        else:
+            append_layer(m.k_tail[l], m.v_tail[l], m.tail_lens, k_rows, v_rows)
         q2 = q.reshape(B, T, H, Dh).transpose(0, 1).reshape(T, B * H, Dh)
         attn = _attend(m, q2, l, scale, q8, B)
         attn = attn.reshape(T, B, H, Dh).transpose(0, 1).reshape(B * T, H * Dh)
@@ -341,7 +316,7 @@ class MergedDecodeStep(CapturedStep):
         dev = engine.device
         self.engine, self.m, self.q8 = engine, m, q8
         self.B = B = m.seen.shape[0]
-        self.cols = m.k_tail.shape[2] + 1
+        self.cols = (m.capacity if isinstance(m, KVCache) else m.k_tail.shape[2]) + 1
         self.buf = torch.zeros(1 + B + self.cols * B, dtype=torch.int64, device=dev)
         self.i, self.done = self.buf[0:1], self.buf[1:1 + B]
         self.tokens = self.buf[1 + B:].view(self.cols, B)
@@ -365,8 +340,7 @@ class MergedDecodeStep(CapturedStep):
         now_done = done | (running & hit)
         adv = (running & ~now_done).to(torch.int32)
         self.done.copy_(now_done)
-        m.tail_lens += adv[:, None].expand(B, m.tail_lens.shape[0] // B).reshape(-1)
-        m.seen += adv
+        _advance(m, adv)
         self.i += running
 
     def start(self, first: torch.Tensor, budget: int, stop_on_eos: bool) -> None:
@@ -391,28 +365,47 @@ class MergedDecodeStep(CapturedStep):
 
 
 class MergedBatch:
-    """B states merged into one cache (:func:`_merge_pool` or
-    :func:`_merge_flat`), with its one decode step, captured at its first
-    decode and kept for the batch's later ones (``capture_s``)."""
+    """B states merged into one cache (:func:`_merge_pool`,
+    :func:`_merge_flat` or :func:`_merge_dense`), with its one decode step,
+    captured at its first decode and kept for the batch's later ones
+    (``capture_s``)."""
 
     def __init__(self, engine: Engine, states: Sequence[KVState]):
         caches = [st.cache for st in states]
-        if not isinstance(caches[0], _MERGEABLE):
-            raise NotImplementedError(_DENSE_BATCH)
         self.engine, self.states = engine, list(states)
         self.B = len(states)
-        pool = isinstance(caches[0], (PoolKV, PoolInt4KV))
-        self.cache = (_merge_pool if pool else _merge_flat)(caches)
+        if isinstance(caches[0], KVCache):
+            if any(type(c) is not KVCache for c in caches):
+                raise ValueError("all caches in a batch must have the same type")
+            self.cache = _merge_dense(caches)
+            self.start_lengths = self.cache.lengths.clone()
+            self.start_seen = self.cache.seen.clone()
+        elif isinstance(caches[0], _MERGEABLE):
+            pool = isinstance(caches[0], (PoolKV, PoolInt4KV))
+            self.cache = (_merge_pool if pool else _merge_flat)(caches)
+        else:
+            raise NotImplementedError(
+                f"{type(caches[0]).__name__} states have no batch path (nor in the "
+                "reference): batch dense bf16 states, pools or flat caches")
         self.q8 = (engine.attn_quant == "int8"
                    and isinstance(caches[0], (PoolInt4KV, FlatInt4KV)))
         self.step: Optional[MergedDecodeStep] = None
         self.capture_s: Optional[float] = None
 
     def check_room(self, need: int) -> None:
-        """The room check of a call (one host read): ``need`` more tail rows
-        after the longest tail, and one for the last step's write."""
-        base = int(self.cache.tail_lens.max())
-        cap = self.cache.k_tail.shape[2]
+        """The room check of a call (one host read): ``need`` more rows
+        after the longest tail (a dense state: after its longest head, in
+        its own capacity), and one for the last step's write."""
+        m = self.cache
+        if isinstance(m, KVCache):
+            longest = m.lengths.reshape(m.lengths.shape[0], self.B, -1).amax(dim=(0, 2))
+            for st, base in zip(self.states, longest.tolist()):
+                if base + need + 1 > st.cache.capacity:
+                    raise ValueError(f"merged decode needs {base + need + 1} rows > capacity "
+                                     f"{st.cache.capacity}; raise decode_budget")
+            return
+        base = int(m.tail_lens.max())
+        cap = m.k_tail.shape[2]
         if base + need + 1 > cap:
             raise ValueError(f"merged decode needs {base + need + 1} tail rows > capacity "
                              f"{cap}; raise decode_budget")
@@ -426,8 +419,7 @@ class MergedBatch:
         x = _stack_forward(self.engine, m, toks, self.q8)
         xl = x[torch.arange(self.B, device=x.device), n.long() - 1]
         first = torch.argmax(_logits(self.engine, xl), dim=-1)
-        m.tail_lens += n.repeat_interleave(m.tail_lens.shape[0] // self.B)
-        m.seen += n
+        _advance(m, n)
         return first
 
     def decode_step(self) -> MergedDecodeStep:
@@ -454,9 +446,29 @@ class MergedBatch:
             raise ValueError("a state appears twice in a batch that writes back")
 
     def write_back(self) -> None:
-        """Each state's grown tail and counters, copied IN PLACE into its own
-        tensors (its own captured decode step reads them by address)."""
-        m, Hkv = self.cache, self.cache.k_tail.shape[1] // self.B
+        """Each state's grown tail (a dense state: the rows the batch wrote,
+        from each head's length at the merge on) and counters, copied IN
+        PLACE into its own tensors (its own captured decode step reads them
+        by address)."""
+        m = self.cache
+        if isinstance(m, KVCache):
+            Hkv = m.k.shape[1] // self.B
+            start = self.start_lengths
+            # every head of a sequence advanced alike: one host read of the widest
+            n = int((m.seen - self.start_seen).max())
+            for b, st in enumerate(self.states):
+                c, heads = st.cache, slice(b * Hkv, (b + 1) * Hkv)
+                # rows [start, start + n) of each (layer, head); a row past the
+                # capacity is clamped to the last, which the merge copied too
+                rows = (start[:, heads, None] + torch.arange(n, device=start.device)
+                        ).clamp_max(c.capacity - 1).long()
+                idx = rows[..., None].expand(-1, -1, -1, m.k.shape[-1])
+                for f in ("k", "v"):
+                    getattr(c, f).scatter_(2, idx, getattr(m, f)[:, heads].gather(2, idx))
+                c.lengths.copy_(m.lengths[:, heads])
+                c.seen.copy_(m.seen[b])
+            return
+        Hkv = m.k_tail.shape[1] // self.B
         for b, st in enumerate(self.states):
             c, heads = st.cache, slice(b * Hkv, (b + 1) * Hkv)
             c.k_tail.copy_(m.k_tail[:, heads])
@@ -541,8 +553,6 @@ def batched_generate_ids(engine: Engine, queries: Sequence, states: Sequence[KVS
     excluded)."""
     if len(queries) != len(states):
         raise ValueError(f"{len(queries)} queries for {len(states)} states")
-    if not isinstance(states[0].cache, _MERGEABLE):
-        raise NotImplementedError(_DENSE_BATCH)
     max_new = max_new_tokens or engine.max_new_tokens
     tokens, n = _merged_decode(engine, states, None, max_new - 1, queries=queries,
                                write_back=False)
@@ -573,8 +583,7 @@ def batched_logits(engine: Engine, seqs: Sequence[np.ndarray], states: Sequence[
         logits = _logits(engine, x.reshape(-1, x.shape[-1])).reshape(*x.shape[:2], -1)
         for b, k in enumerate(ingest):
             out[b].append(logits[b, :k].float())
-        m.tail_lens += n.repeat_interleave(m.tail_lens.shape[0] // batch.B)
-        m.seen += n
+        _advance(m, n)
     else:
         batch.check_room(steps)
     for t in range(steps):
@@ -582,8 +591,7 @@ def batched_logits(engine: Engine, seqs: Sequence[np.ndarray], states: Sequence[
                            dtype=torch.int64, device=engine.device)
         x = _stack_forward(engine, m, cur, batch.q8)
         logits = _logits(engine, x[:, 0]).float()
-        m.tail_lens += 1
-        m.seen += 1
+        _advance(m, torch.ones_like(m.seen))
         for b, r in enumerate(rest):
             if t < len(r):
                 out[b].append(logits[b:b + 1])

@@ -203,10 +203,14 @@ def test_int8_attention_stays_near_exact(quant_layouts, layout):
 
 
 def test_decode_layout_options_validate(tree):
-    """``flat_decode="off"`` (the dense compaction) is not ported and says
-    so; unknown layouts and attention modes raise."""
-    with pytest.raises(NotImplementedError, match="compact"):
-        _port(tree, flat_decode="off")
+    """``flat_decode="off"`` (the dense compaction) is a layout of the port:
+    its evict prune compacts the dense cache; unknown layouts and attention
+    modes raise."""
+    eng = _port(tree, flat_decode="off")
+    st = eng.prefill(CTX_Q, prefill_chunk_size=256)
+    eng.prune(st, 0.3, "pair")
+    assert type(st.cache).__name__ == "KVCache" and eng._impl(st) == "flash"
+    assert st.cache.capacity < st.prefill_len and len(eng.generate_ids(QUERY_Q, st)) > 0
     with pytest.raises(ValueError, match="flat_decode"):
         _port(tree, flat_decode="pool")
     with pytest.raises(ValueError, match="attn_quant"):

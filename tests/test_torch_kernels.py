@@ -302,6 +302,39 @@ def test_flash_int4_decode_form_is_counted(gen):
 # K6 at T = 17 (one 128-query block, one chunk tile), T = 200 (the chunk's
 # rows cross a tile edge; base no multiple of 128) and the scoring chunk's
 # 2304; a reference without the cache's last 64 rows must fail.
+# After ``compact`` or a head-level prune the kv heads' lengths lie far
+# apart: half the heads at the sink's rows, half at ~16k.
+FAR_SINK, FAR_C = 37, 16896
+
+
+@pytest.mark.parametrize("H,Hkv", [(28, 4), (32, 8)])
+@pytest.mark.parametrize("kernel,T", [("flash", 16), ("flash", 24), ("flash", 64),
+                                      ("ragged", 1), ("ragged", 8), ("int4", 1), ("int4", 4)])
+def test_kernels_with_far_apart_head_lengths(gen, kernel, T, H, Hkv):
+    from kvzip_tpu_torch.ops import flash_int4
+
+    q = _rn(gen, T, H, D)
+    lens = torch.tensor([FAR_SINK if h % 2 else 16384 - 7 * h for h in range(Hkv)],
+                        dtype=torch.int32, device="cuda")
+    if kernel == "int4":
+        kv = (*_quant(gen, Hkv, FAR_C), *_quant(gen, Hkv, FAR_C))
+        got = flash_int4.flash_attend_int4(q, *kv, lens, scale=D ** -0.5)
+        want = flash_int4.flash_attend_int4_plain(q.float(), *kv, lens, scale=D ** -0.5)
+        drop = flash_int4.flash_attend_int4_plain(q.float(), *_int4_drop_first(kv),
+                                                  (lens - 64).clamp_min(0), scale=D ** -0.5)
+        assert LAUNCHES["flash_attend_int4_decode"] == 1
+    else:
+        fn, plain = ((flash.flash_attend, flash.flash_attend_plain) if kernel == "flash" else
+                     (ragged_decode.ragged_decode_attend,
+                      ragged_decode.ragged_decode_attend_plain))
+        k, v = _rn(gen, Hkv, FAR_C, D), _rn(gen, Hkv, FAR_C, D)
+        got = fn(q, k, v, lens, scale=D ** -0.5)
+        want = plain(q.float(), k.float(), v.float(), lens, scale=D ** -0.5)
+        drop = _drop_first_tile(plain, q, k, v, lens)
+        assert LAUNCHES[fn.__name__] == 1
+    assert _ok(got, want) and not parity(got, drop, OUT_RTOL)["ok"]
+
+
 @pytest.mark.parametrize("H,Hkv", [(4, 2), (28, 4), (32, 8)])
 @pytest.mark.parametrize("T,C,base", [(17, 512, 300), (200, 1000, 650),
                                       (2304, 4096, 1500)])
@@ -1545,8 +1578,8 @@ def _loop_engine(kind, device="cuda", dtype=torch.bfloat16, **options):
                         else v for k, v in params["layers"].items()}
     eng = Engine("tiny-llama", config=cfg, params=params, tokenizer=ByteTokenizer(2048),
                  dtype=dtype, device=device, max_new_tokens=20, decode_budget=160,
-                 capacity_granularity=256, score_chunk_size=256,
-                 **{**LOOP_KINDS[kind], **options})
+                 score_chunk_size=256,
+                 **{"capacity_granularity": 256, **LOOP_KINDS[kind], **options})
     eng.fuse_layer = "on" if kind == "fused" else "off"
     eng.eos_ids = (-1,)
     return eng
@@ -1610,6 +1643,58 @@ def test_captured_loop_alternates_two_states(gen):
             step = eng.decode_step(st)
             assert steps.setdefault(i, step) is step  # captured once a state
     assert steps[1] is not steps[2]
+
+
+@pytest.mark.parametrize("impl", ["dense", "blockwise"])
+def test_retain_decode_captured_step_matches_eager(gen, impl):
+    """A pruned retain state decodes through the masked route (no kernel):
+    its captured step gives the per-token loop's tokens, counters and
+    (zero) launches, at two ratios of one prefill (a prune drops the
+    step)."""
+    eng = _loop_engine("bf16", kv_type="retain", attn_impl=impl)
+    st, q = _loop_state(eng, 5)
+    for ratio in (0.3, 0.6):
+        eng.prune(st, ratio, "pair")
+        assert eng._impl(st) == impl and not st._steps
+        (t1, l1, c1), (t2, l2, c2) = _both_loops(eng, st, q)
+        assert t1 == t2 and len(t1) == eng.max_new_tokens and c1 == c2
+        assert l1 == l2 and not any(l1.values())
+        assert next(iter(st._steps.values())).graph is not None
+
+
+@pytest.mark.parametrize("kind", ["bf16", "quant"])
+def test_dense_cache_any_capacity_runs_kernels(gen, kind):
+    """A dense head_dim-128 cache whose capacity is no multiple of 128
+    (capacity_granularity 100; none below 3,200 is), prefilled and
+    compacted, runs the kernels' route: K1 / K5 at T 64 and K4 / K5's
+    decode form at T 4, each within a tenth of the largest probability of
+    the masked route's on the same state (bf16 against its float32: 1-5%
+    on the card), and a captured decode step equal to the per-token
+    loop."""
+    import numpy as np
+
+    eng = _loop_engine(kind, flat_decode="off", capacity_granularity=100)
+    reset_launches()
+    st, q = _loop_state(eng, 5)
+    assert type(st.cache).__name__ in ("KVCache", "Int4KVCache")
+    assert st.cache.capacity % 128 and eng._impl(st) == "flash"
+    big, small = (("flash_attend_int4", "flash_attend_int4_decode") if kind == "quant"
+                  else ("flash_attend", "ragged_decode_attend"))
+    assert LAUNCHES[big] > 0
+    # T 64 and T 4 are one chunk each of the engine's ladder
+    for ids, name, other in ((np.resize(q, 64), big, small), (q[:4], small, None)):
+        reset_launches()
+        got = eng.prob(ids, st)
+        assert LAUNCHES[name] == eng.config.num_layers and not LAUNCHES.get(other), \
+            (name, dict(LAUNCHES))
+        eng.attn_impl = "dense"
+        want = eng.prob(ids, st)
+        eng.attn_impl = "auto"
+        err = float(np.abs(got - want).max())
+        assert err < 0.1 * float(want.max()), (name, err, float(want.max()))
+    (t1, l1, c1), (t2, l2, c2) = _both_loops(eng, st, q)
+    assert t1 == t2 and len(t1) == eng.max_new_tokens and c1 == c2 and l1 == l2
+    assert l1[small] > 0
 
 
 # Batched serving (``serving.MergedBatch``): three pruned states at ratios

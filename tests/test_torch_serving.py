@@ -336,22 +336,24 @@ def test_segment_writes_back_in_place(states):
 
 @pytest.mark.parametrize("states", ["pool"], indirect=True)
 def test_dense_batch_and_room_check_raise(engines, states):
-    """The dense batch path has no port yet: batched_generate, a segment and
-    a continuous run on unpruned states raise NotImplementedError (no
-    fallback to single generates). A batch without room raises ValueError
-    in both packages before writing; a state twice in a batch that writes
-    back (a segment) raises."""
+    """The dense batch path works on unpruned states: batched_generate, a
+    segment and a continuous run give each state's own answers (the dense
+    route's reference holds are ``test_torch_serving_dense.py``). A batch
+    without room raises ValueError in both packages before writing; a
+    state twice in a batch that writes back (a segment) raises."""
     jeng = engines[0]
     _, teng, jsts, tsts = states
     dense = teng.prefill(CTXS[0], prefill_chunk_size=256, do_score=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        serving.batched_generate(teng, QUERIES[:2], [dense, dense])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        serving._decode_segment(teng, [dense], [1], 2)
+    want = [teng.generate(q, dense) for q in QUERIES[:2]]
+    assert serving.batched_generate(teng, QUERIES[:2], [dense, dense]) == want
+    seen = int(dense.cache.seen)
+    dense.snapshot()
+    assert serving._decode_segment(teng, [dense], [1], 2).shape == (1, 2)
+    assert int(dense.cache.seen) == seen + 2
+    dense.restore_snapshot()
     sched = serving.Scheduler(teng)
     sched.submit(QUERIES[0], dense)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        sched.run_continuous()
+    assert sched.run_continuous() == want[:1]
     too_many = KW["decode_budget"]
     with pytest.raises(ValueError, match="capacity"):
         serving.batched_generate(teng, QUERIES, tsts, max_new_tokens=too_many)
@@ -386,41 +388,28 @@ def test_one_state_twice_in_a_batch(engines, states):
     assert int(tsts[0].cache.tail_len) == 0 and int(tsts[0].cache.seen) == tsts[0].prefill_len
 
 
-@pytest.mark.parametrize("states", ["flat"], indirect=True)
-def test_stack_caches_match_reference(states):
-    """stack_caches pads flat caches to the largest R_pad (row_head -1) and
-    stacks them as the reference does; unstack_caches gives them back."""
-    _, _, jsts, tsts = states
-    got = serving.stack_caches([st.cache for st in tsts])
-    want = jserving.stack_caches([st.cache for st in jsts])
-    np.testing.assert_array_equal(got.row_head.numpy(), np.asarray(want.row_head))
-    np.testing.assert_array_equal(got.k_flat.numpy(),
-                                  np.swapaxes(np.asarray(want.k_flat), -1, -2))
-    np.testing.assert_array_equal(got.v_flat.numpy(), np.asarray(want.v_flat))
-    np.testing.assert_array_equal(got.tail_lens[:, 0].numpy(), np.asarray(want.tail_len))
-    back = serving.unstack_caches(got, len(tsts))
-    for c, st in zip(back, tsts):
-        n = st.cache.capacity
-        assert torch.equal(c.k_flat[:, :n], st.cache.k_flat)
-        assert (c.row_head[:, n:] == -1).all() and int(c.tail_len) == int(st.cache.tail_len)
-    pool = synthetic_full_pool(2, 2, 128, 70, 40, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="merged pool"):
-        serving.stack_caches([pool, pool])
-
-
 def test_stack_dense_caches():
-    cfg = tconfig.tiny_config("llama", **SHAPE)
-    caches = []
+    """_merge_dense puts B dense caches of different capacities side by
+    side on the kv-head axis as the reference's ``stack_caches`` stacks
+    them (padding rows zero, ``valid`` True), ``seen`` (B,)."""
+    from kvzip_tpu.cache import KVCache as JKVCache
+
+    caches, jcaches = [], []
     for C, n in ((256, 100), (512, 300)):
         k = torch.randn(2, 2, C, 128)
-        caches.append(KVCache(k=k, v=k + 1, lengths=torch.full((2, 2), n, dtype=torch.int32),
-                              seen=n))
-    got = serving.stack_caches(caches)
-    assert got.k.shape == (2, cfg.num_layers, 2, 512, 128)
-    assert torch.equal(got.k[0, :, :, :256], caches[0].k) and (got.k[0, :, :, 256:] == 0).all()
-    assert got.seen.tolist() == [100, 300]
-    back = serving.unstack_caches(got, 2)
-    assert torch.equal(back[1].v, caches[1].v) and int(back[0].seen) == 100
+        valid = torch.rand(2, 2, C) < 0.7
+        lens = torch.full((2, 2), n, dtype=torch.int32)
+        caches.append(KVCache(k=k, v=k + 1, lengths=lens, seen=n, valid=valid))
+        jcaches.append(JKVCache(k=jnp.asarray(k.numpy()), v=jnp.asarray((k + 1).numpy()),
+                                lengths=jnp.asarray(lens.numpy()), seen=jnp.int32(n),
+                                valid=jnp.asarray(valid.numpy())))
+    got = serving._merge_dense(caches)
+    want = jserving.stack_caches(jcaches)
+    for f in ("k", "v", "valid", "lengths"):
+        w = np.asarray(getattr(want, f))  # (B, L, Hkv, ...) -> (L, B·Hkv, ...)
+        w = np.swapaxes(w, 0, 1).reshape(w.shape[1], -1, *w.shape[3:])
+        np.testing.assert_array_equal(getattr(got, f).numpy(), w, err_msg=f)
+    assert got.k.shape == (2, 4, 512, 128) and got.seen.tolist() == [100, 300]
 
 
 def test_pool_mem_bytes():
