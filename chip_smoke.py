@@ -194,21 +194,40 @@
    prefill, scoring, pair 0.3 prune (a compaction: ``_use_flat`` is False
    at head_dim 64), three queries, all through the masked route; the
    phase must launch no kernel; "dense" held against "blockwise" logits.
-8. Prints the kernels line, then as the last line
+8. The command line (``kvzip_tpu_torch.cli.main``, in-process, in a
+   temporary working directory; its output goes to stderr), each command
+   a counted phase whose launches join the kernels line (``cli_launches``
+   logs them): ``cli_test`` (``test -m llama3.2-3b -d squad --ratio 0.3
+   --save_head_score``: K1-K4 must run; the head scores written);
+   ``cli_eval`` (``eval -m llama3.2-3b -d needle --num 1``: nine ratio rows
+   written; the ``--canary`` sweep parsed, 100.00 at 1.00 and never rising
+   as the ratio falls; the golden compare at retain 1.0 held with
+   ``retain_path``'s rule, ``golden_at_full``); ``cli_demo`` (``demo
+   --ctx_tokens 16384 --baseline`` in modes ``kvzip`` and ``kvzip_head``,
+   the latter on ``cli_test``'s head scores: the JSON line parses, the
+   pruned cache below the dense one; K1-K3 must run); ``cli_demo_quant``
+   (the same demo of qwen2.5-7b with ``--kv_quant int4 --weight_quant w4a8
+   --embed_quant int8``: K2 and K5-K8 must run, no bf16 attention kernel).
+9. Prints the kernels line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the last line.
 """
 
+import contextlib
 import copy
 import dataclasses
 import gc
+import io
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
+import types
+from typing import Tuple
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 MODEL = "qwen2.5-7b"
@@ -2777,6 +2796,187 @@ def llama1b_path(eng, ctx_ids, queries):
     return rep
 
 
+# ----------------------------------------------------------- the CLI
+CLI_MODEL = "llama3.2-3b"  # the command line's default model
+CLI_CTX = 16384
+CLI_QUANT = ("--kv_quant", "int4", "--weight_quant", "w4a8", "--embed_quant", "int8")
+
+
+class _Tee(io.TextIOBase):
+    """Text written to it goes to stderr and is kept (the command line's
+    output: stdout keeps the smoke's own lines)."""
+
+    def __init__(self):
+        self.parts = []
+
+    def write(self, text):
+        self.parts.append(text)
+        sys.stderr.write(text)
+        return len(text)
+
+
+def cli_run(argv) -> Tuple[str, float]:
+    """``kvzip_tpu_torch.cli.main(argv)`` in-process, in the current working
+    directory: its output (sent to stderr too) and its host-clock seconds
+    (synchronized); the card's cache emptied after."""
+    import torch
+
+    from kvzip_tpu_torch import cli
+
+    tee = _Tee()
+    with contextlib.redirect_stdout(tee):
+        _, secs = timed(lambda: cli.main(list(argv)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return "".join(tee.parts), secs
+
+
+def _stamps(out: str):
+    """The TimeStamp lines' times, in order."""
+    return [float(x) for x in re.findall(r"## Time: ([0-9.]+)m?s\.", out)]
+
+
+def _demo_line(out: str) -> dict:
+    lines = [ln for ln in out.splitlines() if ln.startswith('{"demo"')]
+    if not lines:
+        raise AssertionError("the demo printed no JSON line")
+    return json.loads(lines[-1])["demo"]
+
+
+def cli_test(_, work: str):
+    """``cli test -m llama3.2-3b -d squad --ratio 0.3 --save_head_score``:
+    prefill, scoring, the full-cache answers on the dense cache and their
+    probabilities, the head scores saved, prune 0.3 into the pool, the
+    pruned answers and their comparison. Holds: the head-score file
+    written, of (layers, kv heads). Reports the TimeStamp seconds."""
+    import numpy as np
+
+    from kvzip_tpu_torch.config import resolve_config
+
+    os.chdir(work)
+    out, secs = cli_run(["test", "-m", CLI_MODEL, "-d", "squad", "--ratio", "0.3",
+                         "--save_head_score"])
+    path = os.path.join(work, "head_score", f"{CLI_MODEL}-squad-0.npz")
+    cfg = resolve_config(CLI_MODEL)
+    head = np.load(path)["score"]
+    if head.shape != (cfg.num_layers, cfg.num_kv_heads) or not np.isfinite(head).all():
+        raise AssertionError(f"head scores of shape {head.shape}")
+    return dict(command_s=secs, stamps_s=_stamps(out),
+                synthetic_data="synthetic stand-in" in out)
+
+
+def _canary_table(out: str) -> dict:
+    rows = out.split("ratio avg_performance")[1].split()
+    return {float(r): float(v) for r, v in zip(rows[::2], rows[1::2])}
+
+
+def golden_at_full(argv) -> dict:
+    """The golden compare at retain 1.0 on the needle sample the sweep ran:
+    an engine the command line would build (``make_engine``, the same
+    weights), the sample's full-cache answer and probabilities (as
+    ``DataWrapper.generate_answer`` makes them, K4 and K1 on the unpruned
+    cache, the answer's ids kept as generated), then
+    prune at 1.0 and ``Evaluator(..., generate=False)`` (the masked route).
+    Held with ``retain_path``'s rule for retain 1.0 against the unpruned
+    state: the probability differences within twice the schedule noise
+    (the unpruned state's probabilities in chunks against token by token),
+    and a flipped argmax only where the full cache's top two are within
+    the largest difference."""
+    import numpy as np
+    import torch
+
+    from kvzip_tpu_torch import cli
+    from kvzip_tpu_torch.data import DataWrapper, get_query, load_dataset_all
+    from kvzip_tpu_torch.eval import Evaluator
+    from kvzip_tpu_torch.utils import set_gen_length
+
+    args = cli.build_parser().parse_args(argv)
+    args.kv_type = "retain"  # as cmd_eval
+    eng = cli.make_engine(args)
+    data = DataWrapper(args.data, load_dataset_all(args.data, eng.tokenizer), eng)
+    set_gen_length(args.data, eng)
+    st = data.prefill_context(args.idx)
+    # DataWrapper.generate_answer's inputs, with the answer's ids as
+    # generated: random weights answer in ids the byte tokenizer cannot
+    # spell, so its text round trip would leave no answer token to compare
+    rec = data.dataset[args.idx]
+    q_ids = eng.apply_template(get_query("qa", rec["question"][0]))
+    a_ids = eng.generate_ids(q_ids, st)
+    seq, n = np.concatenate([q_ids, a_ids]), len(a_ids)
+    p_full = eng.prob(seq, st)
+    steps = torch.softmax(torch.from_numpy(teacher_forced(eng, st, seq, step=True)), -1)
+    floor = float(np.abs(steps.numpy() - p_full)[-n - 1:-1].max())
+    _, kept = eng.prune(st, 1.0, args.level)
+    if not st.cache.valid.all():
+        raise AssertionError("retain 1.0 masked a row")
+    inputs = {"qa": {"q": q_ids, "a": a_ids, "gt": eng.encode(rec["answers"][0])}}
+    r = Evaluator(eng, inputs, {"qa": {"prob": p_full}})(st, generate=False)["qa"]
+    diff = max(abs(r["p"][0]), abs(r["p"][2]), abs(r["p_ans"][0]), abs(r["p_ans"][2]))
+    top2 = np.sort(p_full[-n - 1:-1], axis=-1)[:, -2:]
+    near = np.nonzero(top2[:, 1] - top2[:, 0] <= diff)[0].tolist()
+    rep = dict(kept_ratio=kept, answer_tokens=n, noise_floor=floor, max_prob_diff=diff,
+               p=r["p"], p_ans=r["p_ans"], margin=r["margin"], flips=r["idx_flip"],
+               near_ties=len(near), attn_impl=eng._impl(st))
+    if diff > 2 * floor:
+        raise AssertionError(f"golden compare at 1.0: probabilities differ by {diff} > "
+                             f"2 x {floor}")
+    if set(r["idx_flip"]) - set(near):
+        raise AssertionError(f"golden compare at 1.0: argmax flipped at a clear margin "
+                             f"({r['idx_flip']}, near-ties {near})")
+    return rep
+
+
+def cli_eval(_, work: str):
+    """``cli eval -m llama3.2-3b -d needle --num 1`` (a retain prefill of the
+    first needle sample, the full-cache answer, then prune at nine ratios
+    and answer after each: the masked route), its result file (nine ratio
+    rows); the same sweep with ``--canary`` and ``parse`` of it (the
+    reference's parse globs on the model name, so the tagged folder is read
+    as ``llama3.2-3b__canary``): 100.00 at 1.00 and never rising as the
+    ratio falls; then the golden compare at retain 1.0 (``golden_at_full``)."""
+    os.chdir(work)
+    argv = ["eval", "-m", CLI_MODEL, "-d", "needle", "--num", "1"]
+    rep = {}
+    out, rep["eval_s"] = cli_run(argv)
+    with open(os.path.join(work, "results", "needle", f"0_{CLI_MODEL}", "output-pair.json")) as f:
+        rows = json.load(f)["qa"]
+    if [r[0][0] for r in rows] != [0.9, 0.8, 0.7, 0.6, 0.5, 0.4, 0.3, 0.2, 0.1]:
+        raise AssertionError(f"eval wrote ratio rows {[r[0] for r in rows]}")
+    rep.update(kept=[r[0][1] for r in rows], stamps_s=_stamps(out),
+               distinct_answers=len({r[1]["pruned"] for r in rows}))
+    _, rep["canary_s"] = cli_run(argv + ["--canary"])
+    out, _ = cli_run(["parse", "-m", f"{CLI_MODEL}__canary", "-d", "needle"])
+    table = _canary_table(out)
+    scores = [table[r] for r in sorted(table, reverse=True)]
+    rep["canary_table"] = {f"{r:.2f}": v for r, v in sorted(table.items(), reverse=True)}
+    if len(table) != 10 or scores[0] != 100.0 or scores != sorted(scores, reverse=True):
+        raise AssertionError(f"canary table {table}: not 100.00 at 1.00 and non-increasing")
+    with contextlib.redirect_stdout(_Tee()):  # the harness's output to stderr
+        rep["golden_at_full"], rep["golden_s"] = timed(lambda: golden_at_full(argv))
+    return rep
+
+
+def cli_demo(_, work: str, extra=(), modes=("kvzip", "kvzip_head"), model=None):
+    """``cli demo --model <model> --ctx_tokens 16384 --baseline`` in each
+    mode (``kvzip_head`` with the head scores ``cli_test`` saved): the
+    demo's JSON line parses and the pruned cache is smaller than the dense
+    one; the demo's GB and ms/token, full and pruned."""
+    os.chdir(work)
+    rep = {}
+    for mode in modes:
+        argv = ["demo", "--model", model or CLI_MODEL, "--ctx_tokens", str(CLI_CTX), "--baseline",
+                "-m", mode, *extra]
+        if mode == "kvzip_head":
+            argv += ["--head_score_dir", os.path.join(work, "head_score")]
+        out, secs = cli_run(argv)
+        demo = _demo_line(out)
+        if not demo["pruned_gb"] < demo["full_gb_dense"]:
+            raise AssertionError(f"demo {mode}: pruned {demo['pruned_gb']} GB is not below "
+                                 f"the dense {demo['full_gb_dense']} GB")
+        rep[mode] = dict(demo, command_s=secs, stamps_ms=_stamps(out))
+    return rep
+
+
 def add_launches(launches: dict, counts: dict) -> None:
     for k, v in counts.items():
         launches[k] = launches.get(k, 0) + v
@@ -3143,6 +3343,44 @@ def main() -> int:
     ctx_ids = rng.integers(0, cfg.vocab_size, CTX).astype(np.int32)
     queries = [rng.integers(0, cfg.vocab_size, 24).astype(np.int32) for _ in range(3)]
     counted("llama1b_path", eng, (), llama1b_path, ctx_ids, queries, absent=tuple(LAUNCHES))
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the command line (kvzip_tpu_torch.cli) in-process, in a working
+    # directory of its own; its launches join the kernels line
+    os.environ.setdefault("HF_DATASETS_OFFLINE", "1")
+    os.environ.setdefault("HF_HUB_OFFLINE", "1")
+    cli_eng = types.SimpleNamespace(name=CLI_MODEL, config=resolve_config(CLI_MODEL))
+    quant_eng = types.SimpleNamespace(name=MODEL, config=resolve_config(MODEL))
+    bf16_kernels = ("flash_attend", "fused_scores", "ragged_decode_attend", "pool_decode_attend")
+    int4_kernels = ("flash_attend_int4", "flash_attend_int4_decode", "flash_attend_int4_extra",
+                    "pool_decode_attend_int4", "w4a8_matmul_stacked_v2")
+    cli_launches = {}
+    home = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        try:
+            add_launches(cli_launches, counted("cli_test", cli_eng, bf16_kernels, cli_test, work,
+                                               absent=int4_kernels))
+            add_launches(cli_launches, counted("cli_eval", cli_eng, bf16_kernels[:3], cli_eval,
+                                               work, absent=int4_kernels))
+            add_launches(cli_launches, counted(
+                "cli_demo", cli_eng, ("flash_attend", "fused_scores", "pool_decode_attend"),
+                cli_demo, work, absent=int4_kernels))
+            add_launches(cli_launches, counted(
+                "cli_demo_quant", quant_eng, ("fused_scores", *int4_kernels[:1],
+                                              *int4_kernels[2:]),
+                cli_demo, work, CLI_QUANT, ("kvzip",), MODEL,
+                absent=("flash_attend", "ragged_decode_attend", "pool_decode_attend")))
+            # K5's decode form (counted within K5 too) on that phase, if any
+            add_launches(cli_launches, {n: LAUNCHES[n] for n in int4_kernels[1:2]})
+        finally:
+            os.chdir(home)
+    cli_launches["flash_attend_int4"] -= cli_launches["flash_attend_int4_decode"]
+    cli_launches = {n: cli_launches.get(n, 0) for n in (*bf16_kernels, *int4_kernels)}
+    log(phase="cli_launches", **cli_launches)
+    for r in kernels:
+        r["launches"] += cli_launches.get(r["name"], 0)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "rms_want",
             "worst_to_tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,6 +1,8 @@
 """The port stands alone: it imports neither JAX nor the reference package
-(nor ``safetensors`` or ``ml_dtypes``, which the card's machine lacks), and
-its engine runs on the card unless the caller asks for the CPU."""
+(nor ``safetensors``, ``ml_dtypes`` or ``cffi``, which the card's machine
+lacks), its command line and harness import without the optional
+packages that machine lacks too, and its engine runs on the card unless
+the caller asks for the CPU."""
 
 import ast
 import os
@@ -24,10 +26,15 @@ def test_import_loads_no_jax_and_no_reference():
             "kvzip_tpu_torch.ops.windowed_attend, kvzip_tpu_torch.ops.flat_decode, "
             "kvzip_tpu_torch.ops.w4a8_fused, "
             "kvzip_tpu_torch.cache, kvzip_tpu_torch.models.params, "
-            "kvzip_tpu_torch.models.transformer, kvzip_tpu_torch.serving\n"
+            "kvzip_tpu_torch.models.transformer, kvzip_tpu_torch.serving, "
+            "kvzip_tpu_torch.cli, kvzip_tpu_torch.native, kvzip_tpu_torch.data.loaders, "
+            "kvzip_tpu_torch.data.needle, kvzip_tpu_torch.data.wrapper, "
+            "kvzip_tpu_torch.eval.metrics, kvzip_tpu_torch.eval.repoqa, "
+            "kvzip_tpu_torch.eval.evaluator, kvzip_tpu_torch.eval.needle_viz, "
+            "kvzip_tpu_torch.utils.io, kvzip_tpu_torch.utils.profiling\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'kvzip_tpu' or m.startswith('kvzip_tpu.')"
-            " or m.split('.')[0] in ('safetensors', 'ml_dtypes')]\n"
+            " or m.split('.')[0] in ('safetensors', 'ml_dtypes', 'cffi')]\n"
             "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True).stdout
@@ -58,11 +65,43 @@ def test_no_file_imports_jax_or_reference(path):
     for d, _, fs in os.walk(PKG) for f in fs if f.endswith(".py"))
     + ["chip_smoke.py"])
 def test_no_file_imports_safetensors_or_ml_dtypes(path):
-    """The card's machine has neither: the port reads checkpoints with its
-    own reader (``models/params.py::_read_raw``) and the smoke writes them
-    with its own writer."""
+    """The card's machine has none of them: the port reads checkpoints with
+    its own reader (``models/params.py::_read_raw``), the smoke writes them
+    with its own writer, and ``native.py`` binds the metrics library with
+    ``ctypes`` (the reference: ``cffi``)."""
     for mod in _imported_modules(os.path.join(ROOT, path)):
-        assert mod.split(".")[0] not in ("safetensors", "ml_dtypes"), f"{path}: {mod}"
+        assert mod.split(".")[0] not in ("safetensors", "ml_dtypes", "cffi"), f"{path}: {mod}"
+
+
+def test_cli_and_harness_run_without_the_optional_packages():
+    """With ``rouge``, ``nltk``, ``datasets``, ``matplotlib``, ``cffi`` and
+    ``transformers`` hidden (the card's machine has none of them), the
+    command line and the harness import, the datasets fall back to their
+    stand-ins, and the scores come from the native library."""
+    code = (
+        "import sys\n"
+        "class Hide:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('rouge', 'nltk', 'datasets', 'matplotlib',"
+        " 'cffi', 'transformers'):\n"
+        "            raise ImportError(name + ' hidden')\n"
+        "sys.meta_path.insert(0, Hide())\n"
+        "from kvzip_tpu_torch import cli, native\n"
+        "from kvzip_tpu_torch.data import load_dataset_all\n"
+        "from kvzip_tpu_torch.eval.metrics import evaluate_answer\n"
+        "from kvzip_tpu_torch.eval.repoqa import compute_function_similarity\n"
+        "from kvzip_tpu_torch.tokenizer import load_tokenizer\n"
+        "cli.build_parser().parse_args(['demo', '--ctx_tokens', '16'])\n"
+        "assert type(load_tokenizer('llama3.2-3b')).__name__ == 'ByteTokenizer'\n"
+        "assert load_dataset_all('squad', None, n_data=2)\n"
+        "assert evaluate_answer(['a b c d'], ['a b x d'], 'squad', 'summarize') == [0.75]\n"
+        "src = 'def f ( x ) : return x + 1'\n"
+        "assert compute_function_similarity(src, src) > 0.99\n"
+        "assert native._lib is not None\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True).stdout
+    assert out.strip().endswith("ok")
 
 
 def test_engine_defaults_to_cuda_and_raises_without_a_card():
