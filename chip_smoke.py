@@ -194,7 +194,32 @@
    prefill, scoring, pair 0.3 prune (a compaction: ``_use_flat`` is False
    at head_dim 64), three queries, all through the masked route; the
    phase must launch no kernel; "dense" held against "blockwise" logits.
-8. The command line (``kvzip_tpu_torch.cli.main``, in-process, in a
+8. The qwen3 and gemma3 families (``family_paths``), random weights
+   from the seed: ``qwen3_path``, ``qwen3-8b`` at full width (36 layers,
+   32 heads over 8, qk-norm) through the main path above (16,384 tokens,
+   evict, pair 0.3: K1-K4 must run, every hold of the bf16 main path);
+   ``serving_qwen3``, two of its 4,096-token states (pair 0.3, 0.4) merged
+   as ``serving_pool`` merges four (K3 once a layer a merged forward,
+   ``hold_merged``); ``gemma3_path``, ``gemma3-4b`` at full width (34
+   layers, 8 heads over 4, head_dim 256, window 1,024, every sixth layer
+   static, linear rope x8, vocabulary 262,208) over the hybrid ring cache
+   (retain, forced): prefill and scoring seconds, static and ring bytes,
+   the snapshot's copy of the rings, a second generate of a query equal
+   to its first, retain 1.0 equal to the unpruned answers, pair 0.3 on
+   the static layers and decode ms/token (captured / device / per-token
+   loop, equal answers); the phase must launch no kernel (the masked
+   route and ``attend_ring`` are torch ops); ``gemma3_window_hold``, a
+   4,096-token context (four wraps of the ring): each query's last
+   logits against the port's plain forward over a dense cache with the
+   window mask, within twice the largest difference of three schedules of
+   that forward; then pair 0.3 and the bf16 answers; K16 against its plain
+   version on gemma3-4b's seven v1 linears at T 1, 2,304 and 4,096
+   (``kernel_parity_k16_rows``, times beside bounds, into K16's row as
+   ``gemma3_rows``); ``gemma3_v1_path``, the v1 W4A8 tree of the same
+   weights (``weight_quant="none"``) on that context: K16 must launch 7 x 34
+   times a forward (the phase's total a multiple of it), and nothing else;
+   decode ms/token and the answers' agreement with the bf16 ones.
+9. The command line (``kvzip_tpu_torch.cli.main``, in-process, in a
    temporary working directory; its output goes to stderr), each command
    a counted phase whose launches join the kernels line (``cli_launches``
    logs them): ``cli_test`` (``test -m llama3.2-3b -d squad --ratio 0.3
@@ -208,7 +233,7 @@
    pruned cache below the dense one; K1-K3 must run); ``cli_demo_quant``
    (the same demo of qwen2.5-7b with ``--kv_quant int4 --weight_quant w4a8
    --embed_quant int8``: K2 and K5-K8 must run, no bf16 attention kernel).
-9. Prints the kernels line, then as the last line
+10. Prints the kernels line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -2796,6 +2821,292 @@ def llama1b_path(eng, ctx_ids, queries):
     return rep
 
 
+# ----------------------------------------------------- qwen3 and gemma3
+QWEN3_MODEL = "qwen3-8b"
+GEMMA3_MODEL = "gemma3-4b"
+FAMILY_CTX = 4096  # serving_qwen3's states, the ring hold's and the v1 path's context
+
+
+def gemma3_path(eng, ctx_ids, queries):
+    """gemma3-4b over the hybrid cache (``HybridKV``, retain; the masked
+    route on its five static layers, ``attend_ring`` on its 29 sliding
+    ones; no kernel may launch): prefill and scoring seconds (the sliding
+    layers' scores must be zero), static and ring bytes, the snapshot's
+    copy (the rings whole) in ms, the three queries' answers unpruned;
+    holds: a second generate of a query on the state gives its first
+    answer (the rings restored), retain 1.0 gives the unpruned answers;
+    then pair 0.3 on the static layers and decode ms/token (captured host
+    clock, device, per-token loop; the two loops' answers equal)."""
+    import numpy as np
+    import torch
+
+    from kvzip_tpu_torch.cache import HybridKV, snapshot
+
+    cfg = eng.config
+    rep = {}
+    st, rep["prefill_s"] = timed(lambda: eng.prefill(ctx_ids, do_score=False))
+    _, rep["scoring_s"] = timed(lambda: eng.scoring(st, st.ctx_ids))
+    cache = st.cache
+    sliding = [l for l in range(cfg.num_layers) if l not in cfg.static_layer_ids]
+    score = st.score
+    if not isinstance(cache, HybridKV) or eng.kv_type != "retain" \
+            or score.shape != (cfg.num_layers, cfg.num_kv_heads, len(ctx_ids)) \
+            or not torch.isfinite(score).all() or score[sliding].any():
+        raise AssertionError(f"bad hybrid state or scores: {type(cache).__name__} "
+                             f"{tuple(score.shape)}")
+    W = cache.window
+    if cache.k_ring.shape != (len(sliding), cfg.num_kv_heads, W, cfg.head_dim) \
+            or W != -(-cfg.sliding_window // 128) * 128 or int(cache.ring_pos.min()) < 0:
+        raise AssertionError(f"rings {tuple(cache.k_ring.shape)}, window {W}")
+    rep.update(attn_impl=eng._impl(st), static_layers=list(cfg.static_layer_ids),
+               static_kv_bytes=cache.mem_bytes() - cache.ring_bytes(),
+               ring_bytes=cache.ring_bytes(), kv_bytes_live=int(cache.used_bytes()))
+    rep["snapshot_ms"] = time_ms(lambda: snapshot(cache), 10)
+    unpruned = [eng.generate_ids(q, st) for q in queries]
+    if not np.array_equal(eng.generate_ids(queries[0], st), unpruned[0]):
+        raise AssertionError("a second generate of one query on one state gave another answer")
+    (_, kept), _ = timed(lambda: eng.prune(st, 1.0, "pair"))
+    full = [eng.generate_ids(q, st) for q in queries]
+    if kept != 1.0 or any(not np.array_equal(a, b) for a, b in zip(full, unpruned)):
+        raise AssertionError("retain 1.0 answers other than the unpruned state")
+    (_, kept), rep["prune_s"] = timed(lambda: eng.prune(st, 0.3, "pair"))
+    ctx_rows = cache.valid[:, :, st.sink:st.prefill_len]
+    rep.update(kept_ratio=kept, static_rows_kept=int(ctx_rows.sum()),
+               static_rows=int(ctx_rows.numel()))
+    rep["ms_per_token"], answers = decode_ms_per_token(eng, st, queries)
+    rep["unpruned_answer_tokens"] = [a.tolist() for a in unpruned]
+    rep["answer_tokens"] = [a.tolist() for a in answers]
+    return rep
+
+
+def gemma3_window_hold(eng, ctx_ids, queries, keep):
+    """The ring against the dense window at full width: a FAMILY_CTX-token
+    context (four wraps of the 1,024-row ring) in the hybrid cache, each
+    query's last-position logits against the port's plain forward of the
+    same weights over a dense cache with the window mask
+    (``transformer.forward``, "blockwise"), in three schedules: the context
+    in one chunk and the query in one, the context in chunks of 512 and the
+    query a token a forward, the context in chunks of 1,024 and the query
+    in one. Their largest pairwise difference is the noise floor (logits of
+    matmuls of other shapes and attention summed in another order); the
+    hybrid must stay within twice it. Held twice: in bf16 (the engine's
+    hybrid state, ``forward_ids``), and in float32 (the same weights cast
+    to float32, ``forward_hybrid`` and ``forward`` called directly: the
+    masked route and ``attend_ring`` are torch ops), where the floor is
+    the float32 summation order alone, so the hold is tight where the bf16
+    one is not. Then the bf16 state is pruned at pair 0.3 and answers the
+    queries (``keep["answers"]``, for the v1 path)."""
+    import numpy as np
+    import torch
+
+    from kvzip_tpu_torch.cache import init_cache, init_hybrid_cache, restore, snapshot
+    from kvzip_tpu_torch.models.hybrid import forward_hybrid
+    from kvzip_tpu_torch.models.transformer import forward
+
+    cfg = eng.config
+    st = eng.prefill(ctx_ids)
+    W = st.cache.window
+    if st.prefill_len < 4 * W or int(st.cache.ring_pos.min()) != st.prefill_len - W:
+        raise AssertionError("the ring did not wrap four times")
+    ids = torch.as_tensor(np.asarray(st.prefill_ids, np.int64), device=eng.device)
+    qts = [torch.as_tensor(q.astype(np.int64), device=eng.device) for q in queries]
+    cap = -(-(len(ids) + 64) // 512) * 512
+
+    def last_logits(fwd, params, cache, ctx_chunk, query_step):
+        for a in range(0, len(ids), ctx_chunk):
+            fwd(params, cfg, ids[a:a + ctx_chunk], cache, attn_impl="blockwise")
+        snap, out = snapshot(cache), []
+        for qt in qts:
+            parts = [qt[i:i + 1] for i in range(len(qt))] if query_step else [qt]
+            for part in parts:
+                last = fwd(params, cfg, part, cache, collect_logits="last",
+                           attn_impl="blockwise").logits
+            out.append(last[-1].float().cpu().numpy())
+            restore(cache, snap)
+        return np.stack(out)
+
+    def hold(tag, params, dtype, hybrid):
+        runs = [last_logits(forward, params, init_cache(cfg, cap, dtype, eng.device), c, step)
+                for c, step in ((len(ids), False), (512, True), (1024, False))]
+        floor = max(float(np.abs(x - y).max()) for i, x in enumerate(runs) for y in runs[i + 1:])
+        diff = float(np.abs(hybrid - runs[0]).max())
+        r = dict(noise_floor=floor, max_logit_diff=diff, logit_absmax=float(np.abs(runs[0]).max()),
+                 argmax_equal=[bool(x) for x in hybrid.argmax(-1) == runs[0].argmax(-1)])
+        log(phase=f"gemma3_ring_vs_dense_{tag}", ctx=len(ctx_ids), wraps=st.prefill_len / W, **r)
+        if not np.isfinite(hybrid).all() or diff > 2 * floor:
+            raise AssertionError(f"ring against dense window ({tag}): {diff} > 2 x {floor}")
+        return r
+
+    rep = dict(ctx_tokens=len(ctx_ids), wraps=st.prefill_len / W)
+    rep["bf16"] = hold("bf16", eng.params, eng.dtype, np.stack(
+        [eng.forward_ids(q, st, return_logits=True)[-1] for q in queries]))
+    p32 = {k: (v.float() if torch.is_tensor(v) else {n: w.float() for n, w in v.items()})
+           for k, v in eng.params.items()}
+    h32 = last_logits(forward_hybrid, p32, init_hybrid_cache(cfg, cap, torch.float32, eng.device),
+                      len(ids), False)
+    rep["float32"] = hold("float32", p32, torch.float32, h32)
+    del p32
+    eng.prune(st, 0.3, "pair")
+    keep["answers"] = [eng.generate_ids(q, st) for q in queries]
+    rep["answer_tokens"] = [x.tolist() for x in keep["answers"]]
+    return rep
+
+
+def kernel_parity_k16_rows(cfg, tree, rows=(1, 2304, FAMILY_CTX)):
+    """K16 (``w4a8_matmul``) on layer 0 of gemma3-4b's v1 tree, each of its
+    seven linears (q 2560 -> 2048, k/v 2560 -> 1024, o 2048 -> 2560,
+    gate/up 2560 -> 10240, down 10240 -> 2560) against its plain version
+    at T 1 (a decode step), 2,304 (the scoring pass) and FAMILY_CTX (the
+    v1 path's largest prefill chunk), the gate rejecting one input group
+    dropped at T 1; each T's seven linears timed (``kernel_ms`` cycling
+    over the 34 layers, so that at T 1 the weights come from device
+    memory, summed)
+    beside their bound (the weight bytes of the true groups plus x and out
+    over 3.35 TB/s, against 2 T IN OUT int8 operations). Launches are not
+    counted."""
+    import torch
+
+    from kvzip_tpu_torch.ops import LAUNCHES, OUT_RTOL, w4a8
+
+    saved = dict(LAUNCHES)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    checks, per_t = {}, {}
+    cycle = iter(range(10 ** 9))
+    D, I, att = cfg.hidden_size, cfg.intermediate_size, cfg.num_heads * cfg.head_dim
+    kv = cfg.num_kv_heads * cfg.head_dim
+    shapes = dict(wq=(D, att), wk=(D, kv), wv=(D, kv), wo=(att, D), w_gate=(D, I),
+                  w_up=(D, I), w_down=(I, D))
+    for T in rows:
+        tot = dict(ms=0.0, host_ms=0.0, bound_ms=0.0, ops_ms=0.0, bytes_ms=0.0)
+        for n, (IN, OUT) in shapes.items():
+            stack = tree["layers"][n]
+            wl = {k: v[0] for k, v in stack.items()}
+            x = torch.randn(T, IN, generator=gen, device="cuda").to(torch.bfloat16)
+            got = w4a8.w4a8_matmul(x, wl["q4"], wl["s"], wl["z"])
+            want = w4a8._w4a8_jnp(x.float(), wl)
+            drop = None
+            if T == 1:
+                xd = x.float().clone()
+                xd[:, 128:256] = 0
+                drop = w4a8._w4a8_jnp(xd, wl)
+            hold_parity(checks, "w4a8_matmul", f"gemma3 {n} {IN}->{OUT} T {T}", got, want,
+                        OUT_RTOL, drop)
+            nbytes = IN * OUT // 2 + 2 * 2 * (IN // 128) * OUT + 2 * T * (IN + OUT)
+            b = bound(2 * T * IN * OUT, nbytes, PEAK_INT8_OPS)
+            slices = [[stack[k][i] for k in ("q4", "s", "z")] for i in range(len(stack["q4"]))]
+            r = kernel_ms(lambda: w4a8.w4a8_matmul(x, *slices[next(cycle) % len(slices)]),
+                          2 * len(slices) if T == 1 else 3)
+            tot["ms"] += r["ms"]
+            tot["host_ms"] += r["host_ms"]
+            tot["bound_ms"] += b[0]
+            tot["ops_ms"] += 2 * T * IN * OUT / PEAK_INT8_OPS * 1e3
+            tot["bytes_ms"] += nbytes / PEAK_BYTES * 1e3
+        tot["bound_by"] = "operations" if tot["ops_ms"] > tot["bytes_ms"] else "bytes"
+        per_t[f"T {T}"] = tot
+    LAUNCHES.update(saved)
+    log(phase="k16_gemma3_rows", **per_t)
+    return per_t, checks
+
+
+def gemma3_v1_path(veng, ctx_ids, queries, bf16_answers):
+    """The v1 W4A8 tree of the bf16 engine's weights (``weight_quant=
+    "none"``: every projection of ``forward_hybrid`` through K16, seven a
+    layer) over a FAMILY_CTX-token context: prefill and scoring seconds;
+    K16's launches in one single-token forward, which must be 7 x 34; pair
+    0.3 and the three queries, decode ms/token, and the answers' token
+    agreement with the bf16 hybrid's on the same context and prune."""
+    from kvzip_tpu_torch.ops import LAUNCHES
+
+    rep = {}
+    st, rep["prefill_s"] = timed(lambda: veng.prefill(ctx_ids, do_score=False))
+    _, rep["scoring_s"] = timed(lambda: veng.scoring(st, st.ctx_ids))
+    before = LAUNCHES["w4a8_matmul"]
+    veng.forward_ids(queries[0][:1], st)
+    rep["k16_launches_per_forward"] = LAUNCHES["w4a8_matmul"] - before
+    if rep["k16_launches_per_forward"] != 7 * veng.config.num_layers:
+        raise AssertionError(f"K16 ran {rep['k16_launches_per_forward']} times in one "
+                             f"{veng.config.num_layers}-layer forward")
+    veng.prune(st, 0.3, "pair")
+    rep["ms_per_token"], answers = decode_ms_per_token(veng, st, queries)
+    same, first = token_agreement(answers, bf16_answers)
+    rep.update(token_agreement=same, first_mismatch=first,
+               answer_tokens=[a.tolist() for a in answers])
+    return rep
+
+
+def family_paths(counted, tally, kernels, flat_kernels, no_fused) -> dict:
+    """The qwen3 and gemma3 phases (``qwen3_path``, ``serving_qwen3``,
+    ``gemma3_path``, ``gemma3_window_hold``, ``gemma3_v1_path``), each
+    through ``counted``; K16's gemma3 rows folded into its kernels-line row.
+    Returns the phases' launches for the kernels line."""
+    import numpy as np
+    import torch
+
+    from kvzip_tpu_torch.config import resolve_config
+    from kvzip_tpu_torch.engine import Engine
+    from kvzip_tpu_torch.models.params import quantize_layer_stacks
+    from kvzip_tpu_torch.ops import LAUNCHES
+    from kvzip_tpu_torch.ops.w4a8 import quantize_weight_int4
+
+    # the qwen3 family (qk-norm, on the kernels' route): qwen3-8b at full
+    # width through the main path, then two of its states merged
+    family_launches = {}
+    cfg = resolve_config(QWEN3_MODEL)
+    eng = Engine(QWEN3_MODEL, config=cfg, dtype=torch.bfloat16, device="cuda",
+                 max_new_tokens=NEW_TOKENS, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    ctx_ids = rng.integers(0, cfg.vocab_size, CTX).astype(np.int32)
+    queries = [rng.integers(0, cfg.vocab_size, 24).astype(np.int32) for _ in range(3)]
+    add_launches(family_launches, counted(
+        "qwen3_path", eng, ("flash_attend", "fused_scores", "ragged_decode_attend",
+                            "pool_decode_attend"), main_path, ctx_ids, queries,
+        absent=flat_kernels))
+    sv = serving_states({"pool": eng}, [rng.integers(0, cfg.vocab_size, FAMILY_CTX)
+                                        .astype(np.int32) for _ in range(2)])
+    add_launches(family_launches, counted(
+        "serving_qwen3", eng, ("pool_decode_attend",), serving_path, sv["pool"], queries[:2],
+        tally, "pool_decode_attend", absent=(*flat_kernels, *no_fused)))
+    del sv, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # gemma3 over the hybrid ring cache (retain, the masked route: no
+    # kernel), then its v1 W4A8 tree (every projection through K16)
+    cfg = resolve_config(GEMMA3_MODEL)
+    eng = Engine(GEMMA3_MODEL, config=cfg, dtype=torch.bfloat16, device="cuda",
+                 max_new_tokens=NEW_TOKENS, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    ctx_ids = rng.integers(0, cfg.vocab_size, CTX).astype(np.int32)
+    queries = [rng.integers(0, cfg.vocab_size, 24).astype(np.int32) for _ in range(3)]
+    ctx_small = rng.integers(0, cfg.vocab_size, FAMILY_CTX).astype(np.int32)
+    counted("gemma3_path", eng, (), gemma3_path, ctx_ids, queries, absent=tuple(LAUNCHES))
+    keep = {}
+    counted("gemma3_window_hold", eng, (), gemma3_window_hold, ctx_small, queries, keep,
+            absent=tuple(LAUNCHES))
+    v1_tree = dict(eng.params, layers=quantize_layer_stacks(eng.params["layers"],
+                                                            quantize_weight_int4))
+    k16_rows, k16_checks = kernel_parity_k16_rows(cfg, v1_tree)
+    veng = Engine(GEMMA3_MODEL, config=cfg, params=v1_tree, tokenizer=eng.tokenizer,
+                  dtype=torch.bfloat16, device="cuda", max_new_tokens=NEW_TOKENS)
+    del eng
+    gc.collect()
+    v1_counts = counted("gemma3_v1_path", veng, ("w4a8_matmul",), gemma3_v1_path, ctx_small,
+                        queries, keep["answers"],
+                        absent=tuple(n for n in LAUNCHES if n != "w4a8_matmul"))
+    if v1_counts["w4a8_matmul"] % (7 * cfg.num_layers):
+        raise AssertionError(f"K16 launched {v1_counts['w4a8_matmul']} times on the v1 path, "
+                             f"not 7 x {cfg.num_layers} a forward")
+    family_launches["w4a8_matmul"] = v1_counts["w4a8_matmul"]
+    k16_row = next(r for r in kernels if r["name"] == "w4a8_matmul")
+    fold_parity(k16_row, k16_checks)
+    k16_row["gemma3_rows"] = k16_rows
+    del veng, v1_tree, keep
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(phase="family_launches", **family_launches)
+    return family_launches
+
+
 # ----------------------------------------------------------- the CLI
 CLI_MODEL = "llama3.2-3b"  # the command line's default model
 CLI_CTX = 16384
@@ -3347,6 +3658,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    family_launches = family_paths(counted, tally, kernels, flat_kernels, no_fused)
+
     # the command line (kvzip_tpu_torch.cli) in-process, in a working
     # directory of its own; its launches join the kernels line
     os.environ.setdefault("HF_DATASETS_OFFLINE", "1")
@@ -3380,11 +3693,12 @@ def main() -> int:
     cli_launches = {n: cli_launches.get(n, 0) for n in (*bf16_kernels, *int4_kernels)}
     log(phase="cli_launches", **cli_launches)
     for r in kernels:
-        r["launches"] += cli_launches.get(r["name"], 0)
+        r["launches"] += cli_launches.get(r["name"], 0) + family_launches.get(r["name"], 0)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "rms_want",
             "worst_to_tol", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    extra = ("exp_floor_ms", "composed_ms", "composed_per_shape", "padded_bound_ms", "t1_ms")
+    extra = ("exp_floor_ms", "composed_ms", "composed_per_shape", "padded_bound_ms", "t1_ms",
+             "gemma3_rows")
     print(json.dumps({"kernels": [{**{k: r[k] for k in keys},
                                    **{k: r[k] for k in extra if k in r}}
                                   for r in kernels]}), flush=True)

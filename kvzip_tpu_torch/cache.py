@@ -21,6 +21,10 @@ and zeros ``(L, R_pad)``. Each flat cache also keeps ``seg_rows`` (L, 1),
 its layers' live rows (``row_head >= 0``, the first rows of each layer),
 where the decode kernels K10/K11 stop reading.
 
+Hybrid (gemma3, :class:`HybridKV`): full-length stacks for the static
+(global-attention) layers, which KVzip scores and prunes, and a ring of
+``W`` position-stamped rows for each sliding layer (window-bound memory).
+
 Every counter lives on the device as int32, so a decode step reads none
 of them back and can be captured as a CUDA graph: ``lengths``, where the
 kernels read it; ``seen`` (the rope position base), a 0-dim tensor; and a
@@ -257,6 +261,96 @@ class FlatInt4KV:
         return float(int(self.lengths.sum()) * row * 2)
 
 
+@dataclasses.dataclass
+class HybridKV:
+    """Gemma3's hybrid cache (reference ``HybridKV``): full-capacity stacks
+    for the static (global-attention) layers, ``cfg.static_layer_ids`` in
+    their order, and ring buffers of ``W`` rows for the sliding layers,
+    each slot stamped with its token's position (``ring_pos``, -1 empty),
+    so attention masks by position and a wrap needs no reordering.
+    Retain-path only, as in the reference: ``valid`` masks the static
+    layers' context rows. Rings are written in place (:func:`ring_append`),
+    so a snapshot copies them (:func:`snapshot`)."""
+
+    k_static: torch.Tensor  # (L_static, Hkv, C, D)
+    v_static: torch.Tensor
+    k_ring: torch.Tensor    # (L_sliding, Hkv, W, D)
+    v_ring: torch.Tensor
+    ring_pos: torch.Tensor  # (L_sliding, W) int32 token position, -1 empty
+    lengths: torch.Tensor   # (L_static, Hkv) int32 live rows
+    seen: torch.Tensor      # () int32 (an int given)
+    valid: torch.Tensor = None  # (L_static, Hkv, C) bool
+
+    def __post_init__(self):
+        device_counters(self)
+        _init_valid(self, self.k_static)
+
+    @property
+    def capacity(self) -> int:
+        return self.k_static.shape[2]
+
+    @property
+    def window(self) -> int:
+        return self.k_ring.shape[2]
+
+    def mem_bytes(self) -> int:
+        """Bytes of the static stacks and the rings, K and V."""
+        return (self.k_static.numel() + self.k_ring.numel()) * self.k_static.element_size() * 2
+
+    def ring_bytes(self) -> int:
+        return self.k_ring.numel() * self.k_ring.element_size() * 2
+
+    def used_bytes(self) -> float:
+        """Live rows: the static layers' lengths and the filled ring slots
+        (every kv head)."""
+        rows = int(self.lengths.sum()) + int((self.ring_pos >= 0).sum()) * self.k_ring.shape[1]
+        return float(rows * self.k_static.shape[-1] * self.k_static.element_size() * 2)
+
+
+def init_hybrid_cache(cfg: ModelConfig, capacity: int, dtype=torch.bfloat16,
+                      device="cuda") -> HybridKV:
+    """Static stacks of ``capacity`` rows; rings of the window rounded up to
+    a multiple of 128 rows (at least 128)."""
+    L, H, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    L_t = len(cfg.static_layer_ids)
+    W = max(128, -(-int(cfg.sliding_window) // 128) * 128)
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return HybridKV(k_static=z(L_t, H, capacity, D), v_static=z(L_t, H, capacity, D),
+                    k_ring=z(L - L_t, H, W, D), v_ring=z(L - L_t, H, W, D),
+                    ring_pos=torch.full((L - L_t, W), -1, dtype=torch.int32, device=device),
+                    lengths=torch.zeros((L_t, H), dtype=torch.int32, device=device), seen=0)
+
+
+def ring_append(k_ring: torch.Tensor, v_ring: torch.Tensor, ring_pos: torch.Tensor,
+                seen: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                advance: torch.Tensor = None) -> None:
+    """Write T rows at positions [seen, seen + T) into one layer's ring, in
+    place: the last min(T, W) rows, row of position p in slot p mod W
+    (the reference's ``ring_append``). k/v_ring (Hkv, W, D); ring_pos (W,);
+    k/v_new (T, Hkv, D); ``seen`` 0-dim int32 on the device, so the slots
+    are formed there. ``advance`` (0-dim, as ``forward``'s): rows at
+    positions ``>= seen + advance`` leave their slots as they were (a
+    decode step whose answer has ended writes nothing)."""
+    T = k_new.shape[0]
+    W = k_ring.shape[1]
+    n = min(T, W)
+    pos = seen + (T - n) + torch.arange(n, device=k_ring.device, dtype=torch.int32)
+    slot = (pos % W).long()
+    rows = [new[T - n:].transpose(0, 1).to(ring.dtype)
+            for new, ring in ((k_new, k_ring), (v_new, v_ring))]
+    if advance is not None:
+        live = pos < seen + advance
+        rows = [torch.where(live[None, :, None], r, ring[:, slot])
+                for r, ring in zip(rows, (k_ring, v_ring))]
+        pos = torch.where(live, pos, ring_pos[slot])
+    k_ring[:, slot] = rows[0]
+    v_ring[:, slot] = rows[1]
+    ring_pos[slot] = pos
+
+
 FLAT_INT4_FIELDS = ("k_flat_q", "v_flat_q", "k_flat_s", "k_flat_z", "v_flat_s",
                     "v_flat_z")
 # the dense int4 cache's array behind each flat field
@@ -455,19 +549,21 @@ def refold_flat(cache, r_pad_new: int):
                       **common)
 
 
-_RESTORE_FIELDS = ("lengths", "seen", "tail_lens")
+_RESTORE_FIELDS = ("lengths", "seen", "tail_lens", "k_ring", "v_ring", "ring_pos")
 
 
 def snapshot(cache) -> dict:
-    """Copies of the counters that a restore resets (forwards update them
-    in place)."""
+    """Copies of what a restore resets (forwards update it in place): the
+    counters, and a hybrid cache's rings whole, since a ring append
+    overwrites rows the snapshot's state still holds."""
     return {f: getattr(cache, f).clone() for f in _RESTORE_FIELDS if hasattr(cache, f)}
 
 
 def restore(cache, snap: dict) -> None:
-    """O(1) counter reset: rows appended since the snapshot become dead.
-    The snapshot is copied into the counters in place, so they stay the
-    tensors a captured decode step reads."""
+    """Counter reset (O(1), and a copy of the rings for a hybrid cache):
+    rows appended since the snapshot become dead. The snapshot is copied
+    into the cache's tensors in place, so they stay the tensors a captured
+    decode step reads."""
     for f, v in snap.items():
         getattr(cache, f).copy_(v)
 

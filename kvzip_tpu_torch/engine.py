@@ -27,6 +27,13 @@ card and replayed, and the host reads the tokens and the end flag once
 every ``DECODE_CHUNK`` steps; on the CPU the same step runs eagerly in the
 same loop.
 
+The gemma3 family (a hybrid config) runs as the reference runs it: the
+retain path whatever ``kv_type`` asks, over the ring-buffered hybrid cache
+(``cache.HybridKV``) through ``models/hybrid.py::forward_hybrid`` (the
+masked route on its static layers, ``attend_ring`` on its sliding ones),
+scored and pruned on its static layers only; its cache is in the model
+dtype whatever ``kv_quant`` asks, as the reference's.
+
 Device rule: on a CUDA device every attention op of the kernels' route,
 every W4A8 linear below 512 rows and every fused activation quantization
 launches its kernel (K1-K16); on the CPU the same calls run the plain
@@ -52,13 +59,15 @@ from kvzip_tpu_torch import ops
 from kvzip_tpu_torch import prune as prune_lib
 from kvzip_tpu_torch import state_file
 from kvzip_tpu_torch import template as template_lib
-from kvzip_tpu_torch.cache import (FlatInt4KV, FlatKV, Int4KVCache, KVCache,
+from kvzip_tpu_torch.cache import (FlatInt4KV, FlatKV, HybridKV, Int4KVCache, KVCache,
                                    build_flat, build_flat_int4, build_flat_int4_stepped,
-                                   compact, init_cache, init_int4_cache, refold_flat,
-                                   restore, set_retain_mask, snapshot, synthetic_full_flat)
+                                   compact, init_cache, init_hybrid_cache, init_int4_cache,
+                                   refold_flat, restore, set_retain_mask, snapshot,
+                                   synthetic_full_flat)
 from kvzip_tpu_torch.config import ModelConfig, resolve_config
+from kvzip_tpu_torch.models.hybrid import forward_hybrid
 from kvzip_tpu_torch.models.params import prepare_params
-from kvzip_tpu_torch.models.transformer import check_supported, forward
+from kvzip_tpu_torch.models.transformer import forward
 from kvzip_tpu_torch.pool import (PoolInt4KV, PoolKV, build_pool_int4_stepped,
                                   build_pool_stepped, refold_pool,
                                   synthetic_full_pool)
@@ -93,11 +102,17 @@ def _round_flat_rows(n: int) -> int:
 DECODE_CACHES = (PoolKV, PoolInt4KV, FlatKV, FlatInt4KV)
 
 
+def _fwd_fn(cache):
+    """The forward of a cache: ``forward_hybrid`` for a hybrid (gemma3)
+    cache, ``forward`` otherwise (the reference's ``Engine._fwd_fn``)."""
+    return forward_hybrid if isinstance(cache, HybridKV) else forward
+
+
 @dataclasses.dataclass
 class KVState:
     """One context's cache and its bookkeeping."""
 
-    cache: Union[KVCache, Int4KVCache, PoolKV, PoolInt4KV, FlatKV, FlatInt4KV]
+    cache: Union[KVCache, Int4KVCache, PoolKV, PoolInt4KV, FlatKV, FlatInt4KV, HybridKV]
     kv_type: str
     sink: int                      # system-prompt rows, never evicted
     ctx_len: int
@@ -114,6 +129,8 @@ class KVState:
                                           repr=False, compare=False)
 
     def snapshot(self):
+        """Copies of the counters (and a hybrid cache's rings) that
+        :meth:`restore_snapshot` copies back."""
         self._snap = snapshot(self.cache)
 
     def restore_snapshot(self):
@@ -223,9 +240,10 @@ class DecodeStep(CapturedStep):
         eng = self.engine
         running = (self.done == 0) & (self.i < self.budget)
         ids = self.tokens.index_select(0, self.i)
-        res = forward(eng.params, eng.config, ids, self.cache, collect_logits="last",
-                      attn_q8=self.q8, fuse_layer=eng.fuse_layer, attn_impl=self.impl,
-                      advance=running.to(torch.int32).reshape(()))
+        res = _fwd_fn(self.cache)(eng.params, eng.config, ids, self.cache,
+                                  collect_logits="last", attn_q8=self.q8,
+                                  fuse_layer=eng.fuse_layer, attn_impl=self.impl,
+                                  advance=running.to(torch.int32).reshape(()))
         nxt = torch.argmax(res.logits[-1]).reshape(1)
         at = self.i + 1
         self.tokens.index_copy_(0, at, torch.where(running, nxt, self.tokens.index_select(0, at)))
@@ -276,7 +294,8 @@ class Engine:
         compaction (``cache.compact``). ``attn_quant``: "none" or "int8",
         the int8 attention (K7/K11 ``q8``) on an int4 pool or flat cache.
         ``attn_impl``: a dense cache's attention, "auto" (:meth:`_impl`),
-        "flash" (the kernels), "dense" or "blockwise" (the masked route)."""
+        "flash" (the kernels), "dense" or "blockwise" (the masked route).
+        A hybrid (gemma3) config is retain whatever ``kv_type`` says."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -308,9 +327,15 @@ class Engine:
                 "scoring_attend='window' is not supported for hybrid "
                 "(gemma3) models — their scoring runs in forward_hybrid")
         self.scoring_attend = scoring_attend
-        check_supported(self.config)
         self.name = (model_name.rstrip("/").split("/")[-1]
                      if "/" in model_name else model_name)
+        if self.config.is_hybrid:
+            # the reference forces retain for gemma3 (its prune keeps the
+            # sliding layers whole)
+            kv_type = "retain"
+            if attn_impl == "flash":
+                raise ValueError("a hybrid (gemma3) config runs the masked route: "
+                                 "attn_impl 'auto', 'dense' or 'blockwise'")
         self.kv_type = kv_type
         self.dtype = dtype
         self.max_new_tokens = max_new_tokens
@@ -384,15 +409,17 @@ class Engine:
         """The attention of the state's cache (the reference's ``_impl``):
         a pool or flat cache runs its kernels; a dense cache "flash" (the
         kernels) unless it is a pruned retain cache (the kernels read no
-        mask) or head_dim is not a multiple of 128, else the masked route:
-        "dense" up to 4,096 rows a head, "blockwise" above. The reference
+        mask), a hybrid (gemma3) config or head_dim not a multiple of 128,
+        else the masked route: "dense" up to 4,096 rows a head,
+        "blockwise" above. The reference
         also sends a capacity that is not a multiple of 128 to the masked
         route (a Mosaic block limit); the port's kernels take any
         capacity, so it does not. ``attn_impl`` other than "auto" is taken
         as given, but "flash" on a pruned retain cache raises."""
         if isinstance(state.cache, DECODE_CACHES):
             return "flash"
-        needs_valid = state.pruned and state.kv_type == "retain"
+        # the kernels read no retain mask and take no sliding window
+        needs_valid = (state.pruned and state.kv_type == "retain") or self.config.is_hybrid
         if self.attn_impl != "auto":
             if self.attn_impl == "flash" and needs_valid:
                 raise ValueError("attn_impl='flash' reads no retain mask: a pruned retain "
@@ -420,9 +447,10 @@ class Engine:
             pos += size
             want = collect if collect == "all" else (
                 "last" if pos == len(ids) and collect == "last" else "none")
-            res = forward(self.params, self.config, self._ids(chunk),
-                          state.cache, collect_logits=want, sink=state.sink, attn_q8=q8,
-                          fuse_layer=self.fuse_layer, attn_impl=impl)
+            res = _fwd_fn(state.cache)(self.params, self.config, self._ids(chunk),
+                                       state.cache, collect_logits=want, sink=state.sink,
+                                       attn_q8=q8, fuse_layer=self.fuse_layer,
+                                       attn_impl=impl)
             if res.logits is not None:
                 parts.append(res.logits)
         if collect == "all":
@@ -441,7 +469,10 @@ class Engine:
         prefill_len = int(len(prefill_ids))
         extra = max(self.score_q_pad, self.decode_budget)
         capacity = _round_up(prefill_len + extra, self.capacity_granularity)
-        init = init_int4_cache if self.kv_quant == "int4" else init_cache
+        if self.config.is_hybrid:
+            init = init_hybrid_cache
+        else:
+            init = init_int4_cache if self.kv_quant == "int4" else init_cache
         state = KVState(
             cache=init(self.config, capacity, self.dtype, self.device),
             kv_type=self.kv_type, sink=sink, ctx_len=int(len(ctx_ids)),
@@ -449,11 +480,12 @@ class Engine:
         pos = 0
         while pos < prefill_len:
             n = min(prefill_chunk_size, prefill_len - pos)
-            if n < prefill_chunk_size and n % 256:
+            if n < prefill_chunk_size and n % 256 and not self.config.is_hybrid:
                 # pad the final partial chunk to a multiple of 256 (the
                 # reference's shape discipline); rolling the counters back
                 # makes the pad rows dead, and causal masking keeps them out
-                # of every real token's attention during the chunk
+                # of every real token's attention during the chunk (not on a
+                # hybrid cache, whose ring the pad rows would overwrite)
                 p = _round_up(n, 256)
                 buf = np.zeros((p,), np.int32)
                 buf[:n] = prefill_ids[pos:pos + n]
@@ -514,11 +546,11 @@ class Engine:
                     f"{self.score_q_pad}; raise score_chunk_size padding")
             rep_padded = np.zeros((self.score_q_pad,), np.int32)
             rep_padded[:n_q] = rep_ids
-            res = forward(self.params, cfg, self._ids(rep_padded), state.cache,
-                          scoring=True, score_start=start, score_len=len(a_ids),
-                          score_qlen=n_q, score_width=self.score_width,
-                          sink=state.sink, scoring_attend=self.scoring_attend,
-                          attn_impl=impl)
+            res = _fwd_fn(state.cache)(
+                self.params, cfg, self._ids(rep_padded), state.cache, scoring=True,
+                score_start=start, score_len=len(a_ids), score_qlen=n_q,
+                score_width=self.score_width, sink=state.sink,
+                scoring_attend=self.scoring_attend, attn_impl=impl)
             o = start - state.sink
             score[:, :, o:o + len(a_ids)] = res.chunk_scores[:, :, :len(a_ids)].float()
             start += len(a_ids)
@@ -547,10 +579,15 @@ class Engine:
                 "compacted); use kv_type='retain' to sweep multiple ratios")
         if state.score is None:
             raise RuntimeError("run scoring() first")
+        static_layers = self.config.static_layer_ids if self.config.is_hybrid else None
         keep, thres, true_ratio = prune_lib.prune_mask(
-            state.score, ratio, level, method="histogram")
+            state.score, ratio, level, static_layers, method="histogram")
         state._steps.clear()
-        if state.kv_type == "retain":
+        if isinstance(state.cache, HybridKV):
+            # the hybrid's valid covers its static layers only; the sliding
+            # layers are never pruned
+            set_retain_mask(state.cache, keep[list(static_layers)], state.sink)
+        elif state.kv_type == "retain":
             set_retain_mask(state.cache, keep, state.sink)
         elif level == "head" and not self._use_flat(state):
             # whole heads kept or dropped: eviction is a lengths update,
@@ -593,8 +630,8 @@ class Engine:
         the full-cache decode baseline through the same kernel (K10 or K11)
         as the evicted flat cache. Returns a new state; the input state and
         its dense cache are left intact."""
-        if isinstance(state.cache, DECODE_CACHES):
-            raise RuntimeError("cache is already a decode layout")
+        if isinstance(state.cache, (*DECODE_CACHES, HybridKV)):
+            raise RuntimeError("the flat layout is built from a dense cache")
         L, H = self.config.num_layers, self.config.num_kv_heads
         keep = torch.ones((L, H, state.ctx_len), dtype=torch.bool, device=self.device)
         r_pad = _round_flat_rows(H * (state.ctx_len + state.sink))
@@ -820,9 +857,10 @@ class Engine:
         done = tokens[-1] in self.eos_ids
         q8, impl = self._q8(state), self._impl(state)
         while not done and len(tokens) < max_new:
-            res = forward(self.params, self.config, self._ids(tokens[-1:]),
-                          state.cache, collect_logits="last", sink=state.sink, attn_q8=q8,
-                          fuse_layer=self.fuse_layer, attn_impl=impl)
+            res = _fwd_fn(state.cache)(self.params, self.config, self._ids(tokens[-1:]),
+                                       state.cache, collect_logits="last", sink=state.sink,
+                                       attn_q8=q8, fuse_layer=self.fuse_layer,
+                                       attn_impl=impl)
             tokens.append(int(torch.argmax(res.logits[-1])))
             done = tokens[-1] in self.eos_ids
         return tokens[:-1] if done else tokens

@@ -59,11 +59,27 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     }
     if cfg.attention_bias:
         layers.update(bq=nrm(L, H * Dh), bk=nrm(L, Hkv * Dh), bv=nrm(L, Hkv * Dh))
+    layers.update(_family_norms(cfg, dtype, device))
     params: Params = {"embed": nrm(V, D), "layers": layers,
                       "final_norm": ones(D)}
     if not cfg.tie_word_embeddings:
         params["lm_head"] = nrm(V, D)
     return params
+
+
+def _family_norms(cfg: ModelConfig, dtype, device) -> dict:
+    """The unit norm weights qwen3 and gemma3 add (the reference's init):
+    ``q_norm``/``k_norm`` (L, Dh) with qk-norm, ``ln_post_attn``/
+    ``ln_post_mlp`` (L, D) with post-norms."""
+    L, D, Dh = cfg.num_layers, cfg.hidden_size, cfg.head_dim
+    out = {}
+    if cfg.qk_norm:
+        out.update(q_norm=torch.ones((L, Dh), dtype=dtype, device=device),
+                   k_norm=torch.ones((L, Dh), dtype=dtype, device=device))
+    if cfg.post_norms:
+        out.update(ln_post_attn=torch.ones((L, D), dtype=dtype, device=device),
+                   ln_post_mlp=torch.ones((L, D), dtype=dtype, device=device))
+    return out
 
 
 # the seven big projection stacks (everything else is norms and biases)
@@ -115,6 +131,7 @@ def _init_params_quantized(cfg: ModelConfig, generator: torch.Generator,
     if cfg.attention_bias:
         for b, n in (("bq", H * Dh), ("bk", Hkv * Dh), ("bv", Hkv * Dh)):
             layers[b] = torch.zeros((L, n), dtype=dtype, device=device)
+    layers.update(_family_norms(cfg, dtype, device))
     params: Params = {"embed": nrm(V, D), "layers": layers,
                       "final_norm": torch.ones((D,), dtype=dtype, device=device)}
     if not cfg.tie_word_embeddings:

@@ -1,9 +1,16 @@
 """Decoder forward of the port: dense (bf16 or int4) and pool branches.
 
-Port of ``kvzip_tpu/models/transformer.py::forward`` for the llama and
-qwen2 families (GQA, RoPE, optional qkv bias), with plain, W8A8 or W4A8
-weights and a plain or int8 embedding / lm_head. PyTorch runs eagerly, so
-the layer loop is a Python loop and the cache is updated in place.
+Port of ``kvzip_tpu/models/transformer.py::forward`` for the llama,
+qwen2, qwen3 and gemma3 families (GQA, RoPE, optional qkv bias; qwen3's
+and gemma3's per-head q/k RMSNorm after the q/k/v products on every qkv
+route, K12's fused qkv included; gemma3's ``(1 + w)`` norms, embedding
+scaled by sqrt(hidden), post-attention and post-MLP norms, gelu and local
+rope on its sliding layers), with plain, W8A8 or W4A8 weights and a plain
+or int8 embedding / lm_head. PyTorch runs eagerly, so the layer loop is a
+Python loop and the cache is updated in place. A gemma3 config over a
+dense cache masks its sliding layers by the window on the masked route
+(the kernels take no window, so "flash" raises); the engine runs gemma3
+over the ring-buffered hybrid cache instead (``models/hybrid.py``).
 Dispatch, as in the reference:
 
 - ``attn_impl`` "flash" (the engine's ``_impl``); "dense" and "blockwise"
@@ -50,7 +57,8 @@ Dispatch, as in the reference:
 - W8A8 weights (``{"q", "s"}``): q/k/v share one activation quantization
   and gate/up another; with ``cfg.fused_act`` the RMSNorm and the
   quantization run as K13 (``rmsnorm_quant``) and act(gate) * up with the
-  down projection's quantization as K14 (``silu_mul_quant``). The int8
+  down projection's quantization as K14 (``silu_mul_quant``), gemma3's
+  ``(1 + w)`` norm and gelu in their gemma and gelu modes. The int8
   products go to ``int8_matmul`` (``torch._int_mm`` on the card).
 """
 
@@ -89,10 +97,46 @@ class ForwardResult(NamedTuple):
     chunk_scores: Optional[torch.Tensor]  # (L, Hkv, score_width) or None
 
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
+             gemma: bool = False) -> torch.Tensor:
+    """RMSNorm over the last axis in float32; ``gemma``: times ``1 + w``
+    (taken in float32) instead of ``w``."""
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+    wf = w.float()
+    return (xf * torch.rsqrt(var + eps) * (1.0 + wf if gemma else wf)).to(x.dtype)
+
+
+def embed(params, cfg: ModelConfig, ids: torch.Tensor) -> torch.Tensor:
+    """The tokens' embedding rows; gemma3 scales them by sqrt(hidden),
+    rounded to the model dtype first, the product in that dtype."""
+    x = embed_lookup(params["embed"], ids)
+    if cfg.gemma_style_norm:
+        x = x * float(torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype))
+    return x
+
+
+def qk_norm(cfg: ModelConfig, lp: dict, q: torch.Tensor, k: torch.Tensor) -> tuple:
+    """q (T, H, D) and k (T, Hkv, D) through the layer's per-head RMSNorm
+    (weights (D,), the reference's ``_head_norm``), where the family has
+    one."""
+    if not cfg.qk_norm:
+        return q, k
+    eps, gemma = cfg.rms_norm_eps, cfg.gemma_style_norm
+    return rms_norm(q, lp["q_norm"], eps, gemma), rms_norm(k, lp["k_norm"], eps, gemma)
+
+
+def post_norm(cfg: ModelConfig, lp: dict, name: str, y: torch.Tensor) -> torch.Tensor:
+    """gemma3's norm of an attention or MLP output (``ln_post_attn``,
+    ``ln_post_mlp``) before the residual add; the identity elsewhere."""
+    if not cfg.post_norms:
+        return y
+    return rms_norm(y, lp[name], cfg.rms_norm_eps, cfg.gemma_style_norm)
+
+
+def final_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    xf = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, cfg.gemma_style_norm)
+    return head_logits(params.get("lm_head", params["embed"]), xf)
 
 
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -122,16 +166,16 @@ def _lin_shared(x: torch.Tensor, weights, biases) -> list:
     return [_lin(x, w, b) for w, b in zip(weights, biases)]
 
 
-def _norm_lin_shared(x: torch.Tensor, norm_w, eps: float, weights, biases,
+def _norm_lin_shared(x: torch.Tensor, norm_w, eps: float, gemma: bool, weights, biases,
                      fused: bool) -> list:
     """RMSNorm, then :func:`_lin_shared`; with ``fused`` and W8A8 weights
     the norm and the activation quantization are one K13 pass, in float32
     with no rounding to the model dtype between them."""
     if fused and is_w8(weights[0]):
-        xq, xs = rmsnorm_quant(x, norm_w, eps)
+        xq, xs = rmsnorm_quant(x, norm_w, eps, gemma=gemma)
         return [int8_matmul(xq, xs, w["q"], w["s"], b, x.dtype)
                 for w, b in zip(weights, biases)]
-    return _lin_shared(rms_norm(x, norm_w, eps), weights, biases)
+    return _lin_shared(rms_norm(x, norm_w, eps, gemma), weights, biases)
 
 
 def _is_w4(w) -> bool:
@@ -159,14 +203,6 @@ def _window_rows(layer, rep, sink: int, win: slice, dtype) -> torch.Tensor:
     return torch.cat([_deq(p[:, :sink], s[:, :sink], z[:, :sink], dtype),
                       _deq(p[:, win], s[:, win], z[:, win], dtype),
                       _deq(*rep, dtype).transpose(0, 1)], dim=1)
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """The port's forward covers the llama and qwen2 families."""
-    if (cfg.is_hybrid or cfg.qk_norm or cfg.post_norms
-            or cfg.gemma_style_norm or cfg.rope_local is not None):
-        raise NotImplementedError(
-            f"{cfg.name}: only llama/qwen2-style decoders are ported")
 
 
 def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
@@ -215,26 +251,34 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
     if attn_impl not in ("flash", "dense", "blockwise"):
         raise ValueError(f"attn_impl: {attn_impl!r}")
     flash = attn_impl == "flash"
+    if cfg.is_hybrid and (flash or is_pool or is_flat):
+        raise ValueError(
+            f"{cfg.name}: the kernels take no sliding window; a dense cache of a hybrid "
+            "config runs attn_impl 'dense' or 'blockwise' (the engine runs it over the "
+            "hybrid cache, models/hybrid.py)")
     window = scoring and scoring_attend == "window"
     emb = params["embed"]
     dtype = emb["s"].dtype if isinstance(emb, dict) else emb.dtype
 
-    x = embed_lookup(emb, ids)
+    x = embed(params, cfg, ids)
     positions = cache.seen + torch.arange(T, device=ids.device)
     if is_pool or is_flat:
         # this step's tail rows, formed on the device
         tail_rows = cache.tail_len + torch.arange(T, device=ids.device)
-    cos, sin = rope_cos_sin(cfg.rope, Dh, positions)
+    rope_g = rope_cos_sin(cfg.rope, Dh, positions)
+    rope_l = rope_g if cfg.rope_local is None else rope_cos_sin(cfg.rope_local, Dh, positions)
     lp_all = params["layers"]
     w4 = {k: v for k, v in lp_all.items() if _is_w4(v)}
     scores = []
-    eps = cfg.rms_norm_eps
+    eps, gemma = cfg.rms_norm_eps, cfg.gemma_style_norm
     # the fused layer (K12): decode shapes on a pool or flat cache with the
-    # four v2 stacks; the first layer's qkv is composed before the loop
+    # four v2 stacks, not under gemma3's norms or local rope; the first
+    # layer's qkv is composed before the loop
     fused = (fuse_layer != "off" and not scoring and (is_pool or is_flat)
              and T <= FUSED_MAX_T and (ids.is_cuda or fuse_layer == "on")
              and all(n in w4 and "s2" in w4[n]
-                     for n in ("wqkv", "wo", "w_gateup", "w_down")))
+                     for n in ("wqkv", "wo", "w_gateup", "w_down"))
+             and not cfg.post_norms and not gemma and cfg.rope_local is None)
     if fused:
         qkv = w4a8_linear_stacked(rms_norm(x, lp_all["ln_attn"][0], eps), w4["wqkv"], 0)
     for l in range(L):
@@ -242,22 +286,27 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
                   else v[l]) for k, v in lp_all.items() if k not in w4}
         if "wqkv" in w4:
             if not fused:
-                h = rms_norm(x, lp["ln_attn"], eps)
+                h = rms_norm(x, lp["ln_attn"], eps, gemma)
                 qkv = w4a8_linear_stacked(h, w4["wqkv"], l)
             nq, nk = H * Dh, Hkv * Dh
             q, k, v = qkv[:, :nq], qkv[:, nq:nq + nk], qkv[:, nq + nk:]
             if "bq" in lp:
                 q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
         elif "wq" in w4:
-            h = rms_norm(x, lp["ln_attn"], eps)
+            h = rms_norm(x, lp["ln_attn"], eps, gemma)
             q, k, v = (w4a8_linear_stacked(h, w4[n], l, lp.get(b))
                        for n, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
         else:
             q, k, v = _norm_lin_shared(
-                x, lp["ln_attn"], eps, (lp["wq"], lp["wk"], lp["wv"]),
+                x, lp["ln_attn"], eps, gemma, (lp["wq"], lp["wk"], lp["wv"]),
                 (lp.get("bq"), lp.get("bk"), lp.get("bv")), cfg.fused_act)
-        q = apply_rope(q.reshape(T, H, Dh), cos, sin)
-        k = apply_rope(k.reshape(T, Hkv, Dh), cos, sin)
+        q, k = qk_norm(cfg, lp, q.reshape(T, H, Dh), k.reshape(T, Hkv, Dh))
+        # gemma3's sliding layers: the local rope and the window
+        static = cfg.layer_is_static(l)
+        cos, sin = rope_g if static else rope_l
+        sliding = None if static else cfg.sliding_window
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
         v = v.reshape(T, Hkv, Dh)
 
         if is_pool or is_flat:
@@ -321,7 +370,7 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
                 else:
                     attn = attend_blockwise_int4(q, layer[0], layer[2], layer[3], layer[1],
                                                  layer[4], layer[5], base, cache.valid[l],
-                                                 scale=scale)
+                                                 scale=scale, q_pos0=cache.seen, window=sliding)
         else:
             k_l, v_l, base = cache.k[l], cache.v[l], cache.lengths[l]
             append_layer(k_l, v_l, base, k, v)
@@ -337,7 +386,8 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
                     q, keys, vals, score_len, sink=sink, s_ctx=score_width, scale=scale)
             elif not flash:
                 masked = attend_dense if attn_impl == "dense" else attend_blockwise
-                attn = masked(q, k_l, v_l, base, cache.valid[l], scale=scale)
+                attn = masked(q, k_l, v_l, base, cache.valid[l], scale=scale,
+                              q_pos0=cache.seen, window=sliding)
             elif T <= MAX_T:
                 attn = ragged_decode_attend(q, k_l, v_l, base, scale=scale)
             else:
@@ -352,29 +402,30 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
                                       qkv_layer=min(l + 1, L - 1))
             continue
         if "wo" in w4:
-            x = x + w4a8_linear_stacked(attn, w4["wo"], l)
+            o = w4a8_linear_stacked(attn, w4["wo"], l)
         else:
-            x = x + _lin(attn, lp["wo"])
+            o = _lin(attn, lp["wo"])
+        x = x + post_norm(cfg, lp, "ln_post_attn", o)
         if "w_gateup" in w4:
-            h2 = rms_norm(x, lp["ln_mlp"], eps)
+            h2 = rms_norm(x, lp["ln_mlp"], eps, gemma)
             gate, up = w4a8_linear_stacked(h2, w4["w_gateup"], l).chunk(2, dim=-1)
         elif "w_gate" in w4:
-            h2 = rms_norm(x, lp["ln_mlp"], eps)
+            h2 = rms_norm(x, lp["ln_mlp"], eps, gemma)
             gate, up = (w4a8_linear_stacked(h2, w4[n], l) for n in ("w_gate", "w_up"))
         else:
-            gate, up = _norm_lin_shared(x, lp["ln_mlp"], eps,
+            gate, up = _norm_lin_shared(x, lp["ln_mlp"], eps, gemma,
                                         (lp["w_gate"], lp["w_up"]), (None, None),
                                         cfg.fused_act)
         if "w_down" in w4:
-            x = x + w4a8_linear_stacked(_act(gate, cfg.hidden_act) * up, w4["w_down"], l)
+            mlp = w4a8_linear_stacked(_act(gate, cfg.hidden_act) * up, w4["w_down"], l)
         elif cfg.fused_act and is_w8(lp["w_down"]):
             # act(gate) * up and its quantization as one K14 pass, feeding
             # the int8 down projection
             hq, hs = silu_mul_quant(gate, up, act=cfg.hidden_act)
-            x = x + int8_matmul(hq, hs, lp["w_down"]["q"], lp["w_down"]["s"],
-                                None, x.dtype)
+            mlp = int8_matmul(hq, hs, lp["w_down"]["q"], lp["w_down"]["s"], None, x.dtype)
         else:
-            x = x + _lin(_act(gate, cfg.hidden_act) * up, lp["w_down"])
+            mlp = _lin(_act(gate, cfg.hidden_act) * up, lp["w_down"])
+        x = x + post_norm(cfg, lp, "ln_post_mlp", mlp)
 
     step = T if advance is None else advance
     if is_pool or is_flat:
@@ -387,7 +438,5 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
 
     logits = None
     if collect_logits != "none":
-        xf = x if collect_logits == "all" else x[-1:]
-        xf = rms_norm(xf, params["final_norm"], cfg.rms_norm_eps)
-        logits = head_logits(params.get("lm_head", params["embed"]), xf)
+        logits = final_logits(params, cfg, x if collect_logits == "all" else x[-1:])
     return ForwardResult(logits, torch.stack(scores) if scoring else None)

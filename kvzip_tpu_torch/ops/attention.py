@@ -14,7 +14,12 @@ row) — the new rows were appended at ``base_lens[h]``. Everything is
 computed in float32; a row that sees no key gives 0. The masked route is
 vectorized over kv heads and reads nothing back to the host (every key row
 up to the capacity is scored and masked), so a decode step over it can be
-captured as a CUDA graph.
+captured as a CUDA graph. A sliding ``window`` (gemma3's local layers on a
+dense cache) also hides row ``j`` from query ``i`` unless ``j > q_pos0 + i
+- window``, ``q_pos0`` the query block's first position (a 0-dim device
+tensor): a dense cache's row ``j`` holds position ``j`` until it is
+pruned, and sliding layers are never pruned. :func:`attend_ring` is the
+same sliding window over the hybrid cache's position-stamped ring.
 """
 
 from __future__ import annotations
@@ -38,15 +43,19 @@ def softmax_guarded(s: torch.Tensor) -> torch.Tensor:
 
 
 def visible(base_lens: torch.Tensor, valid: Optional[torch.Tensor], t0: int, t1: int,
-            c0: int, c1: int) -> torch.Tensor:
+            c0: int, c1: int, q_pos0: Optional[torch.Tensor] = None,
+            window: Optional[int] = None) -> torch.Tensor:
     """(Hkv, t1 - t0, c1 - c0) visibility of keys c0..c1-1 to queries
-    t0..t1-1, formed on the device."""
+    t0..t1-1, formed on the device; with ``window``, only the rows within
+    ``window`` positions of the query (``q_pos0`` its block's first)."""
     dev = base_lens.device
     col = torch.arange(c0, c1, device=dev)
     row = torch.arange(t0, t1, device=dev)
     mask = col[None, None, :] < base_lens.long()[:, None, None] + row[None, :, None] + 1
     if valid is not None:
         mask = mask & valid[:, None, c0:c1]
+    if window is not None:
+        mask = mask & (col[None, None, :] > (q_pos0 + row - window)[None, :, None])
     return mask
 
 
@@ -65,30 +74,33 @@ def _ungroup(out: torch.Tensor, dtype) -> torch.Tensor:
 def attend_dense(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, base_lens: torch.Tensor,
                  valid: Optional[torch.Tensor] = None, *,
-                 scale: float) -> torch.Tensor:
+                 scale: float, q_pos0: Optional[torch.Tensor] = None,
+                 window: Optional[int] = None) -> torch.Tensor:
     """Exact-softmax attention of q (T, H, D) over k/v (Hkv, C, D) with
-    per-head base lengths (Hkv,) and the retain mask ``valid`` (Hkv, C) or
-    None, every head at once; returns (T, H, D) in q's dtype."""
+    per-head base lengths (Hkv,), the retain mask ``valid`` (Hkv, C) or
+    None and a sliding ``window`` or None (``q_pos0`` the first query's
+    position), every head at once; returns (T, H, D) in q's dtype."""
     T = q.shape[0]
     Hkv, C, _ = k_cache.shape
     qg = _group_queries(q, Hkv)
     s = torch.einsum("hgtd,hcd->hgtc", qg, k_cache.float()) * scale
-    s = s.masked_fill(~visible(base_lens, valid, 0, T, 0, C)[:, None], NEG_INF)
+    mask = visible(base_lens, valid, 0, T, 0, C, q_pos0, window)
+    s = s.masked_fill(~mask[:, None], NEG_INF)
     out = torch.einsum("hgtc,hcd->hgtd", softmax_guarded(s), v_cache.float())
     return _ungroup(out, q.dtype)
 
 
-def _online(qg: torch.Tensor, kv: Callable, C: int, base_lens: torch.Tensor,
-            valid: Optional[torch.Tensor], *, scale: float, kv_block: Optional[int],
-            q_block: int) -> torch.Tensor:
+def _online(qg: torch.Tensor, kv: Callable, C: int, mask_fn: Callable, *, scale: float,
+            kv_block: Optional[int], q_block: int) -> torch.Tensor:
     """Online-softmax attention of qg (Hkv, G, T, D) float32 over blocks of
     ``kv_block`` keys (``kv(c0, c1)`` gives rows c0..c1-1 of every head as
-    float32 (Hkv, n, D) keys and values), queries in blocks of
-    ``q_block``. As many key blocks as keep a query block's scores within
-    ``BLOCK_SCORES`` a head are one batched product (each block's partial
-    softmax merged after), so a decode step spreads its keys over the card
-    in a fixed number of ops, and a long query block takes its keys a block
-    at a time. A default block is halved (to 128 keys at least) until it
+    float32 (Hkv, n, D) keys and values; ``mask_fn(t0, t1, c0, c1)`` their
+    visibility to queries t0..t1-1, (Hkv or 1, t1 - t0, c1 - c0) bool),
+    queries in blocks of ``q_block``. As many key blocks as keep a query
+    block's scores within ``BLOCK_SCORES`` a head are one batched product
+    (each block's partial softmax merged after), so a decode step spreads
+    its keys over the card in a fixed number of ops, and a long query block
+    takes its keys a block at a time. A default block is halved (to 128 keys at least) until it
     divides the capacity, as the reference's is, so the keys need no
     padding. Returns (Hkv, G, T, D) float32."""
     Hkv, G, T, D = qg.shape
@@ -110,7 +122,7 @@ def _online(qg: torch.Tensor, kv: Callable, C: int, base_lens: torch.Tensor,
             pad = nb * kb - (c1 - c0)
             k_blk, v_blk = ((torch.nn.functional.pad(a, (0, 0, 0, pad)) if pad else a)
                             .reshape(Hkv, nb, kb, D) for a in kv(c0, c1))
-            mask = visible(base_lens, valid, t0, t1, c0, c1)
+            mask = mask_fn(t0, t1, c0, c1).expand(Hkv, tq, c1 - c0)
             if pad:
                 mask = torch.nn.functional.pad(mask, (0, pad))
             mask = mask.reshape(Hkv, tq, nb, kb).permute(0, 2, 1, 3)[:, :, None]
@@ -132,14 +144,52 @@ def _online(qg: torch.Tensor, kv: Callable, C: int, base_lens: torch.Tensor,
 def attend_blockwise(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, base_lens: torch.Tensor,
                      valid: Optional[torch.Tensor] = None, *, scale: float,
+                     q_pos0: Optional[torch.Tensor] = None, window: Optional[int] = None,
                      kv_block: Optional[int] = None, q_block: int = 1024) -> torch.Tensor:
     """:func:`attend_dense` as an online softmax over blocks of queries and
     keys, so memory stays within ``BLOCK_SCORES`` scores a head at long
     contexts."""
     out = _online(_group_queries(q, k_cache.shape[0]),
                   lambda c0, c1: (k_cache[:, c0:c1].float(), v_cache[:, c0:c1].float()),
-                  k_cache.shape[1], base_lens, valid, scale=scale, kv_block=kv_block,
-                  q_block=q_block)
+                  k_cache.shape[1],
+                  lambda t0, t1, c0, c1: visible(base_lens, valid, t0, t1, c0, c1, q_pos0,
+                                                 window),
+                  scale=scale, kv_block=kv_block, q_block=q_block)
+    return _ungroup(out, q.dtype)
+
+
+def attend_ring(q: torch.Tensor, k_ring: torch.Tensor, v_ring: torch.Tensor,
+                ring_pos: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                seen: torch.Tensor, *, scale: float, window: int,
+                kv_block: int = KEY_BLOCK, q_block: int = 1024) -> torch.Tensor:
+    """Sliding-window attention of q (T, H, D), the queries at positions
+    ``seen + i``, over the hybrid cache's ring of one layer BEFORE this
+    chunk's append (k/v_ring (Hkv, W, D), ``ring_pos`` (W,) int32 each
+    slot's token position, -1 empty) and the chunk's own rows k/v_new (T,
+    Hkv, D): query i sees every column whose position p has ``p >= 0``, ``p
+    <= seen + i`` and ``p > seen + i - window`` (the reference's
+    ``attend_ring``). Appending first would evict rows that the chunk's
+    early queries still need when T nears the window. An online softmax in
+    float32 over blocks of ``kv_block`` keys (the chunk's rows first),
+    vectorized over kv heads, no host read. Returns (T, H, D) in q's
+    dtype."""
+    T = q.shape[0]
+    Hkv, W, _ = k_ring.shape
+    pos = torch.cat([seen + torch.arange(T, device=q.device, dtype=torch.int32),
+                     ring_pos.to(torch.int32)])
+
+    def kv(c0, c1):
+        ring_rows = slice(max(c0 - T, 0), max(c1 - T, 0))
+        return tuple(torch.cat([new.transpose(0, 1)[:, c0:c1], ring[:, ring_rows]], dim=1).float()
+                     for new, ring in ((k_new, k_ring), (v_new, v_ring)))
+
+    def mask_fn(t0, t1, c0, c1):
+        p = pos[None, c0:c1]
+        q_pos = (seen + torch.arange(t0, t1, device=q.device))[:, None]
+        return ((p >= 0) & (p <= q_pos) & (p > q_pos - window))[None]
+
+    out = _online(_group_queries(q, Hkv), kv, T + W, mask_fn, scale=scale,
+                  kv_block=kv_block, q_block=q_block)
     return _ungroup(out, q.dtype)
 
 
@@ -147,7 +197,8 @@ def attend_blockwise_int4(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                           kz: torch.Tensor, vq: torch.Tensor, vs: torch.Tensor,
                           vz: torch.Tensor, base_lens: torch.Tensor,
                           valid: Optional[torch.Tensor] = None, *, scale: float,
-                          kv_block: Optional[int] = None,
+                          q_pos0: Optional[torch.Tensor] = None,
+                          window: Optional[int] = None, kv_block: Optional[int] = None,
                           q_block: int = 1024) -> torch.Tensor:
     """:func:`attend_blockwise` over the int4 cache: kq/vq (Hkv, C, D//2)
     split-packed uint8, ks/kz/vs/vz (Hkv, C) per-row scale and zero. Each
@@ -159,7 +210,9 @@ def attend_blockwise_int4(q: torch.Tensor, kq: torch.Tensor, ks: torch.Tensor,
                                      torch.float32, pack="split")
                      for p, s, z in ((kq, ks, kz), (vq, vs, vz)))
 
-    out = _online(_group_queries(q, kq.shape[0]), kv, kq.shape[1], base_lens, valid,
+    out = _online(_group_queries(q, kq.shape[0]), kv, kq.shape[1],
+                  lambda t0, t1, c0, c1: visible(base_lens, valid, t0, t1, c0, c1, q_pos0,
+                                                 window),
                   scale=scale, kv_block=kv_block, q_block=q_block)
     return _ungroup(out, q.dtype)
 

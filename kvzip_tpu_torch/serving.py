@@ -14,7 +14,10 @@ sequence's positions ride a ``(B,)`` vector (``seen``) and its tail lengths
 a ``(B·Hkv,)`` vector (``tail_lens``); a token's K/V rows are appended at
 its own heads' offsets (``cache.append_layer``).
 
-The merged stack runs the linears unfused, as the reference's does
+The merged stack has the family pieces of the reference's (qwen3's
+qk-norm; gemma3's embedding scale, ``(1 + w)`` norms, post-norms and gelu,
+though a gemma3 state is a hybrid cache, which has no batch path here nor
+in the reference). It runs the linears unfused, as the reference's does
 (``_lin``, ``_lin_shared``, ``w4a8_linear_stacked``: K8 on v2 W4A8 stacks
 at T = B rows, K15 on a fused v1 tree): it runs no K12 whatever
 ``engine.fuse_layer`` says and no K13/K14 whatever ``cfg.fused_act`` says.
@@ -52,11 +55,11 @@ import torch
 from kvzip_tpu_torch.cache import FLAT_INT4_FIELDS, FlatInt4KV, FlatKV, KVCache, append_layer
 from kvzip_tpu_torch.engine import DECODE_CHUNK, CapturedStep, Engine, KVState, _round_up
 from kvzip_tpu_torch.models.rope import apply_rope, rope_cos_sin
-from kvzip_tpu_torch.models.transformer import _act, _is_w4, _lin, _lin_shared, rms_norm
+from kvzip_tpu_torch.models.transformer import (_act, _is_w4, _lin, _lin_shared, embed,
+                                                final_logits, post_norm, qk_norm, rms_norm)
 from kvzip_tpu_torch.ops.attention import attend_blockwise
 from kvzip_tpu_torch.ops.flat_decode import flat_decode_attend, flat_decode_attend_int4
 from kvzip_tpu_torch.ops.pool_decode import pool_decode_attend, pool_decode_attend_int4
-from kvzip_tpu_torch.ops.quant import embed_lookup, head_logits
 from kvzip_tpu_torch.ops.w4a8 import w4a8_linear_stacked
 from kvzip_tpu_torch.pool import _INT4_FIELDS as POOL_INT4_FIELDS
 from kvzip_tpu_torch.pool import PoolInt4KV, PoolKV, plan_offsets
@@ -244,13 +247,14 @@ def _stack_forward(engine: Engine, m, toks: torch.Tensor, q8: bool) -> torch.Ten
             "the merged stack takes fused W4A8 stacks (wqkv, w_gateup) as the reference's "
             "does: its scanned layers leave the unfused v1 stacks out, so lp['wq'] has no "
             "path (kvzip_tpu/serving.py stack_fwd); fuse the tree first (fuse_w4a8_params)")
-    x = embed_lookup(params["embed"], toks.reshape(B * T))
+    gemma = cfg.gemma_style_norm
+    x = embed(params, cfg, toks.reshape(B * T))
     pos = (m.seen[:, None] + torch.arange(T, device=toks.device)).reshape(B * T)
     cos, sin = rope_cos_sin(cfg.rope, Dh, pos)
     for l in range(L):
         lp = {k: ({kk: vv[l] for kk, vv in v.items()} if isinstance(v, dict) else v[l])
               for k, v in lp_all.items() if k not in w4}
-        h = rms_norm(x, lp["ln_attn"], eps)
+        h = rms_norm(x, lp["ln_attn"], eps, gemma)
         if "wqkv" in w4:
             qkv = w4a8_linear_stacked(h, w4["wqkv"], l)
             nq, nk = H * Dh, Hkv * Dh
@@ -260,8 +264,8 @@ def _stack_forward(engine: Engine, m, toks: torch.Tensor, q8: bool) -> torch.Ten
         else:
             q, k, v = _lin_shared(h, (lp["wq"], lp["wk"], lp["wv"]),
                                   (lp.get("bq"), lp.get("bk"), lp.get("bv")))
-        q = apply_rope(q.reshape(B * T, H, Dh), cos, sin)
-        k = apply_rope(k.reshape(B * T, Hkv, Dh), cos, sin)
+        q, k = qk_norm(cfg, lp, q.reshape(B * T, H, Dh), k.reshape(B * T, Hkv, Dh))
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         # sequence-major merged heads: (T, B·Hkv, D) rows, (T, B·H, D) queries
         k_rows, v_rows = (a.reshape(B, T, Hkv, Dh).transpose(0, 1).reshape(T, B * Hkv, Dh)
                           for a in (k, v))
@@ -272,22 +276,22 @@ def _stack_forward(engine: Engine, m, toks: torch.Tensor, q8: bool) -> torch.Ten
         q2 = q.reshape(B, T, H, Dh).transpose(0, 1).reshape(T, B * H, Dh)
         attn = _attend(m, q2, l, scale, q8, B)
         attn = attn.reshape(T, B, H, Dh).transpose(0, 1).reshape(B * T, H * Dh)
-        x = x + (w4a8_linear_stacked(attn, w4["wo"], l) if "wo" in w4 else _lin(attn, lp["wo"]))
-        h2 = rms_norm(x, lp["ln_mlp"], eps)
+        o = w4a8_linear_stacked(attn, w4["wo"], l) if "wo" in w4 else _lin(attn, lp["wo"])
+        x = x + post_norm(cfg, lp, "ln_post_attn", o)
+        h2 = rms_norm(x, lp["ln_mlp"], eps, gemma)
         if "w_gateup" in w4:
             gate, up = w4a8_linear_stacked(h2, w4["w_gateup"], l).chunk(2, dim=-1)
         else:
             gate, up = _lin_shared(h2, (lp["w_gate"], lp["w_up"]), (None, None))
         hidden = _act(gate, cfg.hidden_act) * up
-        x = x + (w4a8_linear_stacked(hidden, w4["w_down"], l) if "w_down" in w4
-                 else _lin(hidden, lp["w_down"]))
+        mlp = (w4a8_linear_stacked(hidden, w4["w_down"], l) if "w_down" in w4
+               else _lin(hidden, lp["w_down"]))
+        x = x + post_norm(cfg, lp, "ln_post_mlp", mlp)
     return x.reshape(B, T, -1)
 
 
 def _logits(engine: Engine, x: torch.Tensor) -> torch.Tensor:
-    params = engine.params
-    xf = rms_norm(x, params["final_norm"], engine.config.rms_norm_eps)
-    return head_logits(params.get("lm_head", params["embed"]), xf)
+    return final_logits(engine.params, engine.config, x)
 
 
 def _padded(engine: Engine, seqs: Sequence[np.ndarray]):

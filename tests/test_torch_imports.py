@@ -26,7 +26,8 @@ def test_import_loads_no_jax_and_no_reference():
             "kvzip_tpu_torch.ops.windowed_attend, kvzip_tpu_torch.ops.flat_decode, "
             "kvzip_tpu_torch.ops.w4a8_fused, "
             "kvzip_tpu_torch.cache, kvzip_tpu_torch.models.params, "
-            "kvzip_tpu_torch.models.transformer, kvzip_tpu_torch.serving, "
+            "kvzip_tpu_torch.models.transformer, kvzip_tpu_torch.models.hybrid, "
+            "kvzip_tpu_torch.serving, "
             "kvzip_tpu_torch.cli, kvzip_tpu_torch.native, kvzip_tpu_torch.data.loaders, "
             "kvzip_tpu_torch.data.needle, kvzip_tpu_torch.data.wrapper, "
             "kvzip_tpu_torch.eval.metrics, kvzip_tpu_torch.eval.repoqa, "
@@ -115,6 +116,38 @@ def test_engine_defaults_to_cuda_and_raises_without_a_card():
     eng = Engine("tiny-llama", config=tiny_config("llama"), device="cpu",
                  dtype=torch.float32)
     assert eng.params["embed"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("name", ["qwen3-0.6b", "qwen3-4b", "qwen3-8b", "qwen3-14b",
+                                  "qwen3-32b", "gemma3-1b", "gemma3-4b", "gemma3-12b",
+                                  "gemma3-27b"])
+def test_qwen3_and_gemma3_presets_build(name):
+    """Every qwen3 and gemma3 preset resolves and its cache builds (on the
+    meta device: shapes, no memory); a gemma3 preset is a hybrid whose
+    rings hold the window rounded up to 128 rows, and its tiny config's
+    engine builds on the CPU as a retain engine (the family's forward
+    pieces are held against the reference in test_torch_families.py)."""
+    from kvzip_tpu_torch.cache import HybridKV, init_cache, init_hybrid_cache
+    from kvzip_tpu_torch.config import resolve_config, tiny_config
+    from kvzip_tpu_torch.engine import Engine
+
+    cfg = resolve_config(name)
+    family = name.split("-")[0]
+    assert cfg.family == family and cfg.qk_norm
+    if family == "gemma3":
+        cache = init_hybrid_cache(cfg, 4096, device="meta")
+        assert isinstance(cache, HybridKV)
+        W = {"gemma3-1b": 512}.get(name, 1024)
+        L_t = len(cfg.static_layer_ids)
+        assert cache.k_ring.shape == (cfg.num_layers - L_t, cfg.num_kv_heads, W, cfg.head_dim)
+        assert cache.k_static.shape == (L_t, cfg.num_kv_heads, 4096, cfg.head_dim)
+        if name == "gemma3-4b":
+            assert cfg.static_layer_ids == (5, 11, 17, 23, 29)
+    else:
+        assert init_cache(cfg, 4096, device="meta").k.shape[0] == cfg.num_layers
+    eng = Engine(f"tiny-{family}", config=tiny_config(family), device="cpu",
+                 dtype=torch.float32, kv_type="evict")
+    assert eng.kv_type == ("retain" if family == "gemma3" else "evict")
 
 
 def test_kernel_wrappers_raise_on_cuda_without_kernel_inputs():

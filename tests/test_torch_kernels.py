@@ -34,6 +34,11 @@ under a graph replay. The engine's captured decode loop (one decode step a
 CUDA graph) gives the per-token loop's tokens, counters and launch counts
 on bf16, quantized, fused, W8A8-KV4 and flat states, with an eos inside a
 chunk of steps, and captures one step a state when two states alternate.
+K16 also at the gemma3 hybrid's prefill and scoring rows (T 2,304, 4,096,
+16,384); ``attend_ring`` with ``ring_append`` (gemma3's sliding layer)
+replayed from a CUDA graph across the ring's end equals its eager run bit
+for bit, and the captured decode step over a hybrid cache gives the
+per-token loop's tokens, counters and rings.
 K12 (the fused W4A8 decode layer) goes through ``parity`` with the output
 rtol on both outputs: its chained s8 quantizations may flip a value at a
 rounding boundary, which moves later sums by one s8 step of one input;
@@ -1595,7 +1600,11 @@ def _loop_state(eng, seed, ratio=0.3):
 
 
 def _counters(cache):
-    return (int(cache.seen), cache.lengths.tolist(), int(getattr(cache, "tail_len", 0)))
+    """The counters, and a hybrid cache's stamped ring positions and a sum
+    of its ring rows."""
+    rings = ((cache.ring_pos.tolist(), float(cache.k_ring.float().sum()))
+             if hasattr(cache, "ring_pos") else None)
+    return (int(cache.seen), cache.lengths.tolist(), int(getattr(cache, "tail_len", 0)), rings)
 
 
 def _both_loops(eng, st, q):
@@ -1733,3 +1742,117 @@ def test_merged_decode_captured_step_matches_eager(gen, kind):
         step.step()
     assert int(step.i) == 12 and dict(LAUNCHES) == captured
     assert (step.tokens[:13].T.cpu().numpy() == toks).all()
+
+
+# K16 at the prefill and scoring shapes of the gemma3 hybrid's v1 route
+# (gemma3-4b's gate and down projections): the scoring pass's 2,304 rows,
+# the engine ladder's largest chunk (4,096) and a 16,384-row chunk.
+@pytest.mark.parametrize("T", [2304, 4096, 16384])
+@pytest.mark.parametrize("IN,OUT", [(2560, 10240), (10240, 2560)])
+def test_w4a8_v1_kernel_prefill_rows(gen, T, IN, OUT):
+    from kvzip_tpu_torch.ops import w4a8
+
+    w = {k: t[0] for k, t in _v1_stack(gen, 1, IN, OUT).items()}
+    x = _rn(gen, T, IN)
+    got = w4a8.w4a8_matmul(x, w["q4"], w["s"], w["z"])
+    assert _ok(got, w4a8._w4a8_jnp(x.float(), w))
+    assert LAUNCHES["w4a8_matmul"] == 1
+
+
+def _ring_state(gen, Hkv, W, Dh, seen0):
+    """A full ring of one layer (k, v, stamped positions seen0 - W ..
+    seen0 - 1 at their slots p mod W) and the 0-dim ``seen``."""
+    pos = torch.arange(seen0 - W, seen0, dtype=torch.int32)
+    rp = torch.empty(W, dtype=torch.int32)
+    rp[pos % W] = pos
+    return dict(k=_rn(gen, Hkv, W, Dh), v=_rn(gen, Hkv, W, Dh), pos=rp.cuda(),
+                seen=torch.tensor(seen0, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.parametrize("T", [1, 4])
+def test_attend_ring_captured_after_a_wrap(gen, T):
+    """``attend_ring`` then ``ring_append`` (the hybrid's sliding layer),
+    captured in a CUDA graph and replayed over steps that wrap the ring's
+    end (gemma3-4b's kv heads, head_dim and 1,024-row ring): every
+    replay's output and the ring after it equal the eager run's."""
+    from kvzip_tpu_torch.cache import ring_append
+    from kvzip_tpu_torch.ops.attention import attend_ring
+
+    Hkv, G, Dh, W = 4, 2, 256, 1024
+    steps = 3
+    seen0 = 4 * W - T - 1  # the steps write across slot W - 1 -> 0
+    base = _ring_state(gen, Hkv, W, Dh, seen0)
+    ins = [(_rn(gen, T, Hkv * G, Dh), _rn(gen, T, Hkv, Dh), _rn(gen, T, Hkv, Dh))
+           for _ in range(steps)]
+
+    def fresh():
+        return {k: t.clone() for k, t in base.items()}
+
+    def step(st, buf):
+        buf["out"].copy_(attend_ring(buf["q"], st["k"], st["v"], st["pos"], buf["kn"],
+                                     buf["vn"], st["seen"], scale=256 ** -0.5, window=W))
+        ring_append(st["k"], st["v"], st["pos"], st["seen"], buf["kn"], buf["vn"])
+        st["seen"] += T
+
+    def buffers():
+        q, kn, vn = (t.clone() for t in ins[0])
+        return dict(q=q, kn=kn, vn=vn, out=torch.empty_like(q))
+
+    eager, st, buf = [], fresh(), buffers()
+    for q, kn, vn in ins:
+        buf["q"].copy_(q), buf["kn"].copy_(kn), buf["vn"].copy_(vn)
+        step(st, buf)
+        eager.append(buf["out"].clone())
+    warm, gbuf = fresh(), buffers()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(warm, gbuf)
+    torch.cuda.current_stream().wait_stream(side)
+    gst = fresh()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        step(gst, gbuf)
+    for (q, kn, vn), want in zip(ins, eager):
+        gbuf["q"].copy_(q), gbuf["kn"].copy_(kn), gbuf["vn"].copy_(vn)
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(gbuf["out"], want)
+    for k in ("k", "v", "pos", "seen"):
+        assert torch.equal(gst[k], st[k]), k
+    assert int(st["pos"].max()) == seen0 + steps * T - 1
+    assert not any(LAUNCHES.values())  # torch ops only: the reference's XLA route
+
+
+def test_hybrid_decode_captured_step_matches_eager(gen):
+    """A small gemma3 config (head_dim 256, a 128-row ring that a 700-token
+    prefill wraps), pruned at two ratios: the captured decode step over the
+    hybrid cache gives the per-token loop's tokens, counters, rings and
+    (zero) launches, with no early stop and with an eos inside a chunk."""
+    from kvzip_tpu_torch.config import tiny_config
+    from kvzip_tpu_torch.engine import Engine
+    from kvzip_tpu_torch.models.params import init_params
+    from kvzip_tpu_torch.tokenizer import ByteTokenizer
+
+    cfg = tiny_config("gemma3", vocab_size=2048, hidden_size=1024, intermediate_size=2048,
+                      num_layers=4, num_heads=8, num_kv_heads=2, head_dim=256,
+                      sliding_window=100, query_scale=256 ** -0.5)
+    params = init_params(cfg, torch.Generator("cuda").manual_seed(1), "cuda", torch.bfloat16)
+    params["layers"] = {k: v * 7 if k in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+                        else v for k, v in params["layers"].items()}
+    eng = Engine("tiny-gemma3", config=cfg, params=params, tokenizer=ByteTokenizer(2048),
+                 max_new_tokens=20, decode_budget=160, capacity_granularity=256,
+                 score_chunk_size=256)
+    eng.eos_ids = (-1,)
+    st, q = _loop_state(eng, 5)
+    assert int(st.cache.ring_pos.min()) >= 0
+    for ratio in (0.3, 0.6):
+        eng.prune(st, ratio, "pair")
+        (t1, l1, c1), (t2, l2, c2) = _both_loops(eng, st, q)
+        assert t1 == t2 and len(t1) == eng.max_new_tokens and c1 == c2 and l1 == l2
+        assert not any(l1.values())
+        assert next(iter(st._steps.values())).graph is not None
+    eos = next(t for i, t in enumerate(t1) if 2 <= i < 8 and t not in t1[:i])
+    eng.eos_ids = (eos,)
+    (t1, l1, c1), (t2, l2, c2) = _both_loops(eng, st, q)
+    assert t1 == t2 and len(t1) < 8 and c1 == c2

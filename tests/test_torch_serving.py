@@ -40,7 +40,7 @@ from kvzip_tpu_torch import config as tconfig
 from kvzip_tpu_torch import serving
 from kvzip_tpu_torch.cache import FlatInt4KV, FlatKV, Int4KVCache, KVCache
 from kvzip_tpu_torch.engine import Engine, KVState
-from kvzip_tpu_torch.models.params import init_params_w4a8, params_from_jax
+from kvzip_tpu_torch.models.params import init_params, init_params_w4a8, params_from_jax
 from kvzip_tpu_torch.ops.w4a8 import fuse_w4a8_params
 from kvzip_tpu_torch.pool import PoolInt4KV, PoolKV, synthetic_full_pool
 
@@ -270,6 +270,39 @@ def test_batched_logits_match_single_forward(states, ingest):
         np.testing.assert_allclose(g, teng.forward_ids(s, st, return_logits=True),
                                    rtol=1e-4, atol=1e-4)
         assert int(st.cache.tail_len) == 0
+
+
+def test_qwen3_batch_matches_single_states():
+    """qwen3 (qk-norm, its weights drawn from a seed) through the merged
+    stack: three port states pruned into pools with seeded scores give
+    each state's own answer, and each sequence's merged logits its own
+    forward_ids logits (1e-4). Without the merged stack's qk-norm the
+    answers would leave the single-state ones."""
+    cfg = tconfig.tiny_config("qwen3", **SHAPE)
+    params = init_params(cfg, torch.Generator().manual_seed(5), "cpu", torch.float32)
+    gen = torch.Generator().manual_seed(6)
+    lp = params["layers"]
+    for n in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+        lp[n] = lp[n] * 7.0
+    for n in ("q_norm", "k_norm", "ln_attn", "ln_mlp"):
+        lp[n] = 1 + 0.5 * torch.randn(lp[n].shape, generator=gen)
+    eng = Engine("tiny-qwen3", config=cfg, params=params, tokenizer=IdTokenizer(512),
+                 dtype=torch.float32, device="cpu", **KW)
+    tsts = []
+    for i, (ctx, r) in enumerate(zip(CTXS, RATIOS)):
+        st = eng.prefill(ctx, prefill_chunk_size=256, do_score=False)
+        st.score = torch.from_numpy(np.random.default_rng(i).random(
+            (cfg.num_layers, cfg.num_kv_heads, st.ctx_len)).astype(np.float32))
+        eng.prune(st, r, "pair")
+        assert isinstance(st.cache, PoolKV)
+        tsts.append(st)
+    single = [eng.generate_ids(q, st).tolist() for q, st in zip(QUERIES, tsts)]
+    assert [a.tolist() for a in serving.batched_generate_ids(eng, QUERIES, tsts)] == single
+    seqs = [np.concatenate([q, q[:5]]) for q in QUERIES]
+    got = serving.batched_logits(eng, seqs, tsts, ingest=[len(q) for q in QUERIES])
+    for g, seq, st in zip(got, seqs, tsts):
+        np.testing.assert_allclose(g, eng.forward_ids(seq, st, return_logits=True),
+                                   rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("states", ["pool"], indirect=True)
