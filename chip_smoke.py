@@ -49,6 +49,9 @@
    and layers 0/14/27 of 28-layer stacks, K16 at T 1/24 with a bias on
    q/k/v (``kernel_parity_w4a8_v1``).
    K13 and K14 also carry their T = 1 time (``t1_ms``) beside T = 2304.
+   K1-K7 (K5 in both forms, K7 also in q8 mode) also at a tensor-parallel
+   rank's local head counts, 14 over 2 (tp 2) and 7 over 1 (tp 4), at the
+   main path's shapes (``kernel_parity_tp_local``), folded into their rows.
 4. bf16 main path at the full width of qwen2.5-7b (28 layers, random bf16
    weights from a seed) and a 16384-token context, through the engine's
    entry points: prefill, scoring, a greedy answer on the dense cache,
@@ -82,6 +85,20 @@
    held against the retain state's head 0.6) and ``state_io``
    (``save_state`` of the main path's pool, ``load_state`` into a fresh
    state: arrays, counters and answer equal; seconds, bytes).
+   Then ``tp_path``: the same path through ``Engine(mesh=...)``
+   (``kvzip_tpu_torch/parallel``) over an NCCL group of the machine's
+   cards (at most 4, a divisor of the 4 kv heads; on one card the smoke's
+   own process at world size 1, a FileStore, no port), on the bf16
+   engine's weights, context and queries: prefill, scoring, prune(0.3,
+   "pair"), three queries through the captured step; K1-K4 must launch;
+   the pool's rows, the answers and one query's logits held against the
+   no-mesh engine's (bit-equal expected at world size 1, within OUT_RTOL
+   of the largest logit in any case), the captured step's graph holding
+   2L + 1 all-reduces and one all-gather (``ops.COLLECTIVES``); then
+   ``ring_prefill`` and ``reshard_to_cache`` called directly on 4,096
+   tokens, their K/V within twice the schedule noise of the normal
+   prefill's (the same prefill in other chunks; layer 0 equal). On two or more cards one spawned process a card runs
+   the same holds (written, unrun: the driver's machine has one card).
    Then batched serving (``kvzip_tpu_torch/serving.py``) on four contexts
    of 8,192 random tokens, each scored once and pruned at pair 0.3, 0.4,
    0.5 and 0.6 into the pool and, from a copy, into the flat layout:
@@ -1480,6 +1497,317 @@ def kernel_parity_w8a8(cfg, sink: int):
                         replaces=f"kvzip_tpu/ops/fused_act.py:{line}", **per_shape["T 2304"],
                         t1_ms=per_shape["T 1"]["ms"], library_ms=None, per_shape=per_shape))
     return verify_parity(out, checks)
+
+
+TP_LOCAL = ((14, 2), (7, 1))  # qwen2.5-7b's heads on one rank at tp 2 and tp 4
+RING_T = 4096
+
+
+def kernel_parity_tp_local(cfg, sink: int, capacity: int, tail_cap: int) -> dict:
+    """K1-K7 (K5 in both forms, K7 also in q8 mode) against their plain
+    versions at a tensor-parallel rank's local head counts (``TP_LOCAL``:
+    H 14 over Hkv 2, H 7 over Hkv 1) and the main path's shapes, through
+    ``ops.parity``: K1 at the prefill's 4096-query chunk, K2 at a scoring
+    chunk, K4 at T 1 and 8 on the 16k dense cache, K3 and K7 at T 1 and 16
+    on a ~30% pool, K5 at T 4096 and 1, K6 at a scoring chunk. Each kernel
+    must also reject a reference with one 64-key tile (K2: its last 16
+    queries) left out at one shape. Returns the checks by kernel name."""
+    import torch
+
+    from kvzip_tpu_torch.ops import (OUT_RTOL, SCORE_RTOL, flash, flash_int4, pool_decode,
+                                     ragged_decode, score_kernel)
+    from kvzip_tpu_torch.ops.quant import quantize_int4
+    from kvzip_tpu_torch.pool import POOL_ALIGN, plan_offsets
+
+    L, D = cfg.num_layers, cfg.head_dim
+    scale = D ** -0.5
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    prefill_len = sink + CTX
+    checks = {}
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def quant(*shape):
+        p, s_, z = quantize_int4(rn(*shape, D), pack="split")
+        return p, s_[..., 0], z[..., 0]
+
+    def hold(name, shape, got, want, rtol=OUT_RTOL, drop=None):
+        hold_parity(checks, name, shape, got, want, rtol, drop)
+
+    for H, Hkv in TP_LOCAL:
+        tag = f"H {H} Hkv {Hkv}"
+        # K1 and K4 on a dense bf16 cache
+        k, v = rn(Hkv, capacity, D), rn(Hkv, capacity, D)
+        kf, vf = k.float(), v.float()
+        q = rn(4096, H, D)
+        lens = torch.full((Hkv,), 12288, dtype=torch.int32, device=dev)
+        hold("flash_attend", f"{tag} q (4096,{H},{D}) base 12288",
+             flash.flash_attend(q, k, v, lens, scale=scale),
+             flash.flash_attend_plain(q.float(), kf, vf, lens, scale=scale),
+             drop=flash.flash_attend_plain(q.float(), kf, vf, lens - 64, scale=scale))
+        lens = torch.full((Hkv,), prefill_len, dtype=torch.int32, device=dev)
+        for T in (1, 8):
+            q = rn(T, H, D)
+            hold("ragged_decode_attend", f"{tag} q ({T},{H},{D}) live {prefill_len}",
+                 ragged_decode.ragged_decode_attend(q, k, v, lens, scale=scale),
+                 ragged_decode.ragged_decode_attend_plain(q.float(), kf, vf, lens, scale=scale),
+                 drop=(ragged_decode.ragged_decode_attend_plain(q.float(), kf, vf, lens - 64,
+                                                                scale=scale) if T == 1 else None))
+        del k, v, kf, vf
+        # K2 at a scoring chunk
+        T, s_ctx, ctx_len = 2304, 2048, 2000
+        q_valid = ctx_len + 60
+        q, keys = rn(T, H, D), rn(Hkv, sink + s_ctx + T, D)
+        kw = dict(sink=sink, s_ctx=s_ctx, scale=scale, model_dtype=torch.bfloat16)
+        hold("fused_scores", f"{tag} q ({T},{H},{D})",
+             score_kernel.fused_scores(q, keys, ctx_len, q_valid, **kw),
+             score_kernel.fused_scores_plain(q.float(), keys.float(), ctx_len, q_valid, **kw),
+             SCORE_RTOL, score_kernel.fused_scores_plain(q.float(), keys.float(), ctx_len,
+                                                         q_valid - 16, **kw))
+        # K5 (both forms) and K6 on a dense int4 cache
+        kv0 = (*quant(Hkv, capacity), *quant(Hkv, capacity))
+        for T, base in ((4096, 12288), (1, prefill_len)):
+            q = rn(T, H, D)
+            lens = torch.full((Hkv,), base, dtype=torch.int32, device=dev)
+            name = "flash_attend_int4" if T > flash_int4.SPLIT_T else "flash_attend_int4_decode"
+            hold(name, f"{tag} q ({T},{H},{D}) base {base}",
+                 flash_int4.flash_attend_int4(q, *kv0, lens, scale=scale),
+                 flash_int4.flash_attend_int4_plain(q.float(), *kv0, lens, scale=scale),
+                 drop=flash_int4.flash_attend_int4_plain(q.float(), *kv0, lens - 64,
+                                                         scale=scale))
+        q = rn(2304, H, D)
+        extra = (*quant(2304, Hkv), *quant(2304, Hkv))
+        lens = torch.full((Hkv,), prefill_len, dtype=torch.int32, device=dev)
+        hold("flash_attend_int4_extra", f"{tag} q (2304,{H},{D}) base {prefill_len}",
+             flash_int4.flash_attend_int4_extra(q, *kv0, lens, *extra, scale=scale),
+             flash_int4.flash_attend_int4_extra_plain(q.float(), *kv0, lens, *extra,
+                                                      scale=scale),
+             drop=flash_int4.flash_attend_int4_extra_plain(q.float(), *kv0, lens - 64, *extra,
+                                                           scale=scale))
+        del kv0, extra
+        # K3 and K7 (and K7-q8) on a ~30% pool with a partly filled tail
+        rows_h = torch.randint(int(0.2 * prefill_len), int(0.4 * prefill_len), (L, Hkv),
+                               generator=torch.Generator().manual_seed(SEED + 7))
+        per_layer = rows_h.sum(1).numpy()
+        off, alloc, max_rows = plan_offsets(per_layer, POOL_ALIGN)
+        rh = torch.full((alloc,), -1, dtype=torch.int32)
+        for l in range(L):
+            rh[int(off[l]):int(off[l]) + int(per_layer[l])] = torch.repeat_interleave(
+                torch.arange(Hkv, dtype=torch.int32), rows_h[l])
+        rh_drop = rh.clone()
+        rh_drop[int(off[0]):int(off[0]) + 64] = -1
+        geo = (torch.from_numpy(off).to(dev), torch.from_numpy(per_layer.astype("int32")).to(dev))
+        meta, meta_drop = (rh.to(dev),) + geo, (rh_drop.to(dev),) + geo
+        kt, vt = rn(L, Hkv, tail_cap, D), rn(L, Hkv, tail_cap, D)
+        kp, vp = rn(alloc, D), rn(alloc, D)
+        kq, ks, kz = quant(alloc)
+        vq, vs, vz = quant(alloc)
+        pool4 = (kq, ks.float(), kz.float(), vq, vs.float(), vz.float())
+        for T in (1, 16):
+            q = rn(T, H, D)
+            for l in (0, L - 1):
+                first = T == 1 and l == 0
+                shape = f"{tag} q ({T},{H},{D}) layer {l} tail 40"
+                hold("pool_decode_attend", shape,
+                     pool_decode.pool_decode_attend(q, kp, vp, *meta, kt, vt, 40, l,
+                                                    scale=scale, max_rows=max_rows),
+                     pool_decode.pool_decode_attend_plain(q.float(), kp.float(), vp.float(),
+                                                          *meta, kt.float(), vt.float(), 40, l,
+                                                          scale=scale),
+                     drop=pool_decode.pool_decode_attend_plain(
+                         q.float(), kp.float(), vp.float(), *meta_drop, kt.float(), vt.float(),
+                         40, l, scale=scale) if first else None)
+                for q8 in (False, True):
+                    name = "pool_decode_attend_int4" + ("_q8" if q8 else "")
+                    ref = dict(q8=True, with_slack=True) if q8 else {}
+                    hold(name, shape,
+                         pool_decode.pool_decode_attend_int4(q, *pool4, *meta, kt, vt, 40, l,
+                                                             scale=scale, max_rows=max_rows,
+                                                             q8=q8),
+                         pool_decode.pool_decode_attend_int4_plain(
+                             q.float(), *pool4, *meta, kt.float(), vt.float(), 40, l,
+                             scale=scale, **ref),
+                         drop=pool_decode.pool_decode_attend_int4_plain(
+                             q.float(), *pool4, *meta_drop, kt.float(), vt.float(), 40, l,
+                             scale=scale, **ref) if first else None)
+        del kp, vp, kt, vt, pool4
+    log(phase="kernel_parity_tp_local", heads=[list(h) for h in TP_LOCAL], checks=checks)
+    return checks
+
+
+def init_tp_group():
+    """An NCCL group over the machine's cards, at most 4 and a divisor of
+    qwen2.5-7b's 4 kv heads (the smoke's own process at world size 1, a
+    FileStore in a temporary directory), and its mesh: (data 1, model
+    world). Returns (mesh, world)."""
+    import torch
+    import torch.distributed as dist
+
+    from kvzip_tpu_torch.parallel import make_mesh
+
+    world = max(w for w in (1, 2, 4) if w <= torch.cuda.device_count())
+    if world > 1:  # tp_ranks spawns the ranks
+        return None, world
+    store = dist.FileStore(os.path.join(tempfile.mkdtemp(), "tp_store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    return make_mesh(tp=1), 1
+
+
+def _tp_rank(rank: int, world: int, store_path: str, ctx_ids, queries) -> dict:
+    """One rank of ``tp_ranks`` on card ``rank``: the bf16 engine from the
+    smoke's seed on a (data 1, model world) NCCL mesh, the main path's
+    prefill, scoring, prune(0.3, "pair") and three greedy answers."""
+    import torch
+    import torch.distributed as dist
+
+    from kvzip_tpu_torch import ops
+    from kvzip_tpu_torch.config import resolve_config
+    from kvzip_tpu_torch.engine import Engine
+    from kvzip_tpu_torch.parallel import make_mesh
+    from kvzip_tpu_torch.parallel.mesh import shard_of
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", store=dist.FileStore(store_path, world), rank=rank,
+                            world_size=world)
+    try:
+        cfg = resolve_config(MODEL)
+        eng = Engine(MODEL, config=cfg, dtype=torch.bfloat16, device="cuda",
+                     max_new_tokens=NEW_TOKENS, seed=SEED, mesh=make_mesh(tp=world))
+        ops.reset_launches()
+        st = eng.prefill(ctx_ids)
+        eng.prune(st, 0.3, "pair")
+        answers = [eng.generate_ids(q, st).tolist() for q in queries]
+        sh = shard_of(cfg, eng.mesh)
+        return dict(answers=answers, kv0=sh.kv0, lengths=st.cache.lengths.cpu(),
+                    launches=dict(ops.LAUNCHES),
+                    step_delta=eng.decode_step(st).delta[1])
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_ranks(world, ctx_ids, queries, keep):
+    """``tp_path``'s holds on ``world`` cards, one spawned process a card
+    (NCCL, a FileStore): every rank's answers the no-mesh engine's, its
+    pool's rows those of its kv heads, its step's collectives captured.
+    Returns the phase's report with rank 0's launches."""
+    import torch
+    import torch.multiprocessing as mp
+
+    store = os.path.join(tempfile.mkdtemp(), "tp_store")
+    mp.start_processes(_tp_rank_main, args=(world, store, ctx_ids, queries), nprocs=world,
+                       start_method="spawn", join=True)
+    got = [torch.load(f"{store}.rank{r}.pt", weights_only=False) for r in range(world)]
+    want = keep["pool"].cache.lengths.cpu()
+    for r in got:
+        if r["answers"] != [a.tolist() for a in keep["answers"]]:
+            raise AssertionError(f"a rank's answers {r['answers']} are not the no-mesh ones")
+        h = r["lengths"].shape[1]
+        if not torch.equal(r["lengths"], want[:, r["kv0"]:r["kv0"] + h]):
+            raise AssertionError("a rank's pool keeps other rows than the no-mesh pool")
+        if r["step_delta"].get("all_reduce model", 0) == 0:
+            raise AssertionError(f"a rank's captured step holds {r['step_delta']}")
+    return dict(world=world, tp=world, answers_equal=True, launches=got[0]["launches"],
+                step_collectives=got[0]["step_delta"])
+
+
+def _tp_rank_main(rank, world, store, ctx_ids, queries):
+    import torch
+
+    torch.save(_tp_rank(rank, world, store, ctx_ids, queries), f"{store}.rank{rank}.pt")
+
+
+def tp_path(teng, eng, ctx_ids, queries, keep, world):
+    """The bf16 main path through ``Engine(mesh=...)`` on the world size the
+    machine gives (one card: the smoke's own NCCL group of 1), on the bf16
+    engine's weights and the main path's context and queries: prefill,
+    scoring, prune(0.3, "pair"), three queries on the pool through the
+    captured step. Held: the pool's kept rows a head and the answers equal
+    the no-mesh engine's (``keep``); one query's last logits against the
+    no-mesh engine's on its pool (bit-equal expected at world size 1, where
+    an NCCL sum is a copy; within OUT_RTOL of the largest logit in any
+    case); the captured step's graph holds the step's collectives (2L + 1
+    all-reduces and one all-gather, ``step.delta``). Then ``ring_prefill``
+    and ``reshard_to_cache`` called directly on the first ``RING_T``
+    tokens, their K/V against the normal prefill's: layer 0 equal, every
+    layer's relative RMS distance within twice the largest of the same
+    prefill in 1,000-token chunks (the schedule noise); the resharded
+    cache's rows the ring's."""
+    import torch
+
+    from kvzip_tpu_torch import ops
+    from kvzip_tpu_torch.cache import init_cache
+    from kvzip_tpu_torch.ops import OUT_RTOL
+    from kvzip_tpu_torch.parallel.mesh import axis_size, mesh_shape
+    from kvzip_tpu_torch.parallel.ring_prefill import reshard_to_cache, ring_prefill
+
+    import torch.distributed as dist
+
+    cfg, mesh = teng.config, teng.mesh
+    rep = dict(world=world, tp=axis_size(mesh, "model"), mesh=mesh_shape(mesh),
+               backend=dist.get_backend(), no_mesh_ms_per_token=keep["pool_ms"])
+    before = dict(ops.COLLECTIVES)
+    st, rep["prefill_s"] = timed(lambda: teng.prefill(ctx_ids, do_score=False))
+    _, rep["scoring_s"] = timed(lambda: teng.scoring(st, st.ctx_ids))
+    (_, rep["kept_ratio"]), rep["prune_s"] = timed(lambda: teng.prune(st, 0.3, "pair"))
+    want = keep["pool"]
+    if getattr(st.cache, "tp", 0) != rep["tp"] or \
+            not torch.equal(st.cache.lengths, want.cache.lengths):
+        raise AssertionError("the mesh engine's pool keeps other rows than the no-mesh one's")
+    rep["ms_per_token"], answers = decode_ms_per_token(teng, st, queries, eager=False)
+    rep["answers_equal"] = all(a.tolist() == b.tolist() for a, b in zip(answers, keep["answers"]))
+    if not rep["answers_equal"]:
+        raise AssertionError(f"mesh answers {[a.tolist() for a in answers]} != "
+                             f"{[a.tolist() for a in keep['answers']]}")
+    step = teng.decode_step(st)
+    rep["step_collectives"] = step.delta[1]
+    L = cfg.num_layers
+    if step.graph is None or step.delta[1] != {"all_reduce model": 2 * L + 1,
+                                               "all_gather model": 1}:
+        raise AssertionError(f"the captured step holds {step.delta[1]} collectives")
+    got = torch.from_numpy(teng.forward_ids(queries[0], st, return_logits=True)[-1])
+    ref = torch.from_numpy(eng.forward_ids(queries[0], want, return_logits=True)[-1])
+    diff = float((got - ref).abs().max())
+    rep.update(logits_max_abs_diff=diff, logits_bit_equal=bool(torch.equal(got, ref)),
+               logits_max=float(ref.abs().max()))
+    if diff > OUT_RTOL * float(ref.abs().max()):
+        raise AssertionError(f"mesh logits differ by {diff}")
+    del st
+    # the ring, called directly (a "data" axis of 1 is one hop), held
+    # against the normal prefill within twice the schedule noise: the
+    # distance between two prefills of the same tokens in other chunks
+    # (random weights carry a rounding difference through the 28 layers)
+    sink = len(teng.sys_prompt_ids)
+    st4 = teng.prefill(ctx_ids[:RING_T - sink], do_score=False)
+    st4b = teng.prefill(ctx_ids[:RING_T - sink], prefill_chunk_size=1000, do_score=False)
+    (k, v), rep["ring_prefill_s"] = timed(lambda: ring_prefill(teng.params, cfg,
+                                                               st4.prefill_ids, mesh))
+
+    def rel_rms_by_layer(got, ref):
+        err = (got.float() - ref.float()).square().mean(dim=(1, 2, 3)).sqrt()
+        return (err / ref.float().square().mean(dim=(1, 2, 3)).sqrt()).tolist()
+
+    ring = {}
+    for f, got in (("k", k), ("v", v)):
+        ref = getattr(st4.cache, f)[:, :, :RING_T]
+        floor = rel_rms_by_layer(getattr(st4b.cache, f)[:, :, :RING_T], ref)
+        dist_ = rel_rms_by_layer(got, ref)
+        ring[f] = dict(rel_rms_by_layer=dist_, floor_by_layer=floor,
+                       max_abs=float((got.float() - ref.float()).abs().max()),
+                       layer0_equal=bool(torch.equal(got[0], ref[0])))
+        # (1e-5: float32's own spread, where two schedules agree bit for bit)
+        if not ring[f]["layer0_equal"] or max(dist_) > 2 * max(floor) + 1e-5:
+            raise AssertionError(f"ring {f} differs from the prefill's: {ring[f]}")
+    del st4b
+    cache = init_cache(teng.cache_config, st4.cache.capacity, teng.dtype, teng.device)
+    _, rep["reshard_s"] = timed(lambda: reshard_to_cache(k, v, mesh, cache))
+    if not (torch.equal(cache.k[:, :, :RING_T], k) and int(cache.seen) == RING_T
+            and bool((cache.lengths == RING_T).all())):
+        raise AssertionError("reshard_to_cache did not place the ring's rows")
+    rep["ring"] = ring
+    rep["collectives"] = {n: c - before.get(n, 0) for n, c in ops.COLLECTIVES.items()}
+    return rep
 
 
 def allkept_attention(cache, pool, num_heads: int):
@@ -3344,6 +3672,10 @@ def main() -> int:
     kernels_f = kernel_parity_flat(cfg, CTX, sink, eng.decode_budget)
     kernels_k12 = kernel_parity_fused(cfg)
     kernels_v1 = kernel_parity_w4a8_v1(cfg)
+    tp_checks = kernel_parity_tp_local(cfg, sink, capacity, eng.decode_budget)
+    for r in kernels + kernels_q:
+        if r["name"] in tp_checks:
+            fold_parity(r, {r["name"]: tp_checks[r["name"]]})
     log(phase="kernel_parity", seconds=time.perf_counter() - t0,
         timing_details=[{k: v for k, v in r.items()
                          if k in ("name", "ms", "host_ms", "library_ms", "bound_ms",
@@ -3465,6 +3797,28 @@ def main() -> int:
                                    absent=(*layouts, "fused_scores")))
     add_launches(launches, counted("state_io", eng, ("pool_decode_attend",), state_io,
                                    keep["pool"], queries, absent=flat_kernels))
+    # tensor parallelism: the same path through Engine(mesh=...) over NCCL
+    mesh, world = init_tp_group()
+    if world == 1:
+        teng = Engine(MODEL, config=cfg, params=eng.params, tokenizer=eng.tokenizer,
+                      dtype=torch.bfloat16, device="cuda", max_new_tokens=NEW_TOKENS, mesh=mesh)
+        add_launches(launches, counted("tp_path", teng, ("flash_attend", "fused_scores",
+                                                         "ragged_decode_attend",
+                                                         "pool_decode_attend"),
+                                       tp_path, eng, ctx_ids, queries, keep, world,
+                                       absent=flat_kernels))
+        del teng
+        import torch.distributed as dist
+        dist.destroy_process_group()
+    else:  # one process a card; rank 0's launches join the line
+        rep = tp_ranks(world, ctx_ids, queries, keep)
+        log(phase="tp_path", **rep)
+        tp_launches = {n: rep["launches"][n] for n in ("flash_attend", "fused_scores",
+                                                       "ragged_decode_attend",
+                                                       "pool_decode_attend")}
+        if not all(tp_launches.values()):
+            raise AssertionError(f"kernels never launched on the tp_path: {tp_launches}")
+        add_launches(launches, tp_launches)
     # batched serving: four contexts pruned at four ratios, merged
     del keep
     gc.collect()

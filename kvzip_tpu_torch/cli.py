@@ -9,6 +9,13 @@ Usage:
 
 The engines run on the card; ``KVZIP_PLATFORM=cpu`` runs them on the CPU
 (the kernels' plain versions) instead.
+
+``--tp N`` (N > 1) runs tensor-parallel over N ranks, one process each,
+started by ``torchrun --nproc-per-node N -m kvzip_tpu_torch.cli ... --tp
+N``: the process group comes from torchrun's environment (NCCL over the
+cards, gloo under ``KVZIP_PLATFORM=cpu``), the engine shards over
+``make_mesh(tp=N)``, and only rank 0 prints. ``--tp 0`` takes the world
+size the environment gives (1 without torchrun).
 """
 
 from __future__ import annotations
@@ -41,8 +48,8 @@ def build_parser():
         sp.add_argument("--save_head_score", action="store_true")
         sp.add_argument("--dtype", type=str, default="bfloat16")
         sp.add_argument("--tp", type=int, default=0,
-                        help="tensor-parallel degree (0 and 1: one card; "
-                        "more is not ported yet)")
+                        help="tensor-parallel degree (0 = all ranks torchrun "
+                        "started; N > 1 runs under torchrun --nproc-per-node N)")
         sp.add_argument("--kv_quant", type=str, default="none",
                         choices=["none", "int4"])
         sp.add_argument("--weight_quant", type=str, default="none",
@@ -99,20 +106,46 @@ def device() -> str:
     return "cpu" if os.environ.get("KVZIP_PLATFORM") == "cpu" else "cuda"
 
 
+def make_mesh(tp: int):
+    """The mesh of ``--tp``: None for one rank; else the process group from
+    torchrun's environment (NCCL on the cards, one per rank; gloo under
+    KVZIP_PLATFORM=cpu) and ``make_mesh(tp=...)`` over it, with stdout
+    silenced on every rank but 0. A world size other than ``tp`` raises."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    tp = tp or world
+    if tp != world:
+        raise ValueError(
+            f"--tp {tp} runs one process a rank: start it with torchrun "
+            f"--nproc-per-node {tp} -m kvzip_tpu_torch.cli ... --tp {tp} "
+            f"(this environment has a world size of {world})")
+    if tp == 1:
+        return None
+    import sys
+
+    import torch
+    import torch.distributed as dist
+
+    from kvzip_tpu_torch.parallel import make_mesh as mesh_of
+
+    if not dist.is_initialized():
+        if device() == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl" if device() == "cuda" else "gloo")
+    if dist.get_rank() != 0:
+        sys.stdout = open(os.devnull, "w")
+    return mesh_of(tp=tp)
+
+
 def make_engine(args):
     import torch
 
     from kvzip_tpu_torch.engine import Engine
 
-    if args.tp > 1:
-        raise NotImplementedError(
-            f"--tp {args.tp}: tensor parallelism over several cards waits for "
-            "the port of parallel/ (ROADMAP.md queue 1 item 8); --tp 0 and 1 "
-            "run on one card")
     return Engine(args.model, kv_type=args.kv_type,
                   dtype=getattr(torch, args.dtype), device=device(),
                   kv_quant=getattr(args, "kv_quant", "none"),
-                  weight_quant=getattr(args, "weight_quant", "none"))
+                  weight_quant=getattr(args, "weight_quant", "none"),
+                  mesh=make_mesh(args.tp))
 
 
 def set_ratios(model_name: str, include_full: bool = False):

@@ -43,6 +43,16 @@ reference's XLA route) is torch ops on either device. Both devices
 build the pool (or the flat layout) at prune time, and both honour
 ``attn_quant`` (the reference ignores it on the CPU, where its kernels run
 in interpret mode).
+
+Under a ``mesh`` (``parallel/mesh.py``: a DeviceMesh over one process a
+rank, NCCL on the card, gloo on the CPU) each rank's engine holds its
+shard of the weights (``shard_params``) and caches over its kv heads;
+every rank runs the same calls, and the forward's collectives join them
+(``models/transformer.py``). The prune's global threshold is taken over
+every rank's heads; an evict prune builds each rank's pool over its heads
+(``parallel/pool_tp.py``) where the kv heads split evenly, else it
+compacts; ``seq_parallel`` prefills the largest "data"-divisible prefix
+through the ring (``parallel/ring_prefill.py``).
 """
 
 from __future__ import annotations
@@ -68,6 +78,11 @@ from kvzip_tpu_torch.config import ModelConfig, resolve_config
 from kvzip_tpu_torch.models.hybrid import forward_hybrid
 from kvzip_tpu_torch.models.params import prepare_params
 from kvzip_tpu_torch.models.transformer import forward
+from kvzip_tpu_torch.parallel.collectives import ScoreGroup
+from kvzip_tpu_torch.parallel.mesh import (axis_size, check_mesh, local_config, shard_of,
+                                           shard_params)
+from kvzip_tpu_torch.parallel.pool_tp import build_pool_tp
+from kvzip_tpu_torch.parallel.ring_prefill import reshard_to_cache, ring_prefill
 from kvzip_tpu_torch.pool import (PoolInt4KV, PoolKV, build_pool_int4_stepped,
                                   build_pool_stepped, refold_pool,
                                   synthetic_full_pool)
@@ -161,10 +176,13 @@ class CapturedStep:
     (``ops.COUNTS``), as the eager calls would have counted them; a replay
     that advances nothing counts none."""
 
-    def _capture(self, dev: torch.device, done: torch.Tensor) -> None:
+    def _capture(self, dev: torch.device, done: torch.Tensor, mesh=None) -> None:
         """A warm-up step that advances nothing (``done`` set) builds every
         kernel library and scratch buffer outside the capture; then the
-        capture (``capture_s`` seconds, both)."""
+        capture (``capture_s`` seconds, both). Under a ``mesh`` the warm-up
+        runs on the stream the graph then captures on, so the step's NCCL
+        collectives have met their communicators on it before the
+        capture."""
         self.graph = None
         self.steps_read = 0  # i at the last host read
         saved = ops.counts_snapshot()
@@ -178,7 +196,7 @@ class CapturedStep:
             torch.cuda.current_stream(dev).wait_stream(side)
             warm = ops.counts_snapshot()
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
+            with torch.cuda.graph(self.graph, stream=side if mesh is not None else None):
                 self.step()
             self.delta = ops.counts_since(warm)
             # the ticket buffers the graph replays, alive while it is
@@ -234,7 +252,7 @@ class DecodeStep(CapturedStep):
         self.i, self.done, self.tokens = self.buf[0:1], self.buf[1:2], self.buf[2:]
         self.budget = torch.zeros(1, dtype=torch.int64, device=dev)
         self.eos = torch.tensor(engine.eos_ids, dtype=torch.int64, device=dev)
-        self._capture(dev, self.done)
+        self._capture(dev, self.done, engine.mesh)
 
     def step(self) -> None:
         eng = self.engine
@@ -243,7 +261,7 @@ class DecodeStep(CapturedStep):
         res = _fwd_fn(self.cache)(eng.params, eng.config, ids, self.cache,
                                   collect_logits="last", attn_q8=self.q8,
                                   fuse_layer=eng.fuse_layer, attn_impl=self.impl,
-                                  advance=running.to(torch.int32).reshape(()))
+                                  advance=running.to(torch.int32).reshape(()), mesh=eng.mesh)
         nxt = torch.argmax(res.logits[-1]).reshape(1)
         at = self.i + 1
         self.tokens.index_copy_(0, at, torch.where(running, nxt, self.tokens.index_select(0, at)))
@@ -280,7 +298,8 @@ class Engine:
                  weight_quant: str = "none", embed_quant: str = "none",
                  act_fused: str = "xla", scoring_attend: str = "full",
                  flat_decode: str = "auto", attn_quant: str = "none",
-                 attn_impl: str = "auto", seed: int = 0):
+                 attn_impl: str = "auto", mesh=None, seq_parallel: bool = False,
+                 seed: int = 0):
         """``kv_type``: "evict" (the prune evicts rows) or "retain" (the
         prune stores a mask and keeps every row, so one prefill can be
         pruned again at other ratios). ``act_fused``: "xla" (the W8A8 norm,
@@ -295,7 +314,12 @@ class Engine:
         the int8 attention (K7/K11 ``q8``) on an int4 pool or flat cache.
         ``attn_impl``: a dense cache's attention, "auto" (:meth:`_impl`),
         "flash" (the kernels), "dense" or "blockwise" (the masked route).
-        A hybrid (gemma3) config is retain whatever ``kv_type`` says."""
+        A hybrid (gemma3) config is retain whatever ``kv_type`` says.
+        ``mesh``: a DeviceMesh from ``parallel.make_mesh`` (its "model"
+        group NCCL for a CUDA engine, gloo for a CPU one; no fallback);
+        the engine keeps this rank's shard of the weights.
+        ``seq_parallel``: prefill through the ring over the mesh's "data"
+        axis where it applies (:meth:`_ring_prefill`)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -345,6 +369,10 @@ class Engine:
         self.score_width = _round_up(score_chunk_size, 128)
         self.score_q_pad = self.score_width + 256
         self.kv_quant = kv_quant
+        self.mesh = mesh
+        self.seq_parallel = seq_parallel
+        if mesh is not None:
+            check_mesh(self.config, mesh, self.device)
         gen = None
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -352,6 +380,10 @@ class Engine:
             self.config, params, dtype=dtype, weight_quant=weight_quant,
             embed_quant=embed_quant, generator=gen, device=self.device,
             model_name=model_name)
+        # this rank's heads: its weights, and the shape of its caches
+        self.cache_config = local_config(self.config, mesh)
+        if mesh is not None:
+            self.params = shard_params(self.config, mesh, self.params)
         self.tokenizer = tokenizer or load_tokenizer(
             model_name, vocab_size=self.config.vocab_size)
         eos = template_lib.eos_ids(model_name, self.tokenizer)
@@ -391,6 +423,15 @@ class Engine:
         reference's ``_impl`` choice of "flash_q8")."""
         return self.attn_quant == "int8" and isinstance(state.cache, (PoolInt4KV, FlatInt4KV))
 
+    def _pool_tp_ok(self) -> bool:
+        """Per-rank pools (``parallel/pool_tp.py``) apply where the kv heads
+        split evenly over "model"; the legacy flat layout has no TP form
+        (the reference's rule)."""
+        if self.mesh is None:
+            return True
+        return (self.config.num_kv_heads % axis_size(self.mesh, "model") == 0
+                and self.flat_decode != "legacy")
+
     def _use_flat(self, state: KVState) -> bool:
         """Does an evict prune build a decode layout (the pool, or the flat
         layout with ``flat_decode="legacy"``)? The reference's rule without
@@ -400,6 +441,8 @@ class Engine:
         if self.flat_decode == "off":
             return False
         if self.kv_quant == "int4" and self.config.head_dim != 128:
+            return False
+        if not self._pool_tp_ok():
             return False
         if self.flat_decode in ("on", "legacy"):
             return True
@@ -450,7 +493,7 @@ class Engine:
             res = _fwd_fn(state.cache)(self.params, self.config, self._ids(chunk),
                                        state.cache, collect_logits=want, sink=state.sink,
                                        attn_q8=q8, fuse_layer=self.fuse_layer,
-                                       attn_impl=impl)
+                                       attn_impl=impl, mesh=self.mesh)
             if res.logits is not None:
                 parts.append(res.logits)
         if collect == "all":
@@ -474,10 +517,10 @@ class Engine:
         else:
             init = init_int4_cache if self.kv_quant == "int4" else init_cache
         state = KVState(
-            cache=init(self.config, capacity, self.dtype, self.device),
+            cache=init(self.cache_config, capacity, self.dtype, self.device),
             kv_type=self.kv_type, sink=sink, ctx_len=int(len(ctx_ids)),
             prefill_len=prefill_len, prefill_ids=prefill_ids, ctx_ids=ctx_ids)
-        pos = 0
+        pos = self._ring_prefill(state, prefill_ids)
         while pos < prefill_len:
             n = min(prefill_chunk_size, prefill_len - pos)
             if n < prefill_chunk_size and n % 256 and not self.config.is_hybrid:
@@ -500,6 +543,33 @@ class Engine:
             self.scoring(state, ctx_ids, load_score=load_score,
                          head_score_dirs=head_score_dirs)
         return state
+
+    def _ring_prefill(self, state: KVState, prefill_ids: np.ndarray) -> int:
+        """Sequence-parallel prefill over the mesh's "data" axis (with
+        ``seq_parallel``): the largest "data"-divisible prefix goes through
+        the ring (``parallel/ring_prefill.py``) and lands in the rank's
+        head-sharded cache (``reshard_to_cache``); the remainder, scoring,
+        prune and decode take the normal path. Returns the tokens it
+        prefilled: 0 where the ring does not apply (the reference's
+        conditions: a "data" axis of at least 2, a dense bf16 cache,
+        unfused weights)."""
+        n = axis_size(self.mesh, "data") if self.mesh is not None else 1
+        if (not self.seq_parallel or n < 2 or type(state.cache) is not KVCache
+                or "wq" not in self.params["layers"]):
+            return 0
+        t_ring = (len(prefill_ids) // n) * n
+        if t_ring < n:
+            return 0
+        k, v = ring_prefill(self.params, self.config, prefill_ids[:t_ring].astype(np.int64),
+                            self.mesh)
+        reshard_to_cache(k, v, self.mesh, state.cache)
+        return t_ring
+
+    def _score_group(self):
+        """The prune's reductions over the ranks' heads under a mesh."""
+        if self.mesh is None:
+            return None
+        return ScoreGroup(self.mesh, shard_of(self.config, self.mesh))
 
     # --------------------------------------------------------------- scoring
     def self_task(self, ctx_ids: np.ndarray, chunk_size: int = 2000,
@@ -527,13 +597,16 @@ class Engine:
         in ``state.score`` as (L, Hkv, ctx_len)."""
         cfg = self.config
         if load_score:
-            state.score = prune_lib.load_head_score(
-                self.name, state.ctx_len, head_score_dirs).to(self.device)
+            score = prune_lib.load_head_score(self.name, state.ctx_len, head_score_dirs)
+            if self.mesh is not None:  # this rank's kv heads
+                sh = shard_of(cfg, self.mesh)
+                score = score[:, sh.kv0:sh.kv0 + sh.Hkv]
+            state.score = score.to(self.device)
             return
         # one window of slack: chunks advance by score_chunk_size but each
         # write is score_width wide
         score = torch.zeros(
-            (cfg.num_layers, cfg.num_kv_heads,
+            (cfg.num_layers, self.cache_config.num_kv_heads,
              _round_up(max(state.ctx_len, 1), self.score_width) + self.score_width),
             dtype=torch.float32, device=self.device)
         start = state.sink
@@ -550,7 +623,7 @@ class Engine:
                 self.params, cfg, self._ids(rep_padded), state.cache, scoring=True,
                 score_start=start, score_len=len(a_ids), score_qlen=n_q,
                 score_width=self.score_width, sink=state.sink,
-                scoring_attend=self.scoring_attend, attn_impl=impl)
+                scoring_attend=self.scoring_attend, attn_impl=impl, mesh=self.mesh)
             o = start - state.sink
             score[:, :, o:o + len(a_ids)] = res.chunk_scores[:, :, :len(a_ids)].float()
             start += len(a_ids)
@@ -581,7 +654,8 @@ class Engine:
             raise RuntimeError("run scoring() first")
         static_layers = self.config.static_layer_ids if self.config.is_hybrid else None
         keep, thres, true_ratio = prune_lib.prune_mask(
-            state.score, ratio, level, static_layers, method="histogram")
+            state.score, ratio, level, static_layers, method="histogram",
+            group=self._score_group())
         state._steps.clear()
         if isinstance(state.cache, HybridKV):
             # the hybrid's valid covers its static layers only; the sliding
@@ -599,9 +673,16 @@ class Engine:
             state.score = None
             dense = state.cache
             if not self._use_flat(state):
-                kept = int(keep.sum(dim=-1).max()) + state.sink
+                kept = keep.sum(dim=-1).max()
+                if self.mesh is not None:  # every rank's cache the same capacity
+                    kept = self._score_group().max(kept)
+                kept = int(kept) + state.sink
                 state.cache = compact(dense, keep, state.sink, _round_up(
                     kept + self.decode_budget, self.capacity_granularity))
+            elif self.mesh is not None:
+                # each rank's pool over its kv heads (parallel/pool_tp.py)
+                state.cache = build_pool_tp(dense, keep, state.sink, self.decode_budget,
+                                            self.dtype, mesh=self.mesh)
             elif self.flat_decode == "legacy":
                 # the reference's round-3 layout: every layer padded to the
                 # largest one's kept rows (sink included)
@@ -632,7 +713,7 @@ class Engine:
         its dense cache are left intact."""
         if isinstance(state.cache, (*DECODE_CACHES, HybridKV)):
             raise RuntimeError("the flat layout is built from a dense cache")
-        L, H = self.config.num_layers, self.config.num_kv_heads
+        L, H = self.config.num_layers, self.cache_config.num_kv_heads
         keep = torch.ones((L, H, state.ctx_len), dtype=torch.bool, device=self.device)
         r_pad = _round_flat_rows(H * (state.ctx_len + state.sink))
         if isinstance(state.cache, Int4KVCache):
@@ -650,7 +731,7 @@ class Engine:
         live rows ``flatten_full(state)`` would give, every layer padded to
         their r_pad bucket: the full-cache decode baseline once the dense
         cache is gone."""
-        cfg = self.config
+        cfg = self.cache_config
         per_head = state.ctx_len + state.sink
         cache = synthetic_full_flat(
             cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, per_head,
@@ -667,7 +748,7 @@ class Engine:
         through the same kernel (K3 or K7) as the evicted cache. The
         arguments are in the reference's order (``bench.py`` passes them
         positionally)."""
-        cfg = self.config
+        cfg = self.cache_config
         cache = synthetic_full_pool(
             cfg.num_layers, cfg.num_kv_heads, cfg.head_dim,
             state.ctx_len + state.sink, tail_cap, self.dtype, self.device,
@@ -686,6 +767,10 @@ class Engine:
         cache = state.cache
         if not isinstance(cache, (PoolKV, PoolInt4KV)):
             raise ValueError("save_state saves a pool cache (after an evict prune)")
+        if cache.tp:
+            raise ValueError(
+                "save_state persists single-device pools; a TP pool's "
+                "geometry is mesh-specific — prune without a mesh to save")
         arrays, dtypes = {}, {}
         for name in [f.name for f in dataclasses.fields(cache)] + ["tail_lens"]:
             v = getattr(cache, name)
@@ -764,6 +849,11 @@ class Engine:
             return False
         if cur + need <= cache.k_tail.shape[2]:
             return False
+        if getattr(cache, "tp", 0):
+            raise NotImplementedError(
+                "tail refold of a tensor-parallel pool is not "
+                "implemented; raise decode_budget so committed turns "
+                "fit the tail, or serve this context single-device")
         state._steps.clear()
         if isinstance(cache, (FlatKV, FlatInt4KV)):
             rows = int((cache.lengths + cur).sum(dim=-1).max())
@@ -860,7 +950,7 @@ class Engine:
             res = _fwd_fn(state.cache)(self.params, self.config, self._ids(tokens[-1:]),
                                        state.cache, collect_logits="last", sink=state.sink,
                                        attn_q8=q8, fuse_layer=self.fuse_layer,
-                                       attn_impl=impl)
+                                       attn_impl=impl, mesh=self.mesh)
             tokens.append(int(torch.argmax(res.logits[-1])))
             done = tokens[-1] in self.eos_ids
         return tokens[:-1] if done else tokens

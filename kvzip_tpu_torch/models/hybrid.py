@@ -24,6 +24,9 @@ none in the reference: pass the unfused v1 tree with
 ``weight_quant="none"``. Nothing reads the device back: the ring slots
 come from the device ``seen``, so a decode step over the hybrid cache can
 be captured as a CUDA graph. Retain path only, as in the reference.
+Under a ``mesh`` the static stacks and the rings hold the rank's kv heads
+and the layer runs on its heads with ``forward``'s collectives
+(``models/transformer.py``).
 """
 
 from __future__ import annotations
@@ -35,10 +38,13 @@ import torch
 from kvzip_tpu_torch.cache import HybridKV, append_layer, ring_append
 from kvzip_tpu_torch.config import ModelConfig
 from kvzip_tpu_torch.models.rope import apply_rope, rope_cos_sin
-from kvzip_tpu_torch.models.transformer import (ForwardResult, _act, _lin, _lin_shared, embed,
-                                                final_logits, post_norm, qk_norm, rms_norm)
+from kvzip_tpu_torch.models.transformer import (ForwardResult, _act, _down, _lin_rows,
+                                                _lin_shared, _local_heads, embed, final_logits, post_norm,
+                                                qk_norm, rms_norm)
 from kvzip_tpu_torch.ops.attention import (attend_blockwise, attend_dense, attend_ring,
                                            reconstruction_scores)
+from kvzip_tpu_torch.parallel import collectives as tpc
+from kvzip_tpu_torch.parallel.mesh import shard_of
 
 
 def check_hybrid_params(layers: dict) -> None:
@@ -70,14 +76,14 @@ def forward_hybrid(params, cfg: ModelConfig, ids: torch.Tensor, cache: HybridKV,
                    score_start: int = 0, score_len: int = 0, score_qlen: int = 0,
                    score_width: int = 0, sink: int = 0, scoring_attend: str = "full",
                    attn_q8: bool = False, fuse_layer: str = "off", attn_impl: str = "dense",
-                   advance: Optional[torch.Tensor] = None) -> ForwardResult:
+                   advance: Optional[torch.Tensor] = None, mesh=None) -> ForwardResult:
     """Run ids (T,) through a hybrid config over ``cache`` in place, with
     ``forward``'s arguments and result. ``attn_impl``: the static layers'
     masked route, "dense" or "blockwise" (the capacity picks above 4,096
     rows unless "dense"); ``attn_q8`` and ``fuse_layer`` have no effect
     (no pool and no fused layer here), and the scoring is always the exact
     pass. ``advance``: as ``forward``'s; a ring row past ``seen +
-    advance`` is not written."""
+    advance`` is not written. ``mesh``: as ``forward``'s."""
     if attn_impl not in ("dense", "blockwise"):
         raise ValueError(f"the hybrid forward runs the masked route, not {attn_impl!r}")
     if scoring_attend != "full":
@@ -86,6 +92,10 @@ def forward_hybrid(params, cfg: ModelConfig, ids: torch.Tensor, cache: HybridKV,
     check_hybrid_params(lp_all)
     T = ids.shape[0]
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    sh = None
+    if mesh is not None:
+        sh = shard_of(cfg, mesh)
+        H, Hkv = sh.H, sh.Hkv
     scale = cfg.query_scale if cfg.query_scale is not None else Dh ** -0.5
     eps, gemma = cfg.rms_norm_eps, cfg.gemma_style_norm
     emb = params["embed"]
@@ -93,7 +103,7 @@ def forward_hybrid(params, cfg: ModelConfig, ids: torch.Tensor, cache: HybridKV,
     window = int(cfg.sliding_window)
     dense = cache.capacity <= 4096 or attn_impl == "dense"
 
-    x = embed(params, cfg, ids)
+    x = embed(params, cfg, ids, mesh)
     positions = cache.seen + torch.arange(T, device=ids.device)
     rope_g = rope_cos_sin(cfg.rope, Dh, positions)
     rope_l = rope_g if cfg.rope_local is None else rope_cos_sin(cfg.rope_local, Dh, positions)
@@ -105,6 +115,8 @@ def forward_hybrid(params, cfg: ModelConfig, ids: torch.Tensor, cache: HybridKV,
         q, k, v = _lin_shared(rms_norm(x, lp["ln_attn"], eps, gemma),
                               (lp["wq"], lp["wk"], lp["wv"]),
                               (lp.get("bq"), lp.get("bk"), lp.get("bv")))
+        if isinstance(lp["wq"], dict) and "q4" in lp["wq"]:
+            q, k, v = _local_heads(q, k, v, sh, Dh)  # a replicated W4A8 weight
         q, k = qk_norm(cfg, lp, q.reshape(T, H, Dh), k.reshape(T, Hkv, Dh))
         cos, sin = rope_g if static else rope_l
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
@@ -125,11 +137,11 @@ def forward_hybrid(params, cfg: ModelConfig, ids: torch.Tensor, cache: HybridKV,
             ring_append(*ring, seen, k, v, advance)
             if scoring:
                 scores.append(torch.zeros((Hkv, score_width), dtype=dtype, device=x.device))
-        o = _lin(attn.reshape(T, H * Dh), lp["wo"])
+        o = _lin_rows(attn.reshape(T, H * Dh), lp["wo"], mesh)
         x = x + post_norm(cfg, lp, "ln_post_attn", o)
         gate, up = _lin_shared(rms_norm(x, lp["ln_mlp"], eps, gemma),
                                (lp["w_gate"], lp["w_up"]), (None, None))
-        mlp = _lin(_act(gate, cfg.hidden_act) * up, lp["w_down"])
+        mlp = _down(_act(gate, cfg.hidden_act) * up, lp["w_down"], mesh)
         x = x + post_norm(cfg, lp, "ln_post_mlp", mlp)
 
     step = T if advance is None else advance
@@ -138,5 +150,8 @@ def forward_hybrid(params, cfg: ModelConfig, ids: torch.Tensor, cache: HybridKV,
 
     logits = None
     if collect_logits != "none":
-        logits = final_logits(params, cfg, x if collect_logits == "all" else x[-1:])
-    return ForwardResult(logits, torch.stack(scores) if scoring else None)
+        logits = final_logits(params, cfg, x if collect_logits == "all" else x[-1:], mesh)
+    chunk_scores = torch.stack(scores) if scoring else None
+    if scoring and sh is not None:
+        chunk_scores = tpc.merge_replica_scores(chunk_scores, sh, mesh)
+    return ForwardResult(logits, chunk_scores)

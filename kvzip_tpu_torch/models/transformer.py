@@ -59,7 +59,19 @@ Dispatch, as in the reference:
   quantization run as K13 (``rmsnorm_quant``) and act(gate) * up with the
   down projection's quantization as K14 (``silu_mul_quant``), gemma3's
   ``(1 + w)`` norm and gelu in their gemma and gelu modes. The int8
-  products go to ``int8_matmul`` (``torch._int_mm`` on the card).
+  products go to ``int8_matmul`` (``torch._int_mm`` on the card);
+- ``mesh`` (a ``DeviceMesh``, ``parallel/mesh.py``): the rank's shard of a
+  head-sharded tensor-parallel forward. The params are the rank's part
+  (``shard_params``) and the cache holds its kv heads; the layer runs on
+  its ``H/tp`` query and ``Hkv/tp`` kv heads through the same kernels,
+  with the collectives of ``parallel/collectives.py`` on the "model"
+  group: one all-reduce after ``wo`` and one after ``w_down``, the
+  vocabulary-split embedding and head, W8A8's row-wide activation scales
+  (K14 over the gathered row); a replicated W4A8 tree computes the whole
+  q/k/v and keeps the rank's heads, then gathers the attention output
+  before the replicated ``wo``; a rank's pool is an ordinary pool
+  (``parallel/pool_tp.py``), so K3/K7 run on its local heads. The fused
+  layer (K12) does not run under a mesh, as in the reference.
 """
 
 from __future__ import annotations
@@ -89,6 +101,8 @@ from kvzip_tpu_torch.ops.w4a8 import w4a8_linear, w4a8_linear_stacked
 from kvzip_tpu_torch.ops.w4a8_fused import MAX_T as FUSED_MAX_T
 from kvzip_tpu_torch.ops.w4a8_fused import w4a8_layer_fused
 from kvzip_tpu_torch.ops.windowed_attend import windowed_attend, windowed_attend_plain
+from kvzip_tpu_torch.parallel import collectives as tpc
+from kvzip_tpu_torch.parallel.mesh import shard_of
 from kvzip_tpu_torch.pool import PoolInt4KV, PoolKV
 
 
@@ -107,10 +121,14 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float,
     return (xf * torch.rsqrt(var + eps) * (1.0 + wf if gemma else wf)).to(x.dtype)
 
 
-def embed(params, cfg: ModelConfig, ids: torch.Tensor) -> torch.Tensor:
+def embed(params, cfg: ModelConfig, ids: torch.Tensor, mesh=None) -> torch.Tensor:
     """The tokens' embedding rows; gemma3 scales them by sqrt(hidden),
-    rounded to the model dtype first, the product in that dtype."""
-    x = embed_lookup(params["embed"], ids)
+    rounded to the model dtype first, the product in that dtype. Under a
+    mesh the table is split over the vocabulary (``collectives.embed``)."""
+    if mesh is None:
+        x = embed_lookup(params["embed"], ids)
+    else:
+        x = tpc.embed(params["embed"], ids, cfg, mesh)
     if cfg.gemma_style_norm:
         x = x * float(torch.tensor(cfg.hidden_size ** 0.5, dtype=x.dtype))
     return x
@@ -134,9 +152,14 @@ def post_norm(cfg: ModelConfig, lp: dict, name: str, y: torch.Tensor) -> torch.T
     return rms_norm(y, lp[name], cfg.rms_norm_eps, cfg.gemma_style_norm)
 
 
-def final_logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def final_logits(params, cfg: ModelConfig, x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Logits over the whole vocabulary (under a mesh the split head's
+    local columns gathered over "model", ``collectives.logits``)."""
     xf = rms_norm(x, params["final_norm"], cfg.rms_norm_eps, cfg.gemma_style_norm)
-    return head_logits(params.get("lm_head", params["embed"]), xf)
+    head = params.get("lm_head", params["embed"])
+    if mesh is None:
+        return head_logits(head, xf)
+    return tpc.logits(head, xf, cfg, mesh)
 
 
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -182,6 +205,38 @@ def _is_w4(w) -> bool:
     return isinstance(w, dict) and "q4" in w
 
 
+def _local_heads(q, k, v, sh, Dh: int) -> tuple:
+    """q/k/v (T, heads * Dh) of a replicated (W4A8) weight, bias added, cut
+    to the rank's query and kv heads; as given without a shard."""
+    if sh is None:
+        return q, k, v
+    kv = slice(sh.kv0 * Dh, (sh.kv0 + sh.Hkv) * Dh)
+    return q[:, sh.h0 * Dh:(sh.h0 + sh.H) * Dh], k[:, kv], v[:, kv]
+
+
+def _lin_rows(x: torch.Tensor, w, mesh) -> torch.Tensor:
+    """A row-parallel linear (``wo``, ``w_down``): under a mesh x holds the
+    rank's slice of the input row, the ranks' partial products are summed
+    over "model", and a W8A8 row is quantized with the whole row's scale;
+    a replicated (W4A8) weight takes the gathered row instead."""
+    if mesh is None:
+        return _lin(x, w)
+    if _is_w4(w):
+        return _lin(tpc.all_gather(x, mesh, dim=-1), w)
+    if is_w8(w):
+        xq, xs = tpc.quantize_act_int8(x, mesh)
+        y = int8_matmul(xq, xs, w["q"], w["s"], None, x.dtype)
+    else:
+        y = x @ w
+    return tpc.all_reduce(y, mesh)
+
+
+def _down(h: torch.Tensor, w, mesh) -> torch.Tensor:
+    """The MLP's down projection: row-parallel under a mesh, except a
+    replicated (W4A8) MLP's, whose gate and up gave the whole row."""
+    return _lin(h, w) if _is_w4(w) else _lin_rows(h, w, mesh)
+
+
 def _quantize_rows(k: torch.Tensor, v: torch.Tensor) -> tuple:
     """The chunk's K/V rows (T, Hkv, D) in the int4 cache's form: (k_q,
     v_q, k_s, k_z, v_s, v_z), packed (T, Hkv, D//2), scales (T, Hkv)."""
@@ -211,7 +266,7 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
             score_width: int = 0, sink: int = 0,
             scoring_attend: str = "full", attn_q8: bool = False,
             fuse_layer: str = "off", attn_impl: str = "flash",
-            advance: Optional[torch.Tensor] = None) -> ForwardResult:
+            advance: Optional[torch.Tensor] = None, mesh=None) -> ForwardResult:
     """Run ids (T,) through the model, appending their KV to ``cache`` in
     place (``lengths``/``seen``, or ``tail_lens``/``seen`` for a pool or a
     flat cache). Nothing here reads the device back, so a decode step can
@@ -234,10 +289,15 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
     ``advance``: a 0-dim int32 tensor the counters advance by
     instead of T (the engine's decode step gives 0 once its answer has
     ended: its rows then land past the live tail, where nothing reads
-    them).
+    them). ``mesh``: the rank's shard of a tensor-parallel forward (the
+    module docstring); ``cfg`` is the whole model's config.
     """
     T = ids.shape[0]
     L, H, Hkv, Dh = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    sh = None
+    if mesh is not None:
+        sh = shard_of(cfg, mesh)
+        H, Hkv = sh.H, sh.Hkv
     scale = cfg.query_scale if cfg.query_scale is not None else Dh ** -0.5
     is_flat = isinstance(cache, (FlatKV, FlatInt4KV))
     is_pool = isinstance(cache, (PoolKV, PoolInt4KV))
@@ -260,7 +320,7 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
     emb = params["embed"]
     dtype = emb["s"].dtype if isinstance(emb, dict) else emb.dtype
 
-    x = embed(params, cfg, ids)
+    x = embed(params, cfg, ids, mesh)
     positions = cache.seen + torch.arange(T, device=ids.device)
     if is_pool or is_flat:
         # this step's tail rows, formed on the device
@@ -278,7 +338,8 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
              and T <= FUSED_MAX_T and (ids.is_cuda or fuse_layer == "on")
              and all(n in w4 and "s2" in w4[n]
                      for n in ("wqkv", "wo", "w_gateup", "w_down"))
-             and not cfg.post_norms and not gemma and cfg.rope_local is None)
+             and not cfg.post_norms and not gemma and cfg.rope_local is None
+             and mesh is None)
     if fused:
         qkv = w4a8_linear_stacked(rms_norm(x, lp_all["ln_attn"][0], eps), w4["wqkv"], 0)
     for l in range(L):
@@ -288,14 +349,16 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
             if not fused:
                 h = rms_norm(x, lp["ln_attn"], eps, gemma)
                 qkv = w4a8_linear_stacked(h, w4["wqkv"], l)
-            nq, nk = H * Dh, Hkv * Dh
+            nq, nk = cfg.num_heads * Dh, cfg.num_kv_heads * Dh
             q, k, v = qkv[:, :nq], qkv[:, nq:nq + nk], qkv[:, nq + nk:]
             if "bq" in lp:
                 q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+            q, k, v = _local_heads(q, k, v, sh, Dh)
         elif "wq" in w4:
             h = rms_norm(x, lp["ln_attn"], eps, gemma)
-            q, k, v = (w4a8_linear_stacked(h, w4[n], l, lp.get(b))
-                       for n, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
+            q, k, v = _local_heads(*(w4a8_linear_stacked(h, w4[n], l, lp.get(b))
+                                     for n, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv"))),
+                                   sh, Dh)
         else:
             q, k, v = _norm_lin_shared(
                 x, lp["ln_attn"], eps, gemma, (lp["wq"], lp["wk"], lp["wv"]),
@@ -402,9 +465,10 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
                                       qkv_layer=min(l + 1, L - 1))
             continue
         if "wo" in w4:
-            o = w4a8_linear_stacked(attn, w4["wo"], l)
+            o = w4a8_linear_stacked(attn if mesh is None else tpc.all_gather(attn, mesh, dim=-1),
+                                    w4["wo"], l)
         else:
-            o = _lin(attn, lp["wo"])
+            o = _lin_rows(attn, lp["wo"], mesh)
         x = x + post_norm(cfg, lp, "ln_post_attn", o)
         if "w_gateup" in w4:
             h2 = rms_norm(x, lp["ln_mlp"], eps, gemma)
@@ -420,11 +484,16 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
             mlp = w4a8_linear_stacked(_act(gate, cfg.hidden_act) * up, w4["w_down"], l)
         elif cfg.fused_act and is_w8(lp["w_down"]):
             # act(gate) * up and its quantization as one K14 pass, feeding
-            # the int8 down projection
-            hq, hs = silu_mul_quant(gate, up, act=cfg.hidden_act)
+            # the int8 down projection (under a mesh over the gathered row)
+            if mesh is None:
+                hq, hs = silu_mul_quant(gate, up, act=cfg.hidden_act)
+            else:
+                hq, hs = tpc.silu_mul_quant(gate, up, cfg.hidden_act, sh, mesh)
             mlp = int8_matmul(hq, hs, lp["w_down"]["q"], lp["w_down"]["s"], None, x.dtype)
+            if mesh is not None:
+                tpc.all_reduce(mlp, mesh)
         else:
-            mlp = _lin(_act(gate, cfg.hidden_act) * up, lp["w_down"])
+            mlp = _down(_act(gate, cfg.hidden_act) * up, lp["w_down"], mesh)
         x = x + post_norm(cfg, lp, "ln_post_mlp", mlp)
 
     step = T if advance is None else advance
@@ -438,5 +507,8 @@ def forward(params, cfg: ModelConfig, ids: torch.Tensor, cache, *,
 
     logits = None
     if collect_logits != "none":
-        logits = final_logits(params, cfg, x if collect_logits == "all" else x[-1:])
-    return ForwardResult(logits, torch.stack(scores) if scoring else None)
+        logits = final_logits(params, cfg, x if collect_logits == "all" else x[-1:], mesh)
+    chunk_scores = torch.stack(scores) if scoring else None
+    if scoring and sh is not None:
+        chunk_scores = tpc.merge_replica_scores(chunk_scores, sh, mesh)
+    return ForwardResult(logits, chunk_scores)

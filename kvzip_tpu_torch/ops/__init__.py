@@ -15,7 +15,9 @@ there), so each count stays what the eager calls would have made. Decode
 counts are therefore per advanced step, not raw launches: a replay that
 advances nothing (the capture's warm-up, the rest of a chunk after the
 answer ends, replays made only to time the step) launches every captured
-kernel and counts none.
+kernel and counts none. ``COLLECTIVES`` counts the sharded forward's
+collectives the same way (``parallel/collectives.py``: "all_reduce model",
+"all_gather model", ...).
 """
 
 from __future__ import annotations
@@ -34,7 +36,9 @@ LAUNCHES = {"flash_attend": 0, "fused_scores": 0, "ragged_decode_attend": 0,
             "w4a8_layer_fused": 0, "w4a8_matmul_stacked": 0, "w4a8_matmul": 0}
 
 
-COUNTS = [LAUNCHES]  # every dict of int counts a replay adds to
+COLLECTIVES = {}  # the sharded forward's collectives by name and mesh axis
+
+COUNTS = [LAUNCHES, COLLECTIVES]  # every dict of int counts a replay adds to
 
 
 def reset_launches() -> None:

@@ -46,6 +46,10 @@ class PoolKV:
     seen: torch.Tensor        # () int32 (an int given)
     align: int
     max_rows: int             # max over layers of round_up(live, align)
+    # a tensor-parallel rank's pool over its local kv heads
+    # (parallel/pool_tp.py): the model axis, 0 on one device, and the mesh
+    tp: int = 0
+    mesh: object = dataclasses.field(default=None, repr=False, compare=False)
 
     def __post_init__(self):
         device_counters(self, self.k_tail.shape[1])  # tail_lens (Hkv,) int32
@@ -80,6 +84,8 @@ class PoolInt4KV:
     seen: torch.Tensor        # () int32 (an int given)
     align: int
     max_rows: int
+    tp: int = 0               # see PoolKV
+    mesh: object = dataclasses.field(default=None, repr=False, compare=False)
 
     def __post_init__(self):
         device_counters(self, self.k_tail.shape[1])  # tail_lens (Hkv,) int32

@@ -42,6 +42,16 @@ stack and the same captured step; their attention is the masked route
 ``blockwise``), each query row appended at its own heads' lengths. Dense
 int4 states have no batch path, as in the reference. Nothing falls back
 to B single generates.
+
+On an engine with a ``mesh`` the merged stack runs on the rank's heads
+with the forward's collectives, and :func:`batched_generate_ids` splits a
+batch that the batch axes (``parallel.mesh.batch_axes``: "data", and
+"replica" where the mesh has one) divide: each batch shard merges its
+share of the states (``_merge_dense`` or ``_merge_flat`` over its local
+heads) and decodes it with one captured step, and the answers are
+gathered so that every rank returns the whole list (a batch they do not
+divide is decoded whole on every shard). Pool states on a mesh raise, as
+the reference's stacking does; the merged pool stays single-device.
 """
 
 from __future__ import annotations
@@ -51,16 +61,20 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from kvzip_tpu_torch.cache import FLAT_INT4_FIELDS, FlatInt4KV, FlatKV, KVCache, append_layer
 from kvzip_tpu_torch.engine import DECODE_CHUNK, CapturedStep, Engine, KVState, _round_up
 from kvzip_tpu_torch.models.rope import apply_rope, rope_cos_sin
-from kvzip_tpu_torch.models.transformer import (_act, _is_w4, _lin, _lin_shared, embed,
-                                                final_logits, post_norm, qk_norm, rms_norm)
+from kvzip_tpu_torch.models.transformer import (_act, _down, _is_w4, _lin_rows, _lin_shared,
+                                                _local_heads, embed, final_logits, post_norm,
+                                                qk_norm, rms_norm)
 from kvzip_tpu_torch.ops.attention import attend_blockwise
 from kvzip_tpu_torch.ops.flat_decode import flat_decode_attend, flat_decode_attend_int4
 from kvzip_tpu_torch.ops.pool_decode import pool_decode_attend, pool_decode_attend_int4
 from kvzip_tpu_torch.ops.w4a8 import w4a8_linear_stacked
+from kvzip_tpu_torch.parallel import collectives as tpc
+from kvzip_tpu_torch.parallel.mesh import batch_shard, shard_of
 from kvzip_tpu_torch.pool import _INT4_FIELDS as POOL_INT4_FIELDS
 from kvzip_tpu_torch.pool import PoolInt4KV, PoolKV, plan_offsets
 
@@ -181,6 +195,10 @@ def _merge_pool(caches: Sequence):
     largest aligned segment. K, V (row-major here, where the reference
     gathers its transposed K by columns), scales and zeros are gathered by
     rows on the device from one host plan."""
+    if any(c.tp for c in caches):
+        raise NotImplementedError(
+            "merged-pool batching of tensor-parallel pools is not "
+            "implemented; serve TP contexts unbatched")
     _check_mergeable(caches)
     dev = caches[0].row_head.device
     Hkv = caches[0].k_tail.shape[1]
@@ -234,10 +252,15 @@ def _stack_forward(engine: Engine, m, toks: torch.Tensor, q8: bool) -> torch.Ten
     appended at its heads' ``tail_lens`` (a dense cache: ``lengths``; the
     counters are not advanced here), query rows given to the attention as
     (T, B·H, D) sequence-major. Returns the final hidden states (B, T, Dm).
-    Reads nothing back."""
-    cfg, params = engine.config, engine.params
+    Reads nothing back. Under the engine's mesh, the rank's heads with the
+    forward's collectives."""
+    cfg, params, mesh = engine.config, engine.params, engine.mesh
     B, T = toks.shape
     L, H, Hkv, Dh = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    sh = None
+    if mesh is not None:
+        sh = shard_of(cfg, mesh)
+        H, Hkv = sh.H, sh.Hkv
     scale = cfg.query_scale if cfg.query_scale is not None else Dh ** -0.5
     eps = cfg.rms_norm_eps
     lp_all = params["layers"]
@@ -248,7 +271,7 @@ def _stack_forward(engine: Engine, m, toks: torch.Tensor, q8: bool) -> torch.Ten
             "does: its scanned layers leave the unfused v1 stacks out, so lp['wq'] has no "
             "path (kvzip_tpu/serving.py stack_fwd); fuse the tree first (fuse_w4a8_params)")
     gemma = cfg.gemma_style_norm
-    x = embed(params, cfg, toks.reshape(B * T))
+    x = embed(params, cfg, toks.reshape(B * T), mesh)
     pos = (m.seen[:, None] + torch.arange(T, device=toks.device)).reshape(B * T)
     cos, sin = rope_cos_sin(cfg.rope, Dh, pos)
     for l in range(L):
@@ -257,10 +280,11 @@ def _stack_forward(engine: Engine, m, toks: torch.Tensor, q8: bool) -> torch.Ten
         h = rms_norm(x, lp["ln_attn"], eps, gemma)
         if "wqkv" in w4:
             qkv = w4a8_linear_stacked(h, w4["wqkv"], l)
-            nq, nk = H * Dh, Hkv * Dh
+            nq, nk = cfg.num_heads * Dh, cfg.num_kv_heads * Dh
             q, k, v = qkv[:, :nq], qkv[:, nq:nq + nk], qkv[:, nq + nk:]
             if "bq" in lp:
                 q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+            q, k, v = _local_heads(q, k, v, sh, Dh)
         else:
             q, k, v = _lin_shared(h, (lp["wq"], lp["wk"], lp["wv"]),
                                   (lp.get("bq"), lp.get("bk"), lp.get("bv")))
@@ -276,7 +300,11 @@ def _stack_forward(engine: Engine, m, toks: torch.Tensor, q8: bool) -> torch.Ten
         q2 = q.reshape(B, T, H, Dh).transpose(0, 1).reshape(T, B * H, Dh)
         attn = _attend(m, q2, l, scale, q8, B)
         attn = attn.reshape(T, B, H, Dh).transpose(0, 1).reshape(B * T, H * Dh)
-        o = w4a8_linear_stacked(attn, w4["wo"], l) if "wo" in w4 else _lin(attn, lp["wo"])
+        if "wo" in w4:
+            o = w4a8_linear_stacked(attn if mesh is None else tpc.all_gather(attn, mesh, dim=-1),
+                                    w4["wo"], l)
+        else:
+            o = _lin_rows(attn, lp["wo"], mesh)
         x = x + post_norm(cfg, lp, "ln_post_attn", o)
         h2 = rms_norm(x, lp["ln_mlp"], eps, gemma)
         if "w_gateup" in w4:
@@ -285,13 +313,13 @@ def _stack_forward(engine: Engine, m, toks: torch.Tensor, q8: bool) -> torch.Ten
             gate, up = _lin_shared(h2, (lp["w_gate"], lp["w_up"]), (None, None))
         hidden = _act(gate, cfg.hidden_act) * up
         mlp = (w4a8_linear_stacked(hidden, w4["w_down"], l) if "w_down" in w4
-               else _lin(hidden, lp["w_down"]))
+               else _down(hidden, lp["w_down"], mesh))
         x = x + post_norm(cfg, lp, "ln_post_mlp", mlp)
     return x.reshape(B, T, -1)
 
 
 def _logits(engine: Engine, x: torch.Tensor) -> torch.Tensor:
-    return final_logits(engine.params, engine.config, x)
+    return final_logits(engine.params, engine.config, x, engine.mesh)
 
 
 def _padded(engine: Engine, seqs: Sequence[np.ndarray]):
@@ -327,7 +355,7 @@ class MergedDecodeStep(CapturedStep):
         self.budget = torch.zeros(1, dtype=torch.int64, device=dev)
         self.stop = torch.zeros(1, dtype=torch.bool, device=dev)
         self.eos = torch.tensor(engine.eos_ids, dtype=torch.int64, device=dev)
-        self._capture(dev, self.done)
+        self._capture(dev, self.done, engine.mesh)
 
     def step(self) -> None:
         m, B = self.m, self.B
@@ -558,9 +586,38 @@ def batched_generate_ids(engine: Engine, queries: Sequence, states: Sequence[KVS
     if len(queries) != len(states):
         raise ValueError(f"{len(queries)} queries for {len(states)} states")
     max_new = max_new_tokens or engine.max_new_tokens
+    if engine.mesh is not None:
+        return _data_parallel_ids(engine, list(queries), list(states), max_new)
     tokens, n = _merged_decode(engine, states, None, max_new - 1, queries=queries,
                                write_back=False)
     return [_trim(engine, tokens[b, :n + 1]).astype(np.int32) for b in range(len(states))]
+
+
+def _data_parallel_ids(engine: Engine, queries: list, states: list,
+                       max_new: int) -> List[np.ndarray]:
+    """:func:`batched_generate_ids` on a mesh: the batch split over the
+    batch axes where they divide it (else whole on every shard), each
+    shard's share merged and decoded on its ranks, the answers gathered
+    from every rank so that each returns the whole list."""
+    if any(isinstance(st.cache, (PoolKV, PoolInt4KV)) for st in states):
+        raise NotImplementedError(
+            "batch STACKING supports dense KVCache and flat "
+            "FlatKV/FlatInt4KV states; pool caches batch through the "
+            "single-device MERGED-pool path instead (serving._merge_pool) "
+            "— on a mesh, prune serving engines with "
+            'flat_decode="legacy"')
+    B = len(states)
+    n_dp, idx = batch_shard(engine.mesh)
+    lo, hi = (idx * B // n_dp, (idx + 1) * B // n_dp) if B % n_dp == 0 else (0, B)
+    tokens, n = _merged_decode(engine, states[lo:hi], None, max_new - 1,
+                               queries=queries[lo:hi], write_back=False)
+    mine = {lo + b: _trim(engine, tokens[b, :n + 1]).astype(np.int32) for b in range(hi - lo)}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    out = {}
+    for part in every:
+        out.update(part)
+    return [out[b] for b in range(B)]
 
 
 def batched_logits(engine: Engine, seqs: Sequence[np.ndarray], states: Sequence[KVState],

@@ -6,7 +6,7 @@ choices, types); the ``--canary`` sweep's ``parse`` table reads 100.00
 at ratio 1.00 and does not rise as the ratio falls;
 ``test`` runs and saves head scores; ``demo`` prints its JSON line, and
 its baseline reports the card's out-of-memory error and lets every other
-error through; ``--tp`` above 1 and a missing card raise. One comparison
+error through; ``--tp`` above 1 outside N ranks and a missing card raise. One comparison
 of the two command lines: ``eval`` on a tiny checkpoint directory that
 both packages load (the same weights, the same byte tokenizer: with no
 tokenizer files both fall back to it) writes the same result file (9 ratio
@@ -133,13 +133,16 @@ def test_demo_on_the_cpu(cpu_run, capsys, monkeypatch):
 
 def test_card_and_tp_checks(monkeypatch):
     """Without KVZIP_PLATFORM=cpu the engine asks for the card (and raises
-    where there is none); ``--tp`` above 1 waits for ``parallel/``."""
+    where there is none); ``--tp`` above 1 runs one process a rank, so in
+    a process that is not one of N ranks it raises and names the torchrun
+    command (``tests/test_torch_parallel_serving.py`` runs it in two)."""
     monkeypatch.delenv("KVZIP_PLATFORM", raising=False)
     assert cli.device() == "cuda"
     monkeypatch.setenv("KVZIP_PLATFORM", "cpu")
     assert cli.device() == "cpu"
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     args = cli.build_parser().parse_args(["eval", "--tp", "2"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         cli.make_engine(args)
     if not torch.cuda.is_available():
         monkeypatch.delenv("KVZIP_PLATFORM")

@@ -27,7 +27,10 @@ def test_import_loads_no_jax_and_no_reference():
             "kvzip_tpu_torch.ops.w4a8_fused, "
             "kvzip_tpu_torch.cache, kvzip_tpu_torch.models.params, "
             "kvzip_tpu_torch.models.transformer, kvzip_tpu_torch.models.hybrid, "
-            "kvzip_tpu_torch.serving, "
+            "kvzip_tpu_torch.serving, kvzip_tpu_torch.parallel, "
+            "kvzip_tpu_torch.parallel.mesh, kvzip_tpu_torch.parallel.collectives, "
+            "kvzip_tpu_torch.parallel.pool_tp, kvzip_tpu_torch.parallel.ring_prefill, "
+            "kvzip_tpu_torch.parallel.dryrun, "
             "kvzip_tpu_torch.cli, kvzip_tpu_torch.native, kvzip_tpu_torch.data.loaders, "
             "kvzip_tpu_torch.data.needle, kvzip_tpu_torch.data.wrapper, "
             "kvzip_tpu_torch.eval.metrics, kvzip_tpu_torch.eval.repoqa, "

@@ -39,6 +39,9 @@ K16 also at the gemma3 hybrid's prefill and scoring rows (T 2,304, 4,096,
 replayed from a CUDA graph across the ring's end equals its eager run bit
 for bit, and the captured decode step over a hybrid cache gives the
 per-token loop's tokens, counters and rings.
+K1-K7 also at a tensor-parallel rank's local head counts (14 over 2, 7
+over 1), and an engine on a world-size-1 NCCL mesh captures its decode
+step with the collectives inside the graph.
 K12 (the fused W4A8 decode layer) goes through ``parity`` with the output
 rtol on both outputs: its chained s8 quantizations may flip a value at a
 rounding boundary, which moves later sums by one s8 step of one input;
@@ -1856,3 +1859,65 @@ def test_hybrid_decode_captured_step_matches_eager(gen):
     eng.eos_ids = (eos,)
     (t1, l1, c1), (t2, l2, c2) = _both_loops(eng, st, q)
     assert t1 == t2 and len(t1) < 8 and c1 == c2
+
+
+# Tensor parallelism (``kvzip_tpu_torch/parallel``) runs the kernels on a
+# rank's local heads: qwen2.5-7b's 28 query heads over 4 kv heads are 14
+# over 2 at tp 2 and 7 over 1 at tp 4 (G 7 either way), new shapes for
+# the kernels' plans (``ragged_decode.plan_splits``, ``int4_decode.plan``).
+TP_LOCAL = [(14, 2), (7, 1)]
+TP_LOCAL_CASES = {
+    "flash": lambda g, H, Hkv, T: test_flash_kernel(g, H, Hkv, T, 4096, 1792),
+    "score": lambda g, H, Hkv, T: test_score_kernel(g, H, Hkv, 256, 300),
+    "ragged_decode": lambda g, H, Hkv, T: test_ragged_decode_kernel(g, H, Hkv, T, "ragged"),
+    "pool_decode": lambda g, H, Hkv, T: test_pool_decode_kernel(g, H, Hkv, T),
+    "flash_int4": lambda g, H, Hkv, T: test_flash_int4_kernel(g, H, Hkv, T, 4096, 3000),
+    "flash_int4_prefill": lambda g, H, Hkv, T: test_flash_int4_prefill_kernel(
+        g, H, Hkv, T, 2048, 1748),
+    "flash_int4_extra": lambda g, H, Hkv, T: test_flash_int4_extra_kernel(
+        g, H, Hkv, T, 2048, 1500),
+    "pool_decode_int4": lambda g, H, Hkv, T: test_pool_decode_int4_kernel(g, H, Hkv, T),
+    "pool_decode_int4_q8": lambda g, H, Hkv, T: test_pool_decode_int4_q8_kernel(g, H, Hkv, T),
+}
+
+
+@pytest.mark.parametrize("H,Hkv", TP_LOCAL)
+@pytest.mark.parametrize("kernel,T", [
+    ("flash", 2304), ("flash", 48), ("score", 320), ("ragged_decode", 1),
+    ("ragged_decode", 8), ("pool_decode", 1), ("pool_decode", 16), ("flash_int4", 1),
+    ("flash_int4", 4), ("flash_int4_prefill", 300), ("flash_int4_extra", 320),
+    ("pool_decode_int4", 1), ("pool_decode_int4", 16), ("pool_decode_int4_q8", 1),
+    ("pool_decode_int4_q8", 16)])
+def test_kernels_at_tp_local_heads(gen, H, Hkv, kernel, T):
+    """K1-K7 (K5 in both forms, K7 also in q8 mode) at a TP rank's local
+    head counts, each against its plain version as in its own test."""
+    TP_LOCAL_CASES[kernel](gen, H, Hkv, T)
+
+
+def test_nccl_world1_decode_step_captures_the_collectives(gen, tmp_path):
+    """An engine on a world-size-1 NCCL mesh: its captured decode step
+    (the NCCL all-reduces and the head's all-gather inside the graph)
+    gives the per-token loop's tokens, counters and launches, and the
+    tokens of the same engine without a mesh; the capture counts 2L + 1
+    all-reduces (embedding, wo and w_down a layer) and one all-gather a
+    step."""
+    import torch.distributed as dist
+
+    from kvzip_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        eng = _loop_engine("bf16", mesh=make_mesh(tp=1))
+        st, q = _loop_state(eng, 5)
+        (t1, l1, c1), (t2, l2, c2) = _both_loops(eng, st, q)
+        assert t1 == t2 and l1 == l2 and c1 == c2
+        step = next(iter(st._steps.values()))
+        L = eng.config.num_layers
+        assert step.graph is not None
+        assert step.delta[1] == {"all_reduce model": 2 * L + 1, "all_gather model": 1}
+        one = _loop_engine("bf16")
+        st1, _ = _loop_state(one, 5)
+        assert one.generate_ids(q, st1).tolist() == eng.generate_ids(q, st).tolist()
+    finally:
+        dist.destroy_process_group()
