@@ -1,0 +1,14 @@
+"""The whole step of ``ingest``: the model's operations over the slice's
+documents (prefill, the scoring forwards and scores, query ingest and
+decode; ``roofline/work.py``) at the peak of the precision each part's
+matmuls run in, over the slice's seconds, %."""
+
+from portbench.roofline.work import ingest_unit
+from portbench.tracing import length, windows
+
+
+def read(rec):
+    wins = windows(rec, "unit")
+    if not wins or not rec.get("peaks"):
+        return None
+    return 100.0 * sum(ingest_unit(rec, u)["model"] for u in rec["units"]) / length(wins)
